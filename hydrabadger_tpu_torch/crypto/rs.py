@@ -1,0 +1,132 @@
+"""Systematic Reed-Solomon erasure coding over GF(2^8), host numpy.
+
+The port's own copy of the matrix route of `hydrabadger_tpu/crypto/rs.py`:
+a proposal is split into `data_shards` pieces, extended with
+`parity_shards` parity pieces, and any `data_shards` of the
+`data_shards + parity_shards` total reconstruct the original.
+
+Encoding matrix: Vandermonde V[n, k] normalised so the top k x k block is
+the identity (systematic), so every k x k submatrix is invertible.
+
+Left out on purpose, since the fast-path epoch never reaches them: the
+ctypes C++ library (`crypto/_native`) and the additive-FFT routing
+(`ops/rs_fft`).  Every product here is `gf256.matmul`, which both of those
+equal byte for byte.  This module builds the encode and decode matrices
+that the device path (ops/rs_torch.py) uploads, and it is the oracle of
+`sim/tensor.cpu_fast_path_epoch`.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional, Sequence
+
+import numpy as np
+
+from . import gf256
+
+
+class ReedSolomonError(ValueError):
+    pass
+
+
+@lru_cache(maxsize=256)
+def encode_matrix(data_shards: int, parity_shards: int) -> np.ndarray:
+    """[n, k] systematic encode matrix: identity on top, parity rows below."""
+    n = data_shards + parity_shards
+    if data_shards <= 0 or parity_shards < 0:
+        raise ReedSolomonError("shard counts must be positive")
+    if n > 255:
+        raise ReedSolomonError("total shards must be <= 255 for GF(2^8)")
+    vm = gf256.vandermonde(n, data_shards)
+    top_inv = gf256.mat_inv(vm[:data_shards])
+    mat = gf256.matmul(vm, top_inv)
+    mat.flags.writeable = False
+    return mat
+
+
+@lru_cache(maxsize=512)
+def decode_matrix(data_shards: int, parity_shards: int, rows: tuple) -> np.ndarray:
+    """[k, k] GF matrix recovering the k data rows from survivor `rows`."""
+    sub = encode_matrix(data_shards, parity_shards)[list(rows)]
+    inv = gf256.mat_inv(sub)
+    inv.flags.writeable = False
+    return inv
+
+
+class ReedSolomon:
+    """Erasure codec with the same contract as reed-solomon-erasure."""
+
+    def __init__(self, data_shards: int, parity_shards: int):
+        self.data_shards = int(data_shards)
+        self.parity_shards = int(parity_shards)
+        self.total_shards = self.data_shards + self.parity_shards
+        self.matrix = encode_matrix(self.data_shards, self.parity_shards)
+
+    def _parity_of(self, data: np.ndarray) -> np.ndarray:
+        return gf256.matmul(self.matrix[self.data_shards :], data)
+
+    def encode(self, data: np.ndarray) -> np.ndarray:
+        """data: [k, shard_len] uint8 -> [n, shard_len] (data rows + parity)."""
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        if data.ndim != 2 or data.shape[0] != self.data_shards:
+            raise ReedSolomonError(
+                f"expected [{self.data_shards}, L] data, got {data.shape}"
+            )
+        return np.concatenate([data, self._parity_of(data)], axis=0)
+
+    def reconstruct(
+        self, shards: Sequence[Optional[np.ndarray]], data_only: bool = False
+    ) -> list[np.ndarray]:
+        """Fill in missing (None) shards; needs >= data_shards present."""
+        if len(shards) != self.total_shards:
+            raise ReedSolomonError(
+                f"expected {self.total_shards} shard slots, got {len(shards)}"
+            )
+        present = [i for i, s in enumerate(shards) if s is not None]
+        if len(present) < self.data_shards:
+            raise ReedSolomonError(
+                f"need {self.data_shards} shards, have {len(present)}"
+            )
+        arrs = {}
+        shard_len = None
+        for i in present:
+            a = np.ascontiguousarray(shards[i], dtype=np.uint8)
+            if a.ndim != 1:
+                raise ReedSolomonError("shards must be 1-D uint8")
+            if shard_len is None:
+                shard_len = a.shape[0]
+            elif a.shape[0] != shard_len:
+                raise ReedSolomonError("shard length mismatch")
+            arrs[i] = a
+
+        out: list[Optional[np.ndarray]] = [
+            arrs.get(i) for i in range(self.total_shards)
+        ]
+        missing_data = [i for i in range(self.data_shards) if out[i] is None]
+        if missing_data:
+            rows = tuple(present[: self.data_shards])
+            inv = decode_matrix(self.data_shards, self.parity_shards, rows)
+            stacked = np.stack([arrs[i] for i in rows])  # [k, L]
+            recovered = gf256.matmul(inv[missing_data], stacked)
+            for row, i in enumerate(missing_data):
+                out[i] = recovered[row]
+        if not data_only:
+            missing_parity = [
+                i for i in range(self.data_shards, self.total_shards) if out[i] is None
+            ]
+            if missing_parity:
+                data = np.stack(out[: self.data_shards])
+                recovered = gf256.matmul(self.matrix[missing_parity], data)
+                for row, i in enumerate(missing_parity):
+                    out[i] = recovered[row]
+        return [o for o in out if o is not None] if data_only else out  # type: ignore
+
+    def verify(self, shards: Sequence[np.ndarray]) -> bool:
+        """Check parity rows match the data rows."""
+        data = np.stack(
+            [np.asarray(s, dtype=np.uint8) for s in shards[: self.data_shards]]
+        )
+        got = np.stack(
+            [np.asarray(s, dtype=np.uint8) for s in shards[self.data_shards :]]
+        )
+        return bool(np.array_equal(self._parity_of(data), got))

@@ -1,0 +1,154 @@
+"""Build the port's CUDA sources with nvcc and bind them with ctypes.
+
+Each `csrc/*.cu` source has a plain C interface and compiles on its own:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
+
+into `build/torch_kernels/` at the repository root (listed in .gitignore).
+The file name carries a hash of the sources and flags, so an edit to a
+source rebuilds it and an unchanged source loads the library already
+built.  Nothing here runs at import: the first CUDA launch builds what it
+needs (`load`), and `build` builds a set of libraries in parallel, one
+nvcc each, all started together.
+
+Every pointer and the stream cross as `c_void_p`, 64-bit integers as
+`c_longlong`.  Each C launch entry returns `cudaGetLastError()`, and
+`check` raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+
+# library name -> (source in csrc/, {C function: (argtypes, restype)})
+LIBRARIES = {
+    "gf256_matmul": (
+        "gf256_matmul.cu",
+        {
+            # device, consts, data, d_sb, d_sk, d_sl, out, o_sb, o_sm, o_sl,
+            # m, k, L, B, tile_m, stream
+            "gf256_matmul_launch": (
+                [_I, _P, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL,
+                 _I, _I, _I, _LL, _I, _P],
+                _I,
+            ),
+            "gf256_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for cand in candidates:
+        if os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's CUDA "
+        "kernels are built from csrc/ at their first launch"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where `name`'s library lives: keyed by its source, headers and flags."""
+    source, _ = LIBRARIES[name]
+    h = hashlib.sha256()
+    for path in [CSRC_DIR / source, *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, tuple[float, str]]:
+    """Build every library in `names` (default: all) that is not built yet.
+
+    One nvcc per source, all started together.  Returns, for each library
+    built now, (seconds, compiler output: ptxas registers and shared
+    memory per kernel).  Raises RuntimeError naming each failed build.
+    """
+    names = list(LIBRARIES) if names is None else list(names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        target = library_path(name)
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / LIBRARIES[name][0])]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            tmp,
+            target,
+            time.perf_counter(),
+        )
+    built, failed = {}, []
+    for name, (proc, tmp, target, t0) in procs.items():
+        output, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{output}")
+            continue
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+        built[name] = (seconds, output)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return built
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library `name`, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in LIBRARIES[name][1].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _loaded[name] = lib
+        return lib
+
+
+def check(name: str, lib: ctypes.CDLL, rc: int, error_fn: str) -> None:
+    """Raise if a launch entry returned a CUDA error code."""
+    if rc != 0:
+        msg = getattr(lib, error_fn)(rc)
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {rc} "
+            f"({msg.decode() if msg else 'unknown'})"
+        )

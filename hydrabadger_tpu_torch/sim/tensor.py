@@ -1,0 +1,191 @@
+"""Device-resident tensor simulator — the fault-free fast-path epoch.
+
+Counterpart of the fast path of hydrabadger_tpu/sim/tensor.py
+(`TensorSimConfig`, `_epoch`, `_run_epochs`, `TensorSim`,
+`cpu_fast_path_epoch`).  With no faults and timely delivery every
+Reliable Broadcast completes and every Binary Agreement decides 1 in its
+first round, so an epoch's outcome — every node commits the batch of all
+N proposals — is fixed by the data plane: RS-encode each proposal into N
+shards, disseminate (node j holds shard j of every proposal), rebuild
+every proposal from k shards, and check totality on the device.
+
+Shapes (B instances of an N-node network, k data + p parity shards,
+L-byte shards):
+
+    proposals   [B, N, k, L]   uint8   (node i's contribution, sharded)
+    encoded     [B, N, n, L]           one GF matmul (ops/rs_torch)
+    received    [B, n, N, L]           dissemination: a view of encoded
+    decoded     [B, N, k, L]           one GF matmul from a k-quorum
+    ok          [B]             bool   totality check
+
+Epochs chain through a Python loop (the next epoch's proposals derive
+from the previous decode); the totality flags are AND-ed on the device,
+so `TensorSim.run` syncs with the host once per call, not once per
+epoch.  The initial state comes from the same numpy stream as the JAX
+package's, so the two simulators agree byte for byte.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..crypto.rs import ReedSolomon
+from ..device import resolve_device
+from ..ops import rs_torch
+
+
+@dataclass(frozen=True)
+class TensorSimConfig:
+    n_nodes: int = 64
+    instances: int = 1024
+    shard_len: int = 32  # L; payload per node = k * L (256 B at N=64)
+    seed: int = 0
+
+    @property
+    def f(self) -> int:
+        return (self.n_nodes - 1) // 3
+
+    @property
+    def data_shards(self) -> int:
+        return self.n_nodes - 2 * self.f
+
+    @property
+    def parity_shards(self) -> int:
+        return 2 * self.f
+
+
+def _initial_proposals(cfg: TensorSimConfig) -> np.ndarray:
+    rng = np.random.default_rng(cfg.seed)
+    return rng.integers(
+        0,
+        256,
+        (cfg.instances, cfg.n_nodes, cfg.data_shards, cfg.shard_len),
+    ).astype(np.uint8)
+
+
+def epoch(proposals: torch.Tensor, k: int, p: int, use_kernel: bool = True):
+    """One fast-path epoch for every instance at once.
+
+    proposals: [B, N, k, L] -> (decoded [B, N, k, L], ok [B])
+    """
+    B, N, _k, L = proposals.shape
+    n = k + p
+    # 1. every node RS-encodes its proposal (fold nodes into the batch)
+    encoded = rs_torch.rs_encode_batch(
+        proposals.reshape(B * N, k, L), k, p, use_kernel
+    ).reshape(B, N, n, L)
+    # 2. dissemination: node j ends up holding shard j of every proposal.
+    #    The JAX package materialises this swap and the one below; here
+    #    both stay views of `encoded` (the same bytes at the same indices),
+    #    and the reconstruct reads them through their strides.
+    received = encoded.transpose(1, 2)  # [B, n(holder), N(proposer), L]
+    # 3. every node reconstructs every proposal from k gathered shards,
+    #    from the parity-heavy quorum (the worst case), so the real
+    #    reconstruction matmul runs — the systematic rows would be the
+    #    data verbatim
+    rows = tuple(range(p, n))  # all parity + tail data rows
+    parity_quorum = received[:, p:n].transpose(1, 2)  # [B, N, k, L] view
+    decoded = rs_torch.rs_reconstruct_batch(
+        parity_quorum.reshape(B * N, k, L), rows, k, p, use_kernel
+    ).reshape(B, N, k, L)
+    # 4. totality/agreement: every instance's decode matches its proposals
+    ok = (decoded == proposals).reshape(B, -1).all(dim=-1)
+    return decoded, ok
+
+
+def run_epochs(
+    proposals: torch.Tensor, k: int, p: int, epochs: int, use_kernel: bool = True
+):
+    """Chain `epochs` fast-path epochs; returns (final state, ok).
+
+    The next epoch's proposals are a byte-rotation of the decode, XOR 1,
+    as in the JAX package.  `ok` is a 0-d bool tensor on the device: the
+    AND of every instance's totality flag over every epoch."""
+    ok = torch.ones((), dtype=torch.bool, device=proposals.device)
+    state = proposals
+    for _ in range(epochs):
+        decoded, ok_epoch = epoch(state, k, p, use_kernel)
+        ok &= ok_epoch.all()
+        state = torch.roll(decoded, 1, -1) ^ 1
+    return state, ok
+
+
+class TensorSim:
+    """B-instance fast-path HoneyBadger network resident on one device.
+
+    `use_kernel=False` runs the plain PyTorch version of the GF kernel on
+    the device instead (the reference the kernel is held against)."""
+
+    def __init__(
+        self,
+        cfg: Optional[TensorSimConfig] = None,
+        device="cuda",
+        use_kernel: bool = True,
+    ):
+        self.cfg = cfg or TensorSimConfig()
+        self.device = resolve_device(device)
+        self.use_kernel = use_kernel
+        self._state = torch.from_numpy(_initial_proposals(self.cfg)).to(self.device)
+
+    @classmethod
+    def from_jax_state(
+        cls,
+        state: np.ndarray,
+        cfg: TensorSimConfig,
+        device="cuda",
+        use_kernel: bool = True,
+    ) -> "TensorSim":
+        """Resume from a JAX `TensorSim._state` read as numpy
+        ([instances, n_nodes, data_shards, shard_len] uint8)."""
+        state = np.asarray(state)
+        want = (cfg.instances, cfg.n_nodes, cfg.data_shards, cfg.shard_len)
+        if state.shape != want or state.dtype != np.uint8:
+            raise ValueError(f"expected uint8 {want}, got {state.dtype} {state.shape}")
+        sim = cls.__new__(cls)
+        sim.cfg = cfg
+        sim.device = resolve_device(device)
+        sim.use_kernel = use_kernel
+        sim._state = torch.from_numpy(state.copy()).to(sim.device)
+        return sim
+
+    def run(self, epochs: int) -> bool:
+        """Run epochs on the device; returns the totality verdict (all
+        instances, all epochs).  State stays on the device between calls;
+        the verdict is the only host sync."""
+        cfg = self.cfg
+        self._state, ok = run_epochs(
+            self._state, cfg.data_shards, cfg.parity_shards, epochs, self.use_kernel
+        )
+        return bool(ok)
+
+    def state(self) -> np.ndarray:
+        """The current proposals, copied to the host."""
+        return self._state.cpu().numpy()
+
+    def committed_bytes_per_epoch(self) -> int:
+        cfg = self.cfg
+        return cfg.instances * cfg.n_nodes * cfg.data_shards * cfg.shard_len
+
+
+def cpu_fast_path_epoch(proposals: np.ndarray, k: int, p: int) -> np.ndarray:
+    """Byte-identical host reference for one fast-path epoch: the
+    per-instance, per-node loop (numpy RS).  The correctness oracle."""
+    B, N, _k, L = proposals.shape
+    n = k + p
+    rs = ReedSolomon(k, p)
+    decoded = np.empty_like(proposals)
+    rows = list(range(p, n))
+    for b in range(B):
+        encoded = np.stack([rs.encode(proposals[b, i]) for i in range(N)])
+        received = np.swapaxes(encoded, 0, 1)
+        parity_quorum = np.swapaxes(received[p:n], 0, 1)  # [N, k, L]
+        for i in range(N):
+            slots: list = [None] * n
+            for j, r in enumerate(rows):
+                slots[r] = parity_quorum[i, j]
+            shards = rs.reconstruct(slots, data_only=True)
+            decoded[b, i] = np.stack(shards[:k])
+    return decoded

@@ -1,0 +1,89 @@
+"""Trace the fast-path epoch loop: where the device time of an epoch goes.
+
+    python -m hydrabadger_tpu_torch.sim.trace_epoch [--epochs 20]
+        [--instances 1024] [--trace PATH]
+
+Warms a `TensorSim` at the config-6 geometry (64 nodes, 12-byte shards),
+then runs `run(epochs)` under `torch.profiler` and prints one JSON object:
+the window's wall ms, the device's busy ms (the union of its kernel and
+copy intervals) and idle share, and device ms per epoch for each kernel
+name.  `--trace` also writes the Chrome trace.  The profiler adds host
+cost to every launch, so the traced epochs/s is below the untraced one;
+the device times are the kernels' own.  Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from .tensor import TensorSim, TensorSimConfig
+
+
+def _union_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(intervals):
+        if start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy
+
+
+def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> dict:
+    """Profile `epochs` epochs after a warm-up; see the module docstring."""
+    sim = TensorSim(cfg, device=device)
+    if not sim.run(2):  # warm-up: builds the kernels, uploads the matrices
+        raise RuntimeError("warm-up epochs: totality violated")
+    on_card = sim.device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    if on_card:
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        ok = sim.run(epochs)  # ends in the verdict's host sync
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not ok:
+        raise RuntimeError("traced epochs: totality violated")
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per_name = defaultdict(float)
+    for e in device_events:
+        per_name[e.name] += e.time_range.elapsed_us()
+    busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in device_events) / 1e3
+    return {
+        "device": torch.cuda.get_device_name(sim.device) if on_card else "cpu",
+        "epochs": epochs,
+        "instances": cfg.instances,
+        "wall_ms": wall_ms,
+        "traced_epochs_per_s": epochs / (wall_ms / 1e3),
+        "device_busy_ms": busy_ms if device_events else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if device_events else None,
+        "device_ms_per_epoch": {
+            name: us / 1e3 / epochs
+            for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])
+        },
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--instances", type=int, default=1024)
+    ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    args = ap.parse_args(argv)
+    cfg = TensorSimConfig(n_nodes=64, instances=args.instances, shard_len=12)
+    print(json.dumps(trace(cfg, args.epochs, trace_path=args.trace)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
