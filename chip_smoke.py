@@ -18,7 +18,26 @@ failure:
      epoch, the final state against the same epochs through the plain
      version, and one epoch of sampled instances against the host oracle;
   5. timings: epochs/s, each kernel's time per launch against its bound,
-     its plain version and a torch.matmul yardstick.
+     its plain version and a torch.matmul yardstick;
+  6. the threshold-decrypt set-up: FullCryptoTensorSim at the config-8
+     geometry (64 nodes x 64 instances = 4096 ciphertexts, t = 21): the
+     key set and one host G1 multiply per ciphertext;
+  7. kernel B2 (fq_point) against its plain version, exact: every entry
+     (mul, dbl, add, ladd, dblk4, win6) at 4096 lanes and at a ragged
+     1013, with infinity, P + P and P + (-P) lanes, and the main path's
+     wider shapes;
+  8. kernel B3 (circuit) against its plain version, exact: the three
+     decrypt circuits at 94,208 (23 ladders x 4096) and 4096 lanes, and
+     the signed-mix regression vector;
+  9. the main path: one warm-up epoch, held byte for byte against the same
+     epoch through the plain versions on the card; then 3 epochs with every
+     launch counter set to 0 just before and read just after: the verdict,
+     the launch counts the static digits imply, and sampled lanes against
+     the host oracle;
+ 10. timings: epochs/s; each B2 entry's and circuit's device time per
+     launch at the main path's shapes and operand forms (CUDA events over
+     back-to-back launches, median), its plain version, its bound and what
+     sets it.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
@@ -43,6 +62,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
 
 N_NODES, INSTANCES, SHARD_LEN, EPOCHS = 64, 1024, 12, 50
+FC_NODES, FC_INSTANCES, FC_EPOCHS = 64, 64, 3
+# A 384-bit Montgomery product in its cheapest exact form at a published
+# peak: int8 digit MACs on the tensor cores, 48x48 for a*b, the low half
+# (48*49/2) for m = t p' mod R, 48x48 for m*p; one MAC = 2 ops.
+OPS_PER_PRODUCT = 2 * (48 * 48 + 48 * 49 // 2 + 48 * 48)
+ELEMENT_BYTES = 48
 
 
 class SmokeFailure(RuntimeError):
@@ -86,6 +111,261 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max().item())
 
 
+def launch_ms(fn, reps: int = 10, batches: int = 3) -> float:
+    """Device ms per call of fn by CUDA events: a spin kernel keeps the card
+    busy while the host queues `reps` calls between two events, so the
+    calls run back to back and no host gap is timed; median of `batches`."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms of spinning ahead of the queue
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / reps)
+    return float(np.median(per))
+
+
+def wall_ms(fn) -> float:
+    """Host ms of one call of fn, ended by a synchronize (after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bound(products: int, lanes: int, elements: int) -> tuple[float, float]:
+    """(operations ms, bytes ms) of `products` Montgomery products per lane
+    over `lanes` lanes that read and write `elements` field elements each."""
+    ops_ms = products * lanes * OPS_PER_PRODUCT / PEAK_INT8_OPS_PER_S * 1e3
+    bytes_ms = elements * ELEMENT_BYTES * lanes / PEAK_BYTES_PER_S * 1e3
+    return ops_ms, bytes_ms
+
+
+def full_crypto(dev: torch.device, tag: str) -> list[dict]:
+    """Phases 6-10: kernels B2 and B3 and the threshold-decrypt main path.
+    Returns the two kernels' entries of the `kernels` line."""
+    from hydrabadger_tpu_torch.ops import circuit_torch, fq_torch as fq, gf256_torch, limbs
+    from hydrabadger_tpu_torch.ops import decrypt_torch as dt
+    from hydrabadger_tpu_torch.ops.fp12_circuit import CircuitBuilder
+    from hydrabadger_tpu_torch.ops.circuit_torch import CircuitExec
+    from hydrabadger_tpu_torch.sim import tensor as ts
+
+    # -- 6. set-up ---------------------------------------------------------
+    cfg = ts.FullCryptoConfig(n_nodes=FC_NODES, instances=FC_INSTANCES)
+    t0 = time.perf_counter()
+    sim = ts.FullCryptoTensorSim(cfg, device="cuda")
+    n = cfg.instances * cfg.n_nodes
+    q = cfg.threshold + 1
+    S = q + 1
+    print(f"full-crypto set-up: {n} ciphertexts (key set + {n} host G1 multiplies) "
+          f"{time.perf_counter() - t0:.2f} s; t = {cfg.threshold}, q = {q}")
+    u0_host = sim.state()  # JAX layout, for the plain run's copy of the start
+    worst = {"fq_point": 0, "circuit": 0}
+
+    def hold(kernel, label, got_fn, want_fn):
+        got = got_fn()
+        torch.cuda.synchronize()
+        want = want_fn()
+        err = max_abs_err(got, want)
+        worst[kernel] = max(worst[kernel], err)
+        check(torch.equal(got, want), f"{kernel} != plain at {label} (max err {err})")
+        print(f"kernel == plain, exact: {kernel} {label}")
+
+    # -- 7. B2 against its plain version -----------------------------------
+    a = sim._U.clone()
+    b = fq.jac_double_plain(a).roll(1, -1).contiguous()
+    c = a.roll(7, -1).contiguous()
+    inf = fq.jac_infinity(1, dev)[:, :, 0]
+    b[:, :, 0] = a[:, :, 0]  # P + P
+    b[:, :, 1] = inf  # P + infinity
+    b[:, :, 3] = a[:, :, 3]
+    b[1, :, 3:4] = fq.fq_sub(torch.zeros_like(a[1, :, 3:4]), a[1, :, 3:4])  # P + (-P)
+    a_inf = a.clone()
+    a_inf[:, :, 2] = inf  # infinity + Q
+    for m in (n, 1013):
+        x, y, z, xi = (t[..., :m].contiguous() for t in (a, b, c, a_inf))
+        hold("fq_point", f"mul [12, {m}]", lambda: fq.fq_mul(x[0], y[1]),
+             lambda: fq.fq_mul_plain(x[0], y[1]))
+        hold("fq_point", f"dbl [3, 12, {m}]", lambda: fq.jac_double(x),
+             lambda: fq.jac_double_plain(x))
+        hold("fq_point", f"add [3, 12, {m}] (inf, P+P, P-P lanes)", lambda: fq.jac_add(xi, y),
+             lambda: fq.jac_add_plain(xi, y))
+        hold("fq_point", f"ladd [3, 12, {m}]", lambda: fq.jac_add_ladder(xi, y),
+             lambda: fq.jac_add_ladder_plain(xi, y))
+        hold("fq_point", f"dblk4 [3, 12, {m}]", lambda: fq.jac_double_k(x, 4),
+             lambda: fq.jac_double_k_plain(x, 4))
+        hold("fq_point", f"win6 [3, 12, {m}]", lambda: fq.window_step(x, y, z, 6),
+             lambda: fq.window_step_plain(x, y, z, 6))
+    wide_a, wide_b = a.repeat(1, 1, q), b.repeat(1, 1, q)
+    hold("fq_point", f"dbl [3, 12, {q * n}]", lambda: fq.jac_double(wide_a),
+         lambda: fq.jac_double_plain(wide_a))
+    hold("fq_point", f"ladd [3, 12, {q * n}]", lambda: fq.jac_add_ladder(wide_a, wide_b),
+         lambda: fq.jac_add_ladder_plain(wide_a, wide_b))
+    tx = a[0].repeat(1, 64)
+    beta = torch.as_tensor(limbs.BETA_MONT, device=dev)[:, None]  # one element, every lane
+    hold("fq_point", f"mul [12, {64 * n}] by one constant element (beta)",
+         lambda: fq.fq_mul(tx, beta), lambda: fq.fq_mul_plain(tx, beta))
+    hold("fq_point", f"mul [12, 1013] by one constant element (beta)",
+         lambda: fq.fq_mul(tx[:, :1013], beta), lambda: fq.fq_mul_plain(tx[:, :1013], beta))
+
+    # -- 8. B3 against its plain version -----------------------------------
+    circuits = [dt._dblk_add_circuit(6), dt._add_circuit(), dt._dblk_add_circuit(4)]
+    for lanes in (S * n, n):
+        k = lanes // n
+        xin = torch.cat([a.repeat(1, 1, k), b.repeat(1, 1, k)])
+        for circ in circuits:
+            hold("circuit", f"{circ.name} [6, 12, {lanes}] ({circ.n_products} products)",
+                 lambda: circ(xin), lambda: circ.plain(xin))
+    # tests/test_circuit_T.py's crafted signed-carry vector in lane 0
+    P = limbs.P
+    kp = [(4 * P >> (12 * i)) & 4095 for i in range(35)]
+    tt = [0] * 32
+    tt[2], tt[3], tt[4], tt[5] = -4096 - kp[2], -kp[3], -kp[4], -kp[5]
+    x0 = [(3 - (-v) % 3) % 3 for v in tt]
+    x1 = [(x0[j] - tt[j]) // 3 for j in range(32)]
+    v0 = sum(d << (12 * i) for i, d in enumerate(x0))
+    v1 = sum(d << (12 * i) for i, d in enumerate(x1))
+    cb = CircuitBuilder(2)
+    i0, i1 = cb.input(0), cb.input(1)
+    mix = CircuitExec(cb.compile([i0 - i1 - i1 - i1]), "signed_mix")
+    xm = torch.stack([a[0], b[1]])
+    xm[:, :, 0] = torch.from_numpy(limbs.ints_to_limbs_batch([v0, v1])).to(dev)
+    hold("circuit", f"signed mix [1, -3] [2, 12, {n}]", lambda: mix(xm), lambda: mix.plain(xm))
+    got0 = limbs.limbs_to_ints_batch(mix(xm)[0, :, :1].T.cpu().numpy())[0]
+    check(got0 == (v0 - 3 * v1) % P, "signed-mix vector != (v0 - 3 v1) mod p")
+    print("signed-mix regression vector == (v0 - 3 v1) mod p")
+
+    # -- 9. the main path --------------------------------------------------
+    t0 = time.perf_counter()
+    check(sim.run(1), "full-crypto warm-up epoch: the check failed")
+    print(f"warm-up epoch {time.perf_counter() - t0:.3f} s")
+    plain = ts.FullCryptoTensorSim.from_jax(u0_host, sim._sks, sim._master, sim._quorum,
+                                            device="cuda", use_kernel=False)
+    t0 = time.perf_counter()
+    check(plain.run(1), "plain epoch: the check failed")
+    plain_epoch_s = time.perf_counter() - t0
+    check(torch.equal(sim._U, plain._U), "state after one epoch != the plain versions' epoch")
+    print(f"state after one epoch at {FC_NODES} x {FC_INSTANCES} == the same epoch through "
+          f"the plain versions on the card ({plain_epoch_s:.2f} s)")
+    del plain
+
+    want = sim.epoch.launch_counts()
+    torch.cuda.synchronize()
+    fq.launches, circuit_torch.launches, gf256_torch.launches = 0, 0, 0
+    fq.launches_by_kind.clear()
+    circuit_torch.launches_by_circuit.clear()
+    t0 = time.perf_counter()
+    ok = sim.run(FC_EPOCHS)  # one host sync, at the end
+    main_s = time.perf_counter() - t0
+    counts = {"fq_point": fq.launches, "circuit": circuit_torch.launches,
+              "gf256_matmul": gf256_torch.launches}
+    by_entry = {"fq_point": dict(fq.launches_by_kind),
+                "circuit": dict(circuit_torch.launches_by_circuit)}
+    check(ok, "full-crypto main path: the check failed")
+    for kernel in ("fq_point", "circuit"):
+        expect = {k: v * FC_EPOCHS for k, v in want[kernel].items()}
+        check(by_entry[kernel] == expect,
+              f"{kernel} launches {by_entry[kernel]}, the digits imply {expect}")
+        check(counts[kernel] > 0, f"main path made no {kernel} launch")
+    print(f"main path: {FC_EPOCHS} epochs ok, launches {counts}, by entry {by_entry} "
+          f"(== {FC_EPOCHS} x the digits' {want})")
+    lanes_checked = [0, n // 2 - 1, n - 1]
+    check(sim.oracle_check(lanes_checked), "sampled lanes != the host oracle")
+    print(f"last epoch's lanes {lanes_checked} == U + sum lam_i (U sk_i) (host oracle)")
+
+    # -- 10. timings -------------------------------------------------------
+    eps = [FC_EPOCHS / main_s]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(sim.run(FC_EPOCHS), "timed run: the check failed")
+        eps.append(FC_EPOCHS / (time.perf_counter() - t0))
+    print(f"epochs/s at {FC_NODES} nodes x {FC_INSTANCES} instances: "
+          f"{[round(e, 3) for e in eps]} {tag}")
+
+    by_name = {circ.name: circ for circ in circuits}
+    rows = []
+    for r in sim.epoch.launch_shapes():
+        k = r.lanes // n
+        if r.kernel == "fq_point":
+            fn, plain_fn = fq.ENTRIES[r.name]
+            if r.name == "mul":
+                x = a[0].repeat(1, k)
+                other = {"a*b": b[1].repeat(1, k), "a*a": x, "a*const": beta}[r.form]
+                ins = (x, other)
+            else:
+                ins = (a.repeat(1, 1, k),) + ((b.repeat(1, 1, k),) if r.name in ("add", "ladd") else ())
+            prods = fq.products(r.name)
+            ms = launch_ms(lambda: fn(*ins))
+            p_ms = wall_ms(lambda: plain_fn(*ins))
+        else:
+            circ = by_name[r.name]
+            xin = torch.cat([a.repeat(1, 1, k), b.repeat(1, 1, k)])
+            prods = circ.n_products
+            ms = launch_ms(lambda: circ(xin))
+            p_ms = wall_ms(lambda: circ.plain(xin))
+        ops_ms, bytes_ms = bound(prods, r.lanes, r.elements)
+        rows.append({"kernel": r.kernel, "entry": r.name, "form": r.form, "lanes": r.lanes,
+                     "per_epoch": r.count, "products_per_lane": prods,
+                     "elements_per_lane": r.elements, "ms": ms, "plain_ms": p_ms,
+                     "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+        print(f"{r.kernel} {r.name}{' ' + r.form if r.form else ''} x {r.lanes} lanes "
+              f"({r.count}/epoch): kernel {ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+              f"{max(ops_ms, bytes_ms):.5f} ms (int8 ops {ops_ms:.5f}, bytes {bytes_ms:.5f}), "
+              f"{ms / max(ops_ms, bytes_ms):.0f}x {tag}")
+    epoch_ms = 1e3 / float(np.median(eps))
+    per = {}
+    for kernel in ("fq_point", "circuit"):
+        mine = [r for r in rows if r["kernel"] == kernel]
+        per[kernel] = {key: sum(r[key] * r["per_epoch"] for r in mine)
+                       for key in ("ms", "plain_ms", "bound_ms")}
+        # the side that sets the larger part of the summed per-launch bounds
+        by_ops = sum(r["bound_ms"] * r["per_epoch"] for r in mine if r["bound_by"] == "operations")
+        per[kernel]["bound_by"] = "operations" if 2 * by_ops >= per[kernel]["bound_ms"] else "bytes"
+    kern_ms = per["fq_point"]["ms"] + per["circuit"]["ms"]
+    bound_total = per["fq_point"]["bound_ms"] + per["circuit"]["bound_ms"]
+    print(f"config-8 epoch {epoch_ms:.3f} ms: B2 {per['fq_point']['ms']:.3f} ms + B3 "
+          f"{per['circuit']['ms']:.3f} ms of kernel time ({100 * kern_ms / epoch_ms:.1f}%); "
+          f"bound {bound_total:.4f} ms (B2 {per['fq_point']['bound_ms']:.4f}, "
+          f"{per['fq_point']['bound_by']}; B3 {per['circuit']['bound_ms']:.4f}, "
+          f"{per['circuit']['bound_by']}) {tag}")
+    print(json.dumps({"full_crypto_shapes": rows, "epochs_per_s": eps,
+                      "plain_epoch_s": plain_epoch_s}))
+
+    entries = []
+    for kernel, src, replaces in (
+        ("fq_point", "fq_point.cu", "hydrabadger_tpu/ops/fq_T.py:506"),
+        ("circuit", "circuit.cu", "hydrabadger_tpu/ops/circuit_T.py:336"),
+    ):
+        p = per[kernel]
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": f"hydrabadger_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": counts[kernel],
+            "max_abs_err": worst[kernel],
+            "per": f"one config-8 epoch ({FC_NODES} x {FC_INSTANCES}): every launch shape "
+                   f"times its launches per epoch",
+            "ms": p["ms"],
+            "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"],
+            "bound_by": p["bound_by"],
+            "library_ms": None,
+        })
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -94,7 +374,7 @@ def main() -> int:
 
     from hydrabadger_tpu_torch.crypto import gf256
     from hydrabadger_tpu_torch.crypto.rs import decode_matrix, encode_matrix
-    from hydrabadger_tpu_torch.ops import _kernels, gf256_torch
+    from hydrabadger_tpu_torch.ops import _kernels, circuit_torch, fq_torch, gf256_torch
     from hydrabadger_tpu_torch.sim import tensor as ts
 
     dev = torch.device("cuda", 0)
@@ -179,11 +459,12 @@ def main() -> int:
     check(plain.run(2), "plain warm-up epochs: totality violated")
     torch.cuda.synchronize()
 
-    gf256_torch.launches = 0
+    gf256_torch.launches, fq_torch.launches, circuit_torch.launches = 0, 0, 0
     t0 = time.perf_counter()
     ok = sim.run(EPOCHS)  # one host sync, at the end
     main_s = time.perf_counter() - t0
-    counts = {"gf256_matmul": gf256_torch.launches}
+    counts = {"gf256_matmul": gf256_torch.launches, "fq_point": fq_torch.launches,
+              "circuit": circuit_torch.launches}
     check(ok, "main path: totality violated")
     check(counts["gf256_matmul"] == 2 * EPOCHS,
           f"main path made {counts['gf256_matmul']} gf256_matmul launches, want {2 * EPOCHS}")
@@ -259,6 +540,7 @@ def main() -> int:
         "bound_by": "operations" if ops_total >= bytes_total else "bytes",
         "library_ms": None,
     }]
+    kernels += full_crypto(dev, tag)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

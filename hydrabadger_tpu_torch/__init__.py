@@ -4,14 +4,22 @@ A package of its own beside the JAX one, which stays the reference.  It
 imports torch and numpy and nothing of JAX or of hydrabadger_tpu: what it
 needs of the JAX-free host code it keeps as its own copy (crypto/).
 
-    device.py        resolve_device: the card unless the caller asks for cpu
-    crypto/gf256.py  GF(2^8) tables and host matrix ops (numpy)
-    crypto/rs.py     encode/decode matrices, numpy ReedSolomon (the oracle)
-    csrc/            hand-written CUDA sources for sm_90a (H100)
-    ops/_kernels.py  nvcc build into build/torch_kernels/, ctypes binding
-    ops/gf256_torch  GF(2^8) matmul: the kernel and its plain version
-    ops/rs_torch     batched RS encode / reconstruct
-    sim/tensor.py    the fault-free fast-path epoch (TensorSim)
+    device.py            resolve_device: the card unless the caller asks for cpu
+    crypto/gf256.py      GF(2^8) tables and host matrix ops (numpy)
+    crypto/rs.py         encode/decode matrices, numpy ReedSolomon (the oracle)
+    crypto/bls12_381.py  G1 over Fp, pure Python (the host oracle)
+    crypto/threshold.py  Shamir key sets, Lagrange, decryption shares
+    csrc/                hand-written CUDA sources for sm_90a (H100)
+    ops/_kernels.py      nvcc build into build/torch_kernels/, ctypes binding
+    ops/gf256_torch      GF(2^8) matmul: the kernel and its plain version
+    ops/rs_torch         batched RS encode / reconstruct
+    ops/limbs.py         the Fp limb layout and host conversions
+    ops/fq_torch         Fp and Jacobian G1 ops: kernel B2 and its plain version
+    ops/fp12_circuit     the circuit recorder (numpy)
+    ops/circuit_torch    recorded circuits: kernel B3 and its plain version
+    ops/decrypt_torch    the fused threshold-decrypt epoch (config 8)
+    sim/tensor.py        the fast-path epoch (TensorSim) and the
+                         threshold-decrypt plane (FullCryptoTensorSim)
 
 Importing builds nothing and touches no card; kernels build at their
 first launch on a CUDA tensor.

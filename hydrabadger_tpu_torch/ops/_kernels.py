@@ -55,6 +55,22 @@ LIBRARIES = {
             "gf256_error_string": ([_I], ctypes.c_char_p),
         },
     ),
+    "fq_point": (
+        "fq_point.cu",
+        {
+            # device, kind, k, a, b, c, out, n, stream
+            "fq_point_launch": ([_I, _I, _I, _P, _P, _P, _P, _LL, _P], _I),
+            "fq_point_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
+    "circuit": (
+        "circuit.cu",
+        {
+            # device, prog, prog_len, in, consts, scratch, out, n, stream
+            "circuit_launch": ([_I, _P, _I, _P, _P, _P, _P, _LL, _P], _I),
+            "circuit_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
 }
 
 _lock = threading.Lock()

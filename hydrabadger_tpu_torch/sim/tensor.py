@@ -23,18 +23,26 @@ from the previous decode); the totality flags are AND-ed on the device,
 so `TensorSim.run` syncs with the host once per call, not once per
 epoch.  The initial state comes from the same numpy stream as the JAX
 package's, so the two simulators agree byte for byte.
+
+`FullCryptoTensorSim` (below) is the other half of an epoch with
+threshold encryption on: every node's decryption share of every
+proposer's ciphertext and their Lagrange combine (bench config 8), on
+ops/decrypt_torch.
 """
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..crypto import bls12_381 as bls
+from ..crypto import threshold as th
 from ..crypto.rs import ReedSolomon
 from ..device import resolve_device
-from ..ops import rs_torch
+from ..ops import decrypt_torch, limbs, rs_torch
 
 
 @dataclass(frozen=True)
@@ -189,3 +197,121 @@ def cpu_fast_path_epoch(proposals: np.ndarray, k: int, p: int) -> np.ndarray:
             shards = rs.reconstruct(slots, data_only=True)
             decoded[b, i] = np.stack(shards[:k])
     return decoded
+
+
+# ---------------------------------------------------------------------------
+# Full-crypto fast path: threshold decryption inside the epoch (config 8)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FullCryptoConfig:
+    """N-node x B-instance threshold-decryption plane.
+
+    Every node emits a decryption share U*sk_i for every proposer's
+    ciphertext U, and t+1 shares Lagrange-combine to the plaintext point:
+    B*N ciphertexts per epoch, chained through U_next = U + combine so no
+    epoch can be elided.  (The JAX config's `share_chunks` sizes its
+    generic engine's ladder memory; the port runs only the decrypt_T
+    engine, which needs no chunking.)"""
+
+    n_nodes: int = 64
+    instances: int = 256
+    seed: int = 0
+
+    @property
+    def threshold(self) -> int:
+        return (self.n_nodes - 1) // 3
+
+
+class FullCryptoTensorSim:
+    """Device-resident threshold-decrypt epochs over B*N ciphertexts.
+
+    The key set and the initial ciphertext points come from
+    `random.Random(cfg.seed)` in the JAX sim's order (the key set, then
+    one 128-bit scalar per ciphertext), so both sims start equal; the
+    initial U costs one pure-Python G1 multiply per ciphertext (~7 ms
+    each).  The state U is [3, 12, B*N] int32 on the device (lane
+    b*N + i: instance b, proposer i); `state()` gives it in the JAX
+    layout.  `use_kernel=False` runs the plain PyTorch versions of the
+    kernels on the device instead.
+    """
+
+    def __init__(self, cfg: Optional[FullCryptoConfig] = None, device="cuda",
+                 use_kernel: bool = True):
+        cfg = cfg or FullCryptoConfig()
+        dev = resolve_device(device)
+        rng = random.Random(cfg.seed)
+        n, t = cfg.n_nodes, cfg.threshold
+        sk_set = th.SecretKeySet.random(t, rng)
+        sks = [sk_set.secret_key_share(i).scalar for i in range(n)]
+        r0 = [rng.getrandbits(128) for _ in range(cfg.instances * n)]
+        u0 = limbs.points_to_limbs([bls.mul_sub(bls.G1, r) for r in r0])
+        self._setup(cfg, u0, sks, sk_set.secret_key().scalar, list(range(t + 1)),
+                    dev, use_kernel)
+
+    @classmethod
+    def from_jax(cls, U, sks: Sequence[int], master: int, quorum: Sequence[int],
+                 device="cuda", use_kernel: bool = True):
+        """Resume from a JAX `FullCryptoTensorSim`: its `_U` read as numpy
+        ([instances, n_nodes, 3, 32] int32 12-bit limbs), `_sks`,
+        `_master` and `_quorum`."""
+        U = np.asarray(U)
+        if U.ndim != 4 or U.shape[2:] != (3, limbs.JAX_N_LIMBS) or U.shape[1] != len(sks):
+            raise ValueError(f"expected [instances, {len(sks)}, 3, 32] limbs, got {U.shape}")
+        cfg = FullCryptoConfig(n_nodes=U.shape[1], instances=U.shape[0])
+        if list(quorum) != list(range(cfg.threshold + 1)):
+            raise ValueError("the port runs the fixed lowest-(t+1) quorum")
+        sim = cls.__new__(cls)
+        sim._setup(cfg, limbs.limbs_from_jax(U), list(sks), master, list(quorum),
+                   resolve_device(device), use_kernel)
+        return sim
+
+    def _setup(self, cfg, u0: np.ndarray, sks, master: int, quorum, dev, use_kernel):
+        self.cfg = cfg
+        self.device = dev
+        self.use_kernel = use_kernel
+        self._sks = sks
+        self._master = master
+        self._quorum = quorum
+        self._lam = th.lagrange_coeffs_at_zero([i + 1 for i in quorum])
+        mp1 = (master + 1) % bls.R
+        if mp1 == 0:
+            raise ValueError("degenerate master key (master == -1 mod R)")
+        self._mp1 = mp1
+        self._U = torch.from_numpy(u0).to(dev)
+        self._U_prev = None  # the state before the last epoch (oracle_check)
+        self.epoch = decrypt_torch.build_epoch(
+            cfg.instances * cfg.n_nodes, [sks[i] for i in quorum], self._lam, mp1,
+            device=dev, use_kernel=use_kernel,
+        )
+
+    def run(self, epochs: int) -> bool:
+        """Run epochs on the device; returns the check verdict (all lanes,
+        all epochs).  The verdict is the only host sync."""
+        ok = torch.ones((), dtype=torch.bool, device=self.device)
+        for _ in range(epochs):
+            self._U_prev = self._U
+            self._U, ok_epoch = self.epoch(self._U)
+            ok &= ok_epoch
+        return bool(ok)
+
+    def state(self) -> np.ndarray:
+        """U in the JAX layout: [instances, n_nodes, 3, 32] int32 12-bit limbs."""
+        cfg = self.cfg
+        return limbs.limbs_to_jax(self._U.cpu().numpy(), (cfg.instances, cfg.n_nodes))
+
+    def oracle_check(self, lanes: Sequence[int]) -> bool:
+        """Hold sampled lanes of the last epoch against the host oracle:
+        U_next == U + sum_i lam_i (U sk_i), through crypto/threshold."""
+        if self._U_prev is None:
+            raise RuntimeError("oracle_check needs at least one epoch run")
+        lanes = list(lanes)
+        before = limbs.limbs_to_points(self._U_prev[:, :, lanes].cpu().numpy())
+        after = limbs.limbs_to_points(self._U[:, :, lanes].cpu().numpy())
+        for u, got in zip(before, after):
+            shares = {i: th.DecryptionShare(bls.mul_sub(u, self._sks[i])) for i in self._quorum}
+            combined = th.interpolate_g_at_zero({i + 1: s.point for i, s in shares.items()})
+            if not bls.eq(got, bls.add(u, combined)):
+                return False
+        return True

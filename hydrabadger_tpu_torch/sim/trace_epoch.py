@@ -1,10 +1,14 @@
-"""Trace the fast-path epoch loop: where the device time of an epoch goes.
+"""Trace an epoch loop: where the device time of an epoch goes.
 
     python -m hydrabadger_tpu_torch.sim.trace_epoch [--epochs 20]
         [--instances 1024] [--trace PATH]
+    python -m hydrabadger_tpu_torch.sim.trace_epoch --full-crypto
+        [--epochs 3] [--instances 64] [--trace PATH]
 
 Warms a `TensorSim` at the config-6 geometry (64 nodes, 12-byte shards),
-then runs `run(epochs)` under `torch.profiler` and prints one JSON object:
+or with --full-crypto a `FullCryptoTensorSim` at the config-8 geometry
+(64 nodes; its set-up makes one host G1 multiply per ciphertext), then
+runs `run(epochs)` under `torch.profiler` and prints one JSON object:
 the window's wall ms, the device's busy ms (the union of its kernel and
 copy intervals) and idle share, and device ms per epoch for each kernel
 name.  `--trace` also writes the Chrome trace.  The profiler adds host
@@ -22,7 +26,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .tensor import TensorSim, TensorSimConfig
+from .tensor import FullCryptoConfig, FullCryptoTensorSim, TensorSim, TensorSimConfig
 
 
 def _union_us(intervals) -> float:
@@ -37,11 +41,9 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> dict:
-    """Profile `epochs` epochs after a warm-up; see the module docstring."""
-    sim = TensorSim(cfg, device=device)
-    if not sim.run(2):  # warm-up: builds the kernels, uploads the matrices
-        raise RuntimeError("warm-up epochs: totality violated")
+def _trace_sim(sim, instances: int, epochs: int, warmup: int, trace_path=None) -> dict:
+    if not sim.run(warmup):  # builds the kernels, uploads the constants
+        raise RuntimeError("warm-up epochs: the epoch's check failed")
     on_card = sim.device.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     if on_card:
@@ -51,7 +53,7 @@ def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> 
         ok = sim.run(epochs)  # ends in the verdict's host sync
         wall_ms = (time.perf_counter() - t0) * 1e3
     if not ok:
-        raise RuntimeError("traced epochs: totality violated")
+        raise RuntimeError("traced epochs: the epoch's check failed")
     if trace_path:
         prof.export_chrome_trace(trace_path)
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -62,7 +64,7 @@ def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> 
     return {
         "device": torch.cuda.get_device_name(sim.device) if on_card else "cpu",
         "epochs": epochs,
-        "instances": cfg.instances,
+        "instances": instances,
         "wall_ms": wall_ms,
         "traced_epochs_per_s": epochs / (wall_ms / 1e3),
         "device_busy_ms": busy_ms if device_events else None,
@@ -74,14 +76,33 @@ def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> 
     }
 
 
+def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> dict:
+    """Profile `epochs` fast-path epochs after a warm-up; see the module docstring."""
+    return _trace_sim(TensorSim(cfg, device=device), cfg.instances, epochs, 2, trace_path)
+
+
+def trace_full_crypto(cfg: FullCryptoConfig, epochs: int, device="cuda", trace_path=None) -> dict:
+    """Profile `epochs` threshold-decrypt epochs after one warm-up epoch."""
+    sim = FullCryptoTensorSim(cfg, device=device)
+    return _trace_sim(sim, cfg.instances, epochs, 1, trace_path)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--epochs", type=int, default=20)
-    ap.add_argument("--instances", type=int, default=1024)
+    ap.add_argument("--full-crypto", action="store_true",
+                    help="trace FullCryptoTensorSim (config 8) instead of TensorSim")
+    ap.add_argument("--epochs", type=int, default=None, help="default 20, or 3 with --full-crypto")
+    ap.add_argument("--instances", type=int, default=None,
+                    help="default 1024, or 64 with --full-crypto")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
-    cfg = TensorSimConfig(n_nodes=64, instances=args.instances, shard_len=12)
-    print(json.dumps(trace(cfg, args.epochs, trace_path=args.trace)))
+    if args.full_crypto:
+        cfg = FullCryptoConfig(n_nodes=64, instances=args.instances or 64)
+        out = trace_full_crypto(cfg, args.epochs or 3, trace_path=args.trace)
+    else:
+        cfg = TensorSimConfig(n_nodes=64, instances=args.instances or 1024, shard_len=12)
+        out = trace(cfg, args.epochs or 20, trace_path=args.trace)
+    print(json.dumps(out))
     return 0
 
 

@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from hydrabadger_tpu_torch.crypto import bls12_381 as bls
 from hydrabadger_tpu_torch.crypto import gf256
-from hydrabadger_tpu_torch.ops import gf256_torch, rs_torch
+from hydrabadger_tpu_torch.ops import circuit_torch, decrypt_torch, fq_torch, gf256_torch, limbs, rs_torch
 from hydrabadger_tpu_torch.sim import tensor as ts
 
 pytestmark = pytest.mark.cuda
@@ -59,3 +60,58 @@ def test_tensor_sim_on_the_card_equals_plain_and_cpu(card):
     assert np.array_equal(sim.state(), plain.state())
     cpu = ts.TensorSim(cfg, device="cpu")
     assert cpu.run(3) and np.array_equal(sim.state(), cpu.state())
+
+
+def _points(card, n=301):
+    """Two [3, 12, n] point batches on the card with P + P, P + infinity,
+    infinity + Q and P + (-P) lanes."""
+    rng = np.random.default_rng(n)
+    base = limbs.points_to_limbs([bls.multiply(bls.G1, int(k)) for k in rng.integers(1, 2**20, 16)])
+    a = torch.from_numpy(np.ascontiguousarray(base[:, :, rng.integers(0, 16, n)])).to(card)
+    b = fq_torch.jac_double_plain(a).roll(1, -1).contiguous()
+    inf = fq_torch.jac_infinity(1, card)[:, :, 0]
+    b[:, :, 0] = a[:, :, 0]
+    b[:, :, 1] = inf
+    a[:, :, 2] = inf
+    b[:, :, 3] = a[:, :, 3]
+    b[1, :, 3:4] = fq_torch.fq_sub(torch.zeros_like(a[1, :, 3:4]), a[1, :, 3:4])
+    return a, b
+
+
+@pytest.mark.parametrize("entry", ["mul", "mul_const", "dbl", "add", "ladd", "dblk4", "win6"])
+def test_fq_point_kernel_matches_plain(card, entry):
+    a, b = _points(card)
+    args = {
+        "mul": (a[0], b[1]), "mul_const": (a[0], b[1][:, 5:6]), "dbl": (a,), "add": (a, b),
+        "ladd": (a, b), "dblk4": (a, 4), "win6": (a, b, a, 6),
+    }[entry]
+    kernel, plain = fq_torch.ENTRIES[{"mul_const": "mul"}.get(entry, entry.rstrip("46"))]
+    before = fq_torch.launches
+    got = kernel(*args)
+    assert fq_torch.launches == before + 1
+    assert torch.equal(got, plain(*args))
+
+
+@pytest.mark.parametrize("k", [6, 0, 4])
+def test_circuit_kernel_matches_plain(card, k):
+    circ = decrypt_torch._dblk_add_circuit(k) if k else decrypt_torch._add_circuit()
+    a, b = _points(card, 515)
+    x = torch.cat([a, b])
+    before = circuit_torch.launches
+    got = circ(x)
+    assert circuit_torch.launches == before + 1
+    assert torch.equal(got, circ.plain(x))
+
+
+def test_full_crypto_sim_on_the_card_equals_the_cpu(card):
+    cfg = ts.FullCryptoConfig(n_nodes=4, instances=2, seed=1)
+    sim = ts.FullCryptoTensorSim(cfg, device="cuda")
+    before = (fq_torch.launches, circuit_torch.launches)
+    assert sim.run(1)
+    counts = sim.epoch.launch_counts()
+    assert fq_torch.launches - before[0] == sum(counts["fq_point"].values())
+    assert circuit_torch.launches - before[1] == sum(counts["circuit"].values())
+    cpu = ts.FullCryptoTensorSim(cfg, device="cpu")
+    assert cpu.run(1)
+    assert np.array_equal(sim.state(), cpu.state())
+    assert sim.oracle_check([0, 7])
