@@ -37,7 +37,21 @@ failure:
  10. timings: epochs/s; each B2 entry's and circuit's device time per
      launch at the main path's shapes and operand forms (CUDA events over
      back-to-back launches, median), its plain version, its bound and what
-     sets it.
+     sets it;
+ 11. kernel B4 (fq2_point) against its plain version, exact: `table`,
+     `step` and `add` at 4096 and at a ragged 1013 lanes with an infinity
+     lane, a digit-0 lane, acc == sel, acc == -sel and a scalar-0 lane,
+     and at the coin round's 1408-lane (and tree) shapes;
+ 12. the main path: CoinRound at 64 nodes x 64 instances (set-up: the key
+     set, 22 host G1 multiplies, 64 host hashes onto G2); a warm-up round;
+     the round's device results held limb for limb against the same round
+     through the plain versions on the card; a counted round, every launch
+     counter set to 0 just before and read just after: 135 launches, 65 to
+     sign and 70 to combine; sampled shares and all 64 combined signatures
+     against the host oracle; the 64 coin bits;
+ 13. timings: each B4 entry's device time per launch at the main path's
+     shapes against its bound and its plain version; shares/s and
+     combines/s, device-only (CUDA events) and wall; coin rounds/s.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
@@ -63,6 +77,8 @@ PEAK_INT8_OPS_PER_S = 1979e12
 
 N_NODES, INSTANCES, SHARD_LEN, EPOCHS = 64, 1024, 12, 50
 FC_NODES, FC_INSTANCES, FC_EPOCHS = 64, 64, 3
+COIN_NODES, COIN_INSTANCES, COIN_ROUNDS = 64, 64, 3
+RAGGED = 1013  # a lane count that is no multiple of a block
 # A 384-bit Montgomery product in its cheapest exact form at a published
 # peak: int8 digit MACs on the tensor cores, 48x48 for a*b, the low half
 # (48*49/2) for m = t p' mod R, 48x48 for m*p; one MAC = 2 ops.
@@ -366,6 +382,230 @@ def full_crypto(dev: torch.device, tag: str) -> list[dict]:
     return entries
 
 
+def coin_plane(dev: torch.device, tag: str) -> dict:
+    """Phases 11-13: kernel B4 and the common-coin main path.  Returns the
+    kernel's entry of the `kernels` line."""
+    from hydrabadger_tpu_torch.crypto.engine import quorum_prep
+    from hydrabadger_tpu_torch.ops import bls_g2_torch as g2, circuit_torch, fq_torch
+    from hydrabadger_tpu_torch.ops import fq2_torch as f2, gf256_torch, limbs
+    from hydrabadger_tpu_torch.sim import coin
+
+    cfg = coin.CoinConfig(n_nodes=COIN_NODES, instances=COIN_INSTANCES)
+    n_shares, q = cfg.n_nodes * cfg.instances, cfg.threshold + 1
+    lanes = q * cfg.instances  # the combine's ladder
+    tree, s_ = [], q  # lanes of each level of the combine's pairwise tree
+    while s_ > 1:
+        tree.append((s_ // 2) * cfg.instances)
+        s_ = (s_ + 1) // 2
+    t0 = time.perf_counter()
+    cr = coin.CoinRound(cfg, device=dev, seed=0)
+    print(f"coin set-up: key set (t = {cfg.threshold}), {q} host G1 multiplies, "
+          f"{cfg.instances} host hashes onto G2: {time.perf_counter() - t0:.2f} s")
+    hashed = [cr.engine.hash_to_g2(doc) for doc in cr.docs]
+
+    # -- 11. B4 against its plain version ---------------------------------
+    worst = 0
+
+    def hold(label, got_fn, want_fn):
+        nonlocal worst
+        got = got_fn()
+        torch.cuda.synchronize()
+        want = want_fn()
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"fq2_point != plain at {label} (max err {err})")
+        print(f"kernel == plain, exact: fq2_point {label}")
+
+    rng = np.random.default_rng(11)
+    base = torch.from_numpy(limbs.g2_points_to_limbs(hashed)).to(dev)
+    multiples = f2.g2_table_plain(base)[1:]  # [15, 3, 2, 12, 64]: 960 distinct points
+    pool = multiples.permute(1, 2, 3, 0, 4).reshape(3, 2, limbs.N_LIMBS, -1)
+    inf = f2.g2_infinity(1, dev)[..., 0]
+    for m in (n_shares, RAGGED):
+        a = pool[..., rng.integers(0, pool.shape[-1], m)].contiguous()
+        b = f2.g2_double_plain(a).roll(1, -1).contiguous()
+        a[..., 0] = inf  # infinity + Q
+        b[..., 1] = inf  # P + infinity
+        b[..., 2] = a[..., 2]  # P + P
+        b[..., 3] = f2.g2_neg(a[..., 3:4])[..., 0]  # P + (-P)
+        a[..., 4] = inf
+        b[..., 4] = inf  # infinity + infinity
+        hold(f"add [3, 2, 12, {m}] (inf, P+P, P-P lanes)", lambda: f2.g2_add(a, b),
+             lambda: f2.g2_add_plain(a, b))
+        hold(f"table [16, 3, 2, 12, {m}] (an inf lane)", lambda: f2.g2_table(a),
+             lambda: f2.g2_table_plain(a))
+        acc = f2.g2_double_plain(b)
+        acc[..., 8] = inf
+        a16 = acc
+        for _ in range(f2.DOUBLINGS):
+            a16 = f2.g2_double_plain(a16)
+        tin = a.clone()
+        tin[..., 5] = a16[..., 5]  # table[1] == 16 acc: acc == sel after the doublings
+        tin[..., 6] = f2.g2_neg(a16[..., 6:7])[..., 0]  # acc == -sel
+        table = f2.g2_table_plain(tin)
+        digits = torch.from_numpy(rng.integers(1, 16, m).astype(np.int32)).to(dev)
+        digits[5], digits[6], digits[7], digits[8] = 1, 1, 0, 0  # digit 0; lane 8 a scalar-0 lane
+        hold(f"step [3, 2, 12, {m}] (acc == sel, acc == -sel, digit 0, scalar-0 lanes)",
+             lambda: f2.g2_window_step(acc, table, digits),
+             lambda: f2.g2_window_step_plain(acc, table, digits))
+    a = pool[..., rng.integers(0, pool.shape[-1], lanes)].contiguous()
+    table = f2.g2_table_plain(a)
+    digits = torch.from_numpy(rng.integers(0, 16, lanes).astype(np.int32)).to(dev)
+    hold(f"table [16, 3, 2, 12, {lanes}]", lambda: f2.g2_table(a), lambda: f2.g2_table_plain(a))
+    acc = f2.g2_double_plain(a.roll(3, -1))
+    hold(f"step [3, 2, 12, {lanes}]", lambda: f2.g2_window_step(acc, table, digits),
+         lambda: f2.g2_window_step_plain(acc, table, digits))
+    hold(f"add [3, 2, 12, {tree[0]}] (the tree's first level)",
+         lambda: f2.g2_add(a[..., :tree[0]], acc[..., :tree[0]]),
+         lambda: f2.g2_add_plain(a[..., :tree[0]], acc[..., :tree[0]]))
+
+    # -- 12. the main path -------------------------------------------------
+    t0 = time.perf_counter()
+    cr.run()
+    print(f"warm-up coin round {time.perf_counter() - t0:.3f} s")
+    plain = coin.CoinRound(cfg, device=dev, seed=0, use_kernel=False)
+    t0 = time.perf_counter()
+    plain.run()
+    plain_round_s = time.perf_counter() - t0
+    check(torch.equal(cr.shares_limbs, plain.shares_limbs),
+          "the round's shares != the plain versions' round, limb for limb")
+    check(torch.equal(cr.signatures_limbs, plain.signatures_limbs),
+          "the round's combined signatures != the plain versions' round, limb for limb")
+    check(cr.coins == plain.coins, "coin bits != the plain versions' round")
+    print(f"coin round at {cfg.n_nodes} x {cfg.instances}: shares and signatures == the same "
+          f"round through the plain versions on the card, limb for limb ({plain_round_s:.2f} s)")
+    del plain
+
+    windows = g2.N_WINDOWS
+    want = {"sign": 1 + windows, "combine": 1 + windows + len(tree)}
+    torch.cuda.synchronize()
+    f2.launches, fq_torch.launches, circuit_torch.launches, gf256_torch.launches = 0, 0, 0, 0
+    f2.launches_by_kind.clear()
+    t0 = time.perf_counter()
+    sigs, coins = cr.run()
+    round_s = [time.perf_counter() - t0]
+    counted = f2.launches
+    by_kind = dict(f2.launches_by_kind)
+    others = fq_torch.launches + circuit_torch.launches + gf256_torch.launches
+    check(cr.last_launches == want, f"coin round launches {cr.last_launches}, want {want}")
+    check(counted == sum(want.values()), f"fq2_point launches {counted}, want {sum(want.values())}")
+    check(by_kind == {"table": 2, "step": 2 * windows, "add": len(tree)},
+          f"fq2_point launches by entry {by_kind}")
+    check(others == 0, f"the coin round launched {others} kernels of other libraries")
+    print(f"main path: one coin round, fq2_point launches {counted} ({cr.last_launches}, "
+          f"by entry {by_kind})")
+    sample = [0, 1, cfg.n_nodes + 5, n_shares // 2, n_shares - 1]
+    t0 = time.perf_counter()
+    check(cr.oracle_check(sample), "coin round != the host oracle")
+    print(f"shares {sample} == mul_sub(H(doc), sk_i) and all {cfg.instances} signatures == "
+          f"master * H(doc) (host oracle, {time.perf_counter() - t0:.2f} s)")
+    print(f"coin bits: {''.join('1' if c else '0' for c in coins)}")
+
+    # -- 13. timings -------------------------------------------------------
+    for _ in range(COIN_ROUNDS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cr.run()
+        round_s.append(time.perf_counter() - t0)
+    print(f"coin rounds/s at {cfg.n_nodes} x {cfg.instances} (wall, hashes cached at set-up): "
+          f"{[round(1 / s, 3) for s in round_s]} {tag}")
+    items = [(sk, doc) for doc in cr.docs for sk in cr._sks]
+    jobs = [(cr.pk_set, {i: cr.shares[j * cfg.n_nodes + i] for i in qu})
+            for j, qu in enumerate(cr.quorums)]
+    sign_wall = wall_ms(lambda: cr.engine.sign_share_batch(items))
+    comb_wall = wall_ms(lambda: cr.engine.combine_signature_shares_batch(jobs))
+    cols = {doc: k for k, doc in enumerate(cr.docs)}
+    sign_pts = base[..., [cols[doc] for _sk, doc in items]].contiguous()
+    sign_wins = torch.from_numpy(g2.scalars_to_windows([sk.scalar for sk, _ in items])).to(dev)
+    prepared, _ = quorum_prep([(cfg.threshold, shares) for _, shares in jobs])
+    comb_pts, comb_wins, _ = g2.weighted_sum_operands([p for p, _ in prepared],
+                                                      [lam for _, lam in prepared], dev)
+    sign_ms = timed_ms(lambda: g2.g2_scalar_mul_windowed(sign_pts, sign_wins), 5)
+    comb_ms = timed_ms(lambda: g2.g2_weighted_sum_windowed(comb_pts, comb_wins, q), 5)
+    print(f"sign {n_shares} shares: device {sign_ms:.3f} ms ({n_shares / sign_ms * 1e3:.1f} "
+          f"shares/s), wall {sign_wall:.1f} ms ({n_shares / sign_wall * 1e3:.1f} shares/s); "
+          f"combine {cfg.instances} x {q}: device {comb_ms:.3f} ms "
+          f"({cfg.instances / comb_ms * 1e3:.1f} combines/s), wall {comb_wall:.1f} ms "
+          f"({cfg.instances / comb_wall * 1e3:.1f} combines/s) {tag}")
+
+    # per launch at the main path's shapes; the bound counts what this
+    # round's data needs: a table is a double and 13 general adds, a step
+    # 4 doubles and a general add only where its window's digit and an
+    # earlier one are nonzero, a tree add a general add
+    need = {"table": f2.PRODUCTS["dbl"] + (f2.TABLE_SIZE - 3) * f2.GENERAL_ADD_PRODUCTS,
+            "add": f2.GENERAL_ADD_PRODUCTS}
+    step_dbl = f2.DOUBLINGS * f2.PRODUCTS["dbl"]
+    shapes = [("table", n_shares), ("step", n_shares), ("table", lanes), ("step", lanes)]
+    shapes += [("add", m) for m in sorted(set(tree), reverse=True)]
+    per_launch = {}
+    for entry, m in shapes:
+        x = pool[..., rng.integers(0, pool.shape[-1], m)].contiguous()
+        y = f2.g2_double_plain(x.roll(1, -1))
+        tab = f2.g2_table_plain(x) if entry == "step" else None
+        dg = torch.from_numpy(rng.integers(0, 16, m).astype(np.int32)).to(dev)
+        fn, plain_fn = f2.ENTRIES[entry]
+        ins = {"table": (x,), "step": (y, tab, dg), "add": (x, y)}[entry]
+        per_launch[entry, m] = (launch_ms(lambda: fn(*ins)), wall_ms(lambda: plain_fn(*ins)))
+    # every launch of the round: (entry, lanes, products its data needs)
+    launches_of = [("table", n_shares, need["table"] * n_shares)]
+    launches_of += [("step", n_shares, step_dbl * n_shares + f2.GENERAL_ADD_PRODUCTS * int(g))
+                    for g in g2.general_adds(sign_wins.cpu().numpy())]
+    launches_of.append(("table", lanes, need["table"] * lanes))
+    launches_of += [("step", lanes, step_dbl * lanes + f2.GENERAL_ADD_PRODUCTS * int(g))
+                    for g in g2.general_adds(comb_wins.cpu().numpy())]
+    launches_of += [("add", m, need["add"] * m) for m in tree]
+    rows = {}
+    for entry, m, products in launches_of:
+        ops_ms = products * OPS_PER_PRODUCT / PEAK_INT8_OPS_PER_S * 1e3
+        bytes_ms = f2.ELEMENTS[entry] * ELEMENT_BYTES * m / PEAK_BYTES_PER_S * 1e3
+        r = rows.setdefault((entry, m), {
+            "entry": entry, "lanes": m, "per_round": 0, "products_per_lane_formula": f2.PRODUCTS[entry],
+            "products_needed": 0, "elements_per_lane": f2.ELEMENTS[entry],
+            "ms": per_launch[entry, m][0], "plain_ms": per_launch[entry, m][1],
+            "bound_ms": 0.0, "ops_bound_ms": 0.0, "bytes_bound_ms": 0.0})
+        r["per_round"] += 1
+        r["products_needed"] += products
+        r["ops_bound_ms"] += ops_ms
+        r["bytes_bound_ms"] += bytes_ms
+        r["bound_ms"] += max(ops_ms, bytes_ms)
+    rows = list(rows.values())
+    for r in rows:
+        r["bound_by"] = "operations" if r["ops_bound_ms"] >= r["bytes_bound_ms"] else "bytes"
+        per_b = r["bound_ms"] / r["per_round"]
+        print(f"fq2_point {r['entry']} x {r['lanes']} lanes ({r['per_round']}/round): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, bound {per_b:.5f} ms per launch "
+              f"({r['bound_by']}; {r['products_needed'] / r['per_round'] / r['lanes']:.1f} products "
+              f"per lane needed, {r['products_per_lane_formula']} by the formulas), "
+              f"{r['ms'] / per_b:.0f}x {tag}")
+    per = {"ms": sum(r["ms"] * r["per_round"] for r in rows),
+           "plain_ms": sum(r["plain_ms"] * r["per_round"] for r in rows),
+           "bound_ms": sum(r["bound_ms"] for r in rows)}
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    bound_by = "operations" if 2 * by_ops >= per["bound_ms"] else "bytes"
+    round_ms = 1e3 * float(np.median(round_s))
+    print(f"coin round {round_ms:.2f} ms wall; device {sign_ms + comb_ms:.3f} ms by events, "
+          f"B4 launches {per['ms']:.3f} ms by shape; bound {per['bound_ms']:.4f} ms ({bound_by}) {tag}")
+    print(json.dumps({"coin_shapes": rows, "coin_round_s": round_s, "plain_round_s": plain_round_s,
+                      "sign_device_ms": sign_ms, "combine_device_ms": comb_ms,
+                      "sign_wall_ms": sign_wall, "combine_wall_ms": comb_wall}))
+    return {
+        "name": "fq2_point",
+        "route": "cuda",
+        "source": "hydrabadger_tpu_torch/csrc/fq2_point.cu",
+        "replaces": "hydrabadger_tpu/ops/fq2_T.py:245",
+        "also_replaces": ["hydrabadger_tpu/ops/fq2_T.py:282"],
+        "launches": counted,
+        "max_abs_err": worst,
+        "per": f"one coin round ({cfg.n_nodes} x {cfg.instances}): every launch shape times "
+               f"its launches per round",
+        "ms": per["ms"],
+        "plain_ms": per["plain_ms"],
+        "bound_ms": per["bound_ms"],
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -541,6 +781,7 @@ def main() -> int:
         "library_ms": None,
     }]
     kernels += full_crypto(dev, tag)
+    kernels.append(coin_plane(dev, tag))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,19 +7,27 @@ needs of the JAX-free host code it keeps as its own copy (crypto/).
     device.py            resolve_device: the card unless the caller asks for cpu
     crypto/gf256.py      GF(2^8) tables and host matrix ops (numpy)
     crypto/rs.py         encode/decode matrices, numpy ReedSolomon (the oracle)
-    crypto/bls12_381.py  G1 over Fp, pure Python (the host oracle)
-    crypto/threshold.py  Shamir key sets, Lagrange, decryption shares
+    crypto/bls12_381.py  G1 over Fp, G2 over Fp2, hash onto G2, pure Python
+                         (the host oracle)
+    crypto/threshold.py  Shamir key sets, Lagrange, decryption shares,
+                         signature shares and their combine
+    crypto/futures.py    CryptoFuture: fetch once, warn when dropped
+    crypto/engine.py     CpuEngine, GpuEngine and their registry
     csrc/                hand-written CUDA sources for sm_90a (H100)
     ops/_kernels.py      nvcc build into build/torch_kernels/, ctypes binding
     ops/gf256_torch      GF(2^8) matmul: the kernel and its plain version
     ops/rs_torch         batched RS encode / reconstruct
-    ops/limbs.py         the Fp limb layout and host conversions
+    ops/limbs.py         the Fp and G2 limb layouts and host conversions
     ops/fq_torch         Fp and Jacobian G1 ops: kernel B2 and its plain version
     ops/fp12_circuit     the circuit recorder (numpy)
     ops/circuit_torch    recorded circuits: kernel B3 and its plain version
     ops/decrypt_torch    the fused threshold-decrypt epoch (config 8)
+    ops/fq2_torch        Fp2 and Jacobian G2 ops: kernel B4 and its plain version
+    ops/bls_g2_torch     batched G2 ladders: sign shares, Lagrange combines
     sim/tensor.py        the fast-path epoch (TensorSim) and the
                          threshold-decrypt plane (FullCryptoTensorSim)
+    sim/coin.py          one common-coin round for every ABA instance
+                         (CoinRound) through GpuEngine
 
 Importing builds nothing and touches no card; kernels build at their
 first launch on a CUDA tensor.

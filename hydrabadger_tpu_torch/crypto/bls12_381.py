@@ -1,14 +1,19 @@
-"""BLS12-381 G1 over Fp — the pure-Python host oracle the port needs.
+"""BLS12-381 G1 over Fp and G2 over Fp2 — the pure-Python host oracle.
 
-Copy of the G1 part of hydrabadger_tpu/crypto/bls12_381.py: the field
-FQ, the generator G1, projective add / double / multiply / normalize /
-eq, and the parameters P, R, X_PARAM.  No native engine: `mul_sub` is
-the plain double-and-add ladder (the JAX package's pure-Python fallback),
-which gives the same group element as the native GLV ladder.
+Copy of what the port needs of hydrabadger_tpu/crypto/bls12_381.py: the
+fields FQ and FQ2 (Fp[u]/(u^2 + 1)), the generators G1 and G2 and the
+twist constant B2, projective add / double / multiply / normalize / eq
+for points over either field, the psi endomorphism, cofactor clearing,
+`hash_to_g2` (try-and-increment, then clearing) and the compressed G2
+encoding.  No native engine: `multiply` and `mul_sub` are the plain
+double-and-add ladder (the JAX package's pure-Python fallback), which
+gives the same group element as the native GLV/GLS ladders.
 
-Points are projective (X, Y, Z) tuples of FQ; Z == 0 at infinity.
+Points are projective (X, Y, Z) tuples of FQ or FQ2; Z == 0 at infinity.
 """
 from __future__ import annotations
+
+import hashlib
 
 P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
@@ -53,8 +58,19 @@ class FQ:
     def inv(self):
         return FQ(pow(self.n, -1, P))
 
+    def __truediv__(self, other):
+        return self * other.inv()
+
+    def __pow__(self, e: int):
+        return FQ(pow(self.n, e, P))
+
     def __repr__(self):
         return f"FQ(0x{self.n:x})"
+
+    def sqrt(self):
+        """Square root (P = 3 mod 4), or None if non-residue."""
+        c = pow(self.n, (P + 1) // 4, P)
+        return FQ(c) if c * c % P == self.n else None
 
     @classmethod
     def one(cls):
@@ -65,15 +81,200 @@ class FQ:
         return cls(0)
 
 
+class _FQP:
+    """Polynomial extension field over Fp; coeffs are plain ints mod P."""
+
+    __slots__ = ("coeffs",)
+    degree: int = 0
+    # sparse (index, coeff) pairs of the modulus polynomial (sans leading 1)
+    mc_tuples: tuple = ()
+
+    def __init__(self, coeffs):
+        self.coeffs = [c % P for c in coeffs]
+        assert len(self.coeffs) == self.degree
+
+    def __add__(self, other):
+        return type(self)([a + b for a, b in zip(self.coeffs, other.coeffs)])
+
+    def __sub__(self, other):
+        return type(self)([a - b for a, b in zip(self.coeffs, other.coeffs)])
+
+    def __neg__(self):
+        return type(self)([-a for a in self.coeffs])
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.coeffs == other.coeffs
+
+    def __hash__(self):
+        return hash((type(self).__name__, tuple(self.coeffs)))
+
+    def __mul__(self, other):
+        if isinstance(other, int):
+            return type(self)([c * other for c in self.coeffs])
+        if isinstance(other, FQ):
+            return type(self)([c * other.n for c in self.coeffs])
+        d = self.degree
+        b = [0] * (d * 2 - 1)
+        sc, oc = self.coeffs, other.coeffs
+        for i in range(d):
+            ai = sc[i]
+            if ai:
+                for j in range(d):
+                    b[i + j] += ai * oc[j]
+        for exp in range(d * 2 - 2, d - 1, -1):
+            top = b[exp]
+            if top:
+                b[exp] = 0
+                for i, c in self.mc_tuples:
+                    b[exp - d + i] -= top * c
+        return type(self)([c % P for c in b[:d]])
+
+    __rmul__ = __mul__
+
+    def square(self):
+        return self * self
+
+    def __pow__(self, e: int):
+        result = type(self).one()
+        base = self
+        if e < 0:
+            base = base.inv()
+            e = -e
+        while e:
+            if e & 1:
+                result = result * base
+            base = base * base
+            e >>= 1
+        return result
+
+    def inv(self):
+        """Extended-Euclid inversion in the polynomial quotient ring."""
+        d = self.degree
+        lm, hm = [1] + [0] * d, [0] * (d + 1)
+        low = self.coeffs + [0]
+        high = [0] * (d + 1)
+        for i, c in self.mc_tuples:
+            high[i] = c % P
+        high[d] = 1
+        while _deg(low):
+            r = _poly_rounded_div(high, low)
+            r += [0] * (d + 1 - len(r))
+            nm, new = hm[:], high[:]
+            for i in range(d + 1):
+                for j in range(d + 1 - i):
+                    nm[i + j] -= lm[i] * r[j]
+                    new[i + j] -= low[i] * r[j]
+            nm = [x % P for x in nm]
+            new = [x % P for x in new]
+            lm, low, hm, high = nm, new, lm, low
+        inv_low0 = pow(low[0], -1, P)
+        return type(self)([c * inv_low0 % P for c in lm[:d]])
+
+    def __truediv__(self, other):
+        return self * other.inv()
+
+    def is_zero(self):
+        return all(c == 0 for c in self.coeffs)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.coeffs})"
+
+    @classmethod
+    def one(cls):
+        return cls([1] + [0] * (cls.degree - 1))
+
+    @classmethod
+    def zero(cls):
+        return cls([0] * cls.degree)
+
+
+def _deg(poly):
+    d = len(poly) - 1
+    while d and poly[d] == 0:
+        d -= 1
+    return d
+
+
+def _poly_rounded_div(a, b):
+    dega, degb = _deg(a), _deg(b)
+    temp = a[:]
+    out = [0] * len(a)
+    inv_b = pow(b[degb], -1, P)
+    for i in range(dega - degb, -1, -1):
+        out[i] = (out[i] + temp[degb + i] * inv_b) % P
+        for c in range(degb + 1):
+            temp[c + i] = (temp[c + i] - out[i] * b[c]) % P
+    return [x % P for x in out[: _deg(out) + 1]]
+
+
+class FQ2(_FQP):
+    """Fp2 = Fp[u]/(u^2 + 1)."""
+
+    degree = 2
+    mc_tuples = ((0, 1),)
+
+    def conjugate(self):
+        return FQ2([self.coeffs[0], -self.coeffs[1]])
+
+    def sqrt(self):
+        """Square root via the norm method, or None if non-residue."""
+        a0, a1 = self.coeffs
+        if a1 == 0:
+            r = FQ(a0).sqrt()
+            if r is not None:
+                return FQ2([r.n, 0])
+            # a0 is a non-residue in Fp: sqrt is purely imaginary
+            r = (FQ(a0) * FQ(-1).inv()).sqrt()  # sqrt(-a0)
+            return FQ2([0, r.n]) if r is not None else None
+        norm = FQ(a0 * a0 + a1 * a1)
+        alpha = norm.sqrt()
+        if alpha is None:
+            return None
+        inv2 = pow(2, -1, P)
+        delta = (a0 + alpha.n) * inv2 % P
+        x0 = FQ(delta).sqrt()
+        if x0 is None:
+            delta = (a0 - alpha.n) * inv2 % P
+            x0 = FQ(delta).sqrt()
+            if x0 is None:
+                return None
+        x1 = a1 * pow(2 * x0.n, -1, P) % P
+        cand = FQ2([x0.n, x1])
+        return cand if cand * cand == self else None
+
+
+# ---------------------------------------------------------------------------
+# Curve ops (projective: (X, Y, Z), point = (X/Z, Y/Z), infinity when Z == 0)
+# ---------------------------------------------------------------------------
+
+B2 = FQ2([4, 4])  # the twist: y^2 = x^3 + 4(u + 1)
+
 G1 = (
     FQ(0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB),
     FQ(0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1),
     FQ(1),
 )
+G2 = (
+    FQ2([
+        0x024AA2B2F08F0A91260805272DC51051C6E47AD4FA403B02B4510B647AE3D1770BAC0326A805BBEFD48056C8C121BDB8,
+        0x13E02B6052719F607DACD3A088274F65596BD0D09920B61AB5DA61BBDC7F5049334CF11213945D57E5AC7D055D042B7E,
+    ]),
+    FQ2([
+        0x0CE5D527727D6E118CC9CDC6DA2E351AADFD9BAA8CBDD3A76D429A695160D12C923AC9CC3BACA289E193548608B82801,
+        0x0606C4A02EA734CC32ACD2B02BC28B99CB3E287E85A763AF267492AB572E99AB3F370D275CEC1DA1AAA9075FF05F79BE,
+    ]),
+    FQ2([1, 0]),
+)
+
+
+def _field(pt):
+    """The field type of a point's coordinates (FQ or FQ2)."""
+    return FQ if isinstance(pt[0], FQ) else type(pt[0])
 
 
 def is_inf(pt) -> bool:
-    return pt[2] == 0
+    z = pt[2]
+    return z == 0 if isinstance(z, FQ) else z.is_zero()
 
 
 def infinity(field=FQ):
@@ -108,7 +309,7 @@ def add(p1, p2):
     if V1 == V2:
         if U1 == U2:
             return double(p1)
-        return infinity()
+        return infinity(_field(p1))
     U = U1 - U2
     V = V1 - V2
     V_sq = V * V
@@ -125,11 +326,11 @@ def neg(pt):
 
 
 def multiply(pt, n: int):
-    """Scalar multiplication (double-and-add, MSB first)."""
+    """Scalar multiplication (double-and-add, MSB first), G1 or G2."""
     if n < 0:
         pt, n = neg(pt), -n
     if n == 0 or is_inf(pt):
-        return infinity()
+        return infinity(_field(pt))
     result = None
     for bit in bin(n)[2:]:
         if result is not None:
@@ -141,7 +342,7 @@ def multiply(pt, n: int):
 
 def mul_sub(pt, n: int):
     """Scalar multiplication of an r-order subgroup point (every protocol
-    point).  The same group element as the JAX package's GLV ladder."""
+    point).  The same group element as the JAX package's GLV/GLS ladders."""
     return multiply(pt, n)
 
 
@@ -150,7 +351,10 @@ def normalize(pt):
     if is_inf(pt):
         return None
     x, y, z = pt
-    if z.n == 1:
+    if isinstance(z, FQ):
+        if z.n == 1:
+            return (x, y)
+    elif z.coeffs[0] == 1 and all(c == 0 for c in z.coeffs[1:]):
         return (x, y)
     zinv = z.inv()
     return (x * zinv, y * zinv)
@@ -162,3 +366,74 @@ def eq(p1, p2) -> bool:
     x1, y1, z1 = p1
     x2, y2, z2 = p2
     return x1 * z2 == x2 * z1 and y1 * z2 == y2 * z1
+
+
+# ---------------------------------------------------------------------------
+# Hashing onto G2, serialization
+# ---------------------------------------------------------------------------
+
+
+def _expand_message(msg: bytes, domain: bytes, n_bytes: int) -> bytes:
+    out = b""
+    counter = 0
+    while len(out) < n_bytes:
+        out += hashlib.sha256(domain + counter.to_bytes(4, "big") + msg).digest()
+        counter += 1
+    return out[:n_bytes]
+
+
+def hash_to_g2(msg: bytes, domain: bytes = b"HBTPU-G2") -> tuple:
+    """Deterministic hash onto the r-torsion of E'(Fp2): try-and-increment
+    on x, then cofactor clearing.  The same group element as the JAX
+    package's (and its native engine's) hash_to_g2."""
+    ctr = 0
+    while True:
+        raw = _expand_message(msg, domain + ctr.to_bytes(4, "big"), 97)
+        x = FQ2([int.from_bytes(raw[0:48], "big"), int.from_bytes(raw[48:96], "big")])
+        y = (x * x * x + B2).sqrt()
+        if y is not None:
+            if raw[96] & 1:
+                y = -y
+            pt = clear_cofactor_g2((x, y, FQ2.one()))
+            if not is_inf(pt):
+                return pt
+        ctr += 1
+
+
+# psi = untwist-Frobenius-twist on E'(Fp2).  Cofactor clearing is
+# Budroni-Pintore eta = (x^2-x-1) + (x-1) psi + 2 psi^2, which maps all of
+# E'(Fp2) into G2.
+_PSI_CX = (FQ2([1, 1]) ** ((P - 1) // 3)).inv()
+_PSI_CY = (FQ2([1, 1]) ** ((P - 1) // 2)).inv()
+
+
+def psi(pt):
+    """The p-power endomorphism on E'(Fp2) (projective-safe)."""
+    x, y, z = pt
+    return (x.conjugate() * _PSI_CX, y.conjugate() * _PSI_CY, z.conjugate())
+
+
+def clear_cofactor_g2(pt):
+    """[x^2-x-1]P + [x-1]psi(P) + psi^2(2P): lands in G2 for all of E'."""
+    t1 = multiply(pt, X_PARAM * X_PARAM - X_PARAM - 1)
+    t2 = multiply(psi(pt), X_PARAM - 1)
+    t3 = psi(psi(add(pt, pt)))
+    return add(add(t1, t2), t3)
+
+
+def _fq_sign(n: int) -> int:
+    return 1 if n > (P - 1) // 2 else 0
+
+
+def g2_to_bytes(pt) -> bytes:
+    """96-byte compressed encoding (c1 || c0, flags in first byte)."""
+    aff = normalize(pt)
+    if aff is None:
+        return bytes([0xC0] + [0] * 95)
+    x, y = aff
+    out = bytearray(x.coeffs[1].to_bytes(48, "big") + x.coeffs[0].to_bytes(48, "big"))
+    out[0] |= 0x80
+    sign = _fq_sign(y.coeffs[1]) if y.coeffs[1] != 0 else _fq_sign(y.coeffs[0])
+    if sign:
+        out[0] |= 0x20
+    return bytes(out)

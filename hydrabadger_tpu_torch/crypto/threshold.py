@@ -1,19 +1,22 @@
-"""Shamir key sets and threshold decryption shares — the host oracle.
+"""Shamir key sets, threshold decryption and signature shares — the host oracle.
 
-Copy of what the full-crypto epoch needs of
-hydrabadger_tpu/crypto/threshold.py: the Fr helpers, `SecretKeySet`
-(dealer-side master polynomial; share i is poly(i+1)), the Lagrange
-coefficients at zero, interpolation in the exponent, and
-`DecryptionShare`.  Every function draws from the caller's
-`random.Random` in the same order as the original, so a seed gives the
-same key set in both packages.
+Copy of what the port's epochs need of hydrabadger_tpu/crypto/threshold.py:
+the Fr helpers, `SecretKeySet` (dealer-side master polynomial; share i is
+poly(i+1)), the Lagrange coefficients at zero, interpolation in the
+exponent, `DecryptionShare`, the G2 `Signature` / `SignatureShare` (the
+common coin is a signature's parity), `SecretKeyShare.sign_share` and
+`PublicKeySet.combine_signatures`.  Every function draws from the
+caller's `random.Random` in the same order as the original, so a seed
+gives the same key set in both packages.  Pairing verification is not
+copied yet.
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Mapping, Sequence
 
-from .bls12_381 import R, add, infinity, multiply
+from .bls12_381 import G1, R, add, eq, g2_to_bytes, hash_to_g2, infinity, mul_sub, multiply
 
 
 def fr_random(rng) -> int:
@@ -52,10 +55,35 @@ def lagrange_coeffs_at_zero(xs: Sequence[int]) -> list[int]:
 def interpolate_g_at_zero(points: Mapping[int, tuple]) -> tuple:
     """Lagrange interpolation *in the exponent*: sum of lambda_i * P_i at x=0."""
     xs = list(points.keys())
-    acc = infinity()
+    first = points[xs[0]]
+    acc = infinity(type(first[0]))
     for xi, li in zip(xs, lagrange_coeffs_at_zero(xs)):
         acc = add(acc, multiply(points[xi], li))
     return acc
+
+
+@dataclass(frozen=True)
+class Signature:
+    """BLS signature: a G2 point."""
+
+    point: tuple
+
+    def to_bytes(self) -> bytes:
+        return g2_to_bytes(self.point)
+
+    def parity(self) -> bool:
+        """Deterministic bit of the signature — the common-coin value."""
+        return bool(hashlib.sha256(self.to_bytes()).digest()[0] & 1)
+
+    def __eq__(self, other):
+        return isinstance(other, Signature) and eq(self.point, other.point)
+
+    def __hash__(self):
+        return hash(self.to_bytes())
+
+
+class SignatureShare(Signature):
+    pass
 
 
 @dataclass(frozen=True)
@@ -64,9 +92,14 @@ class SecretKey:
 
     scalar: int
 
+    def __repr__(self) -> str:
+        # never the scalar
+        return f"<{type(self).__name__} [redacted]>"
+
 
 class SecretKeyShare(SecretKey):
-    pass
+    def sign_share(self, msg: bytes) -> SignatureShare:
+        return SignatureShare(mul_sub(hash_to_g2(msg), self.scalar))
 
 
 @dataclass(frozen=True)
@@ -97,3 +130,24 @@ class SecretKeySet:
 
     def secret_key_share(self, i: int) -> SecretKeyShare:
         return SecretKeyShare(poly_eval(self.coeffs, i + 1))
+
+    def public_keys(self) -> "PublicKeySet":
+        return PublicKeySet([mul_sub(G1, c) for c in self.coeffs])
+
+
+class PublicKeySet:
+    """Commitment to the master polynomial: a G1 point per coefficient."""
+
+    def __init__(self, commitment: Sequence[tuple]):
+        self.commitment = list(commitment)
+
+    @property
+    def threshold(self) -> int:
+        return len(self.commitment) - 1
+
+    def combine_signatures(self, shares: Mapping[int, SignatureShare]) -> Signature:
+        """Lagrange-combine >= t+1 verified shares (indexed by node i)."""
+        if len(shares) <= self.threshold:
+            raise ValueError(f"need {self.threshold + 1} shares, got {len(shares)}")
+        pts = {i + 1: s.point for i, s in shares.items()}
+        return Signature(interpolate_g_at_zero(pts))

@@ -71,6 +71,14 @@ LIBRARIES = {
             "circuit_error_string": ([_I], ctypes.c_char_p),
         },
     ),
+    "fq2_point": (
+        "fq2_point.cu",
+        {
+            # device, kind, a, b, digits, out, n, stream
+            "fq2_point_launch": ([_I, _I, _P, _P, _P, _P, _LL, _P], _I),
+            "fq2_point_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
 }
 
 _lock = threading.Lock()

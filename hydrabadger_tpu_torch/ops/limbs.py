@@ -1,22 +1,28 @@
-"""The port's limb layout for BLS12-381 Fp, and the host conversions.
+"""The port's limb layouts for BLS12-381 Fp and Fp2, and the host conversions.
 
-Counterpart of the numpy parts of hydrabadger_tpu/ops/bls_jax.py (the
-Montgomery constants, GLV constants, int <-> limb and point <-> limb
-conversions).
+Counterpart of the numpy parts of hydrabadger_tpu/ops/bls_jax.py and
+ops/bls_g2_jax.py (the Montgomery constants, GLV constants, int <-> limb
+and point <-> limb conversions).
 
 Layout.  A field element is 12 little-endian 32-bit words (R = 2^384,
 the JAX package's R too), held as the bit pattern in int32.  A batch
 keeps the lane axis last:
 
-    field elements   [12, n]      int32
-    points           [3, 12, n]   int32   (Jacobian x, y, z; Montgomery)
+    field elements   [12, n]         int32
+    points           [3, 12, n]      int32   (Jacobian x, y, z; Montgomery)
+    Fp2 elements     [2, 12, n]      int32   (c0 + c1 u, u^2 = -1)
+    G2 points        [3, 2, 12, n]   int32   (coordinate, Fp2 component,
+                                              word, lane)
 
 so neighbouring CUDA threads (lanes) read neighbouring words.  Every
 value the kernels and their plain versions emit is canonical (< p), as
 the JAX package's are, so a JAX array of 32 12-bit limbs and a port
 array of 12 32-bit words hold the same bits: `limbs_from_jax` /
 `limbs_to_jax` regroup bits and do no arithmetic.  Infinity is
-x = y = R mod p (Montgomery one), z = 0.
+x = y = R mod p (Montgomery one), z = 0; on G2 x = y = (one, 0), z = 0.
+A G2 point's six Fp elements x0 x1 y0 y1 z0 z1 are thus consecutive
+[12, n] blocks, and the JAX package's [B, 3, 2, 32] G2 batch regroups
+into it with `g2_limbs_from_jax` / `g2_limbs_to_jax`.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from typing import Sequence
 import numpy as np
 
 from ..crypto import bls12_381 as bls
-from ..crypto.bls12_381 import FQ, P
+from ..crypto.bls12_381 import FQ, FQ2, P
 
 LIMB_BITS = 32
 N_LIMBS = 12  # 384 bits >= 381-bit p
@@ -133,6 +139,68 @@ def limbs_to_points(arr) -> list:
     return out
 
 
+def _fq2_batch_inverse(els: Sequence) -> list:
+    """Montgomery's trick over FQ2 (one .inv() per batch)."""
+    if not els:
+        return []
+    prefix = [els[0]]
+    for e in els[1:]:
+        prefix.append(prefix[-1] * e)
+    inv_all = prefix[-1].inv()
+    out = [None] * len(els)
+    for i in range(len(els) - 1, 0, -1):
+        out[i] = inv_all * prefix[i - 1]
+        inv_all = inv_all * els[i]
+    out[0] = inv_all
+    return out
+
+
+def g2_points_to_limbs(pts: Sequence) -> np.ndarray:
+    """Host projective G2 points -> [3, 2, 12, B] Montgomery Jacobian
+    words, normalised to Z = 1 with one batched FQ2 inversion (infinity
+    -> x = y = (one, 0), z = 0), as bls_g2_jax.g2_points_to_limbs
+    normalises them."""
+    rp = R_MONT % P
+    one = FQ2.one()
+    todo = [pt[2] for pt in pts if not bls.is_inf(pt) and pt[2] != one]
+    invs = iter(_fq2_batch_inverse(todo))
+    cols = [[] for _ in range(6)]  # x0 x1 y0 y1 z0 z1
+    for pt in pts:
+        if bls.is_inf(pt):
+            vals = (rp, 0, rp, 0, 0, 0)
+        else:
+            x, y, z = pt
+            if z != one:
+                zi = next(invs)
+                x, y = x * zi, y * zi
+            vals = (x.coeffs[0] * rp % P, x.coeffs[1] * rp % P,
+                    y.coeffs[0] * rp % P, y.coeffs[1] * rp % P, rp, 0)
+        for col, v in zip(cols, vals):
+            col.append(v)
+    words = ints_to_limbs_batch([v for col in cols for v in col]).reshape(6, len(pts), N_LIMBS)
+    return np.ascontiguousarray(words.transpose(0, 2, 1)).reshape(3, 2, N_LIMBS, len(pts))
+
+
+def limbs_to_g2_points(arr) -> list:
+    """[3, 2, 12, ...] Montgomery Jacobian words -> flat list of host G2
+    points (affine representatives, Z = 1; infinity as bls.infinity(FQ2))."""
+    flat = np.asarray(arr).reshape(6, N_LIMBS, -1)
+    x0, x1, y0, y1, z0, z1 = (
+        [v * R_INV % P for v in limbs_to_ints_batch(flat[c].T)] for c in range(6)
+    )
+    zs = [FQ2([a, b]) for a, b in zip(z0, z1)]
+    invs = iter(_fq2_batch_inverse([z for z in zs if not z.is_zero()]))
+    out = []
+    for i, z in enumerate(zs):
+        if z.is_zero():
+            out.append(bls.infinity(FQ2))
+            continue
+        zi = next(invs)
+        zi2 = zi * zi
+        out.append((FQ2([x0[i], x1[i]]) * zi2, FQ2([y0[i], y1[i]]) * zi2 * zi, FQ2.one()))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Carry-across: the JAX package's 12-bit limbs <-> the port's 32-bit words
 # ---------------------------------------------------------------------------
@@ -171,3 +239,19 @@ def limbs_to_jax(x, batch_shape=None) -> np.ndarray:
     n = x.shape[-1]
     out = jax_limbs_from_words(x.reshape(3, N_LIMBS, n).transpose(2, 0, 1))
     return out.reshape(*(batch_shape or (n,)), 3, JAX_N_LIMBS)
+
+
+def g2_limbs_from_jax(points) -> np.ndarray:
+    """JAX G2 points [..., 3, 2, 32] -> the port's [3, 2, 12, N] with the
+    batch axes flattened into the lane axis N."""
+    w = words_from_jax_limbs(points).reshape(-1, 3, 2, N_LIMBS)
+    return np.ascontiguousarray(w.transpose(1, 2, 3, 0))
+
+
+def g2_limbs_to_jax(x, batch_shape=None) -> np.ndarray:
+    """The port's [3, 2, 12, N] -> JAX G2 points [*batch_shape, 3, 2, 32]
+    (batch_shape defaults to (N,))."""
+    x = np.asarray(x)
+    n = x.shape[-1]
+    out = jax_limbs_from_words(x.reshape(3, 2, N_LIMBS, n).transpose(3, 0, 1, 2))
+    return out.reshape(*(batch_shape or (n,)), 3, 2, JAX_N_LIMBS)

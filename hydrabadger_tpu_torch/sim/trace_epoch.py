@@ -4,6 +4,8 @@
         [--instances 1024] [--trace PATH]
     python -m hydrabadger_tpu_torch.sim.trace_epoch --full-crypto
         [--epochs 3] [--instances 64] [--trace PATH]
+    python -m hydrabadger_tpu_torch.sim.trace_epoch --coin
+        [--instances 64] [--trace PATH]
 
 Warms a `TensorSim` at the config-6 geometry (64 nodes, 12-byte shards),
 or with --full-crypto a `FullCryptoTensorSim` at the config-8 geometry
@@ -11,7 +13,11 @@ or with --full-crypto a `FullCryptoTensorSim` at the config-8 geometry
 runs `run(epochs)` under `torch.profiler` and prints one JSON object:
 the window's wall ms, the device's busy ms (the union of its kernel and
 copy intervals) and idle share, and device ms per epoch for each kernel
-name.  `--trace` also writes the Chrome trace.  The profiler adds host
+name.  With --coin it warms a `CoinRound` (64 nodes; set-up: 22 host G1
+multiplies and one host hash onto G2 per instance), traces one round and
+splits its device time into kernel B4's `table`, `step` and `add`
+launches and the glue (every other kernel and copy).  `--trace` also
+writes the Chrome trace.  The profiler adds host
 cost to every launch, so the traced epochs/s is below the untraced one;
 the device times are the kernels' own.  Needs a card.
 """
@@ -26,7 +32,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .coin import CoinConfig, CoinRound
 from .tensor import FullCryptoConfig, FullCryptoTensorSim, TensorSim, TensorSimConfig
+
+# kernel B4's entries by their instantiation (csrc/fq2_point.cu's Kind)
+_B4_PARTS = {"table": "0", "step": "1", "add": "2"}
 
 
 def _union_us(intervals) -> float:
@@ -76,6 +86,42 @@ def _trace_sim(sim, instances: int, epochs: int, warmup: int, trace_path=None) -
     }
 
 
+def _b4_part(name: str) -> str:
+    for part, kind in _B4_PARTS.items():
+        if f"fq2_point_kernel<{kind}>" in name or f"fq2_point_kernelILi{kind}E" in name:
+            return part
+    return "glue"
+
+
+def trace_coin(cfg: CoinConfig, device="cuda", trace_path=None) -> dict:
+    """Profile one coin round after a warm-up round: wall, device busy and
+    idle share, and device ms by part (table / step / add / glue)."""
+    cr = CoinRound(cfg, device=device)
+    cr.run()  # builds the kernel, warms the allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cr.run()  # ends in the host's fetch of the shares and signatures
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    parts = defaultdict(float)
+    for e in events:
+        parts[_b4_part(e.name)] += e.time_range.elapsed_us() / 1e3
+    busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in events) / 1e3
+    return {
+        "device": torch.cuda.get_device_name(cr.engine.device),
+        "nodes": cfg.n_nodes,
+        "instances": cfg.instances,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if events else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if events else None,
+        "device_ms": dict(parts),
+        "launches": cr.last_launches,
+    }
+
+
 def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> dict:
     """Profile `epochs` fast-path epochs after a warm-up; see the module docstring."""
     return _trace_sim(TensorSim(cfg, device=device), cfg.instances, epochs, 2, trace_path)
@@ -91,12 +137,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--full-crypto", action="store_true",
                     help="trace FullCryptoTensorSim (config 8) instead of TensorSim")
+    ap.add_argument("--coin", action="store_true",
+                    help="trace one CoinRound (64 nodes) instead of TensorSim")
     ap.add_argument("--epochs", type=int, default=None, help="default 20, or 3 with --full-crypto")
     ap.add_argument("--instances", type=int, default=None,
-                    help="default 1024, or 64 with --full-crypto")
+                    help="default 1024, or 64 with --full-crypto or --coin")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
-    if args.full_crypto:
+    if args.coin:
+        out = trace_coin(CoinConfig(n_nodes=64, instances=args.instances or 64),
+                         trace_path=args.trace)
+    elif args.full_crypto:
         cfg = FullCryptoConfig(n_nodes=64, instances=args.instances or 64)
         out = trace_full_crypto(cfg, args.epochs or 3, trace_path=args.trace)
     else:

@@ -13,6 +13,8 @@ import torch
 from hydrabadger_tpu_torch.crypto import bls12_381 as bls
 from hydrabadger_tpu_torch.crypto import gf256
 from hydrabadger_tpu_torch.ops import circuit_torch, decrypt_torch, fq_torch, gf256_torch, limbs, rs_torch
+from hydrabadger_tpu_torch.ops import bls_g2_torch as g2, fq2_torch
+from hydrabadger_tpu_torch.sim import coin
 from hydrabadger_tpu_torch.sim import tensor as ts
 
 pytestmark = pytest.mark.cuda
@@ -115,3 +117,56 @@ def test_full_crypto_sim_on_the_card_equals_the_cpu(card):
     assert cpu.run(1)
     assert np.array_equal(sim.state(), cpu.state())
     assert sim.oracle_check([0, 7])
+
+
+def _g2_points(card, n=301):
+    """Two [3, 2, 12, n] G2 batches on the card with infinity + Q,
+    P + infinity, P + P and P + (-P) lanes, and digits with 0s."""
+    rng = np.random.default_rng(n)
+    base = limbs.g2_points_to_limbs([bls.hash_to_g2(b"card-%d" % i) for i in range(4)])
+    a = torch.from_numpy(np.ascontiguousarray(base[..., rng.integers(0, 4, n)])).to(card)
+    a = fq2_torch.g2_double_plain(a)
+    b = fq2_torch.g2_double_plain(a).roll(1, -1).contiguous()
+    inf = fq2_torch.g2_infinity(1, card)[..., 0]
+    a[..., 0] = inf
+    b[..., 1] = inf
+    b[..., 2] = a[..., 2]
+    b[..., 3] = fq2_torch.g2_neg(a[..., 3:4])[..., 0]
+    digits = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(card)
+    digits[:3] = 0
+    return a, b, digits
+
+
+@pytest.mark.parametrize("entry", ["table", "step", "add"])
+def test_fq2_point_kernel_matches_plain(card, entry):
+    a, b, digits = _g2_points(card)
+    args = {"table": (a,), "step": (b, fq2_torch.g2_table_plain(a), digits), "add": (a, b)}[entry]
+    kernel, plain = fq2_torch.ENTRIES[entry]
+    before = fq2_torch.launches
+    got = kernel(*args)
+    assert fq2_torch.launches == before + 1
+    assert torch.equal(got, plain(*args))
+
+
+def test_g2_batch_entry_points_on_the_card_equal_the_host(card):
+    h = bls.hash_to_g2(b"card")
+    pts, ks = [h, bls.double(h), h, bls.G2], [0, 1, bls.R - 1, 0xC0FFEE << 200]
+    got = g2.g2_scalar_mul_batch(pts, ks, device="cuda")
+    assert all(bls.eq(o, bls.mul_sub(p, k)) for o, p, k in zip(got, pts, ks))
+    sums = g2.g2_weighted_sum_batch([pts[:2], pts[2:]], [ks[:2], ks[2:]], device="cuda")
+    assert bls.eq(sums[0], bls.double(h))
+    assert bls.eq(sums[1], bls.add(bls.neg(h), bls.mul_sub(bls.G2, ks[3])))
+
+
+def test_coin_round_on_the_card_equals_the_cpu(card):
+    cfg = coin.CoinConfig(n_nodes=4, instances=4)
+    gpu = coin.CoinRound(cfg, device="cuda", seed=5)
+    before = fq2_torch.launches
+    _, bits = gpu.run()
+    assert gpu.last_launches == {"sign": 65, "combine": 66}  # t + 1 = 2: one tree level
+    assert fq2_torch.launches == before + 131
+    cpu = coin.CoinRound(cfg, device="cpu", seed=5)
+    _, cpu_bits = cpu.run()
+    assert torch.equal(gpu.shares_limbs.cpu(), cpu.shares_limbs)
+    assert torch.equal(gpu.signatures_limbs.cpu(), cpu.signatures_limbs)
+    assert bits == cpu_bits and gpu.oracle_check([0, 5, 15])
