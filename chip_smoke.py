@@ -51,7 +51,27 @@ failure:
      against the host oracle; the 64 coin bits;
  13. timings: each B4 entry's device time per launch at the main path's
      shapes against its bound and its plain version; shares/s and
-     combines/s, device-only (CUDA events) and wall; coin rounds/s.
+     combines/s, device-only (CUDA events) and wall; coin rounds/s;
+ 14. the Fp probe kernel (fp_probe) against its plain version, exact:
+     `mul` at E1's 65,536 lanes for every block width, `chain` with each of
+     its four bodies at E2's 8192 and the decrypt path's 4096 and 94,208
+     lanes, `mul_layer` at E3's [12, 2 x 18,432], `noop` at E4's [32, 1024],
+     each also at a ragged 1013;
+ 15. the probes E1-E4 through their modules' entry points
+     (hydrabadger_tpu_torch/experiments/), every fp_probe counter set to 0
+     just before and read just after: each entry launched; their timings
+     beside their bounds (E1 by block width, E2's bodies at three lane
+     counts, E3 against B3's `add` circuit per product, E4 queued, back to
+     back, as a CUDA graph and `x + 1` in PyTorch);
+ 16. the main path: DecryptRound at 64 nodes (set-up: the key set, 22 host
+     G1 multiplies, 64 host encryptions); a warm-up round; the round's 4096
+     shares and 64 combined points held limb for limb against the same
+     round through the plain versions on the card; a counted round, every
+     launch counter set to 0 just before and read just after: kernel B2's
+     launches by entry equal to the plan from the digits, no other kernel;
+     sampled shares and all 64 combined points against the host oracle and
+     all 64 plaintexts against the contributions encrypted; timings: device
+     ms by events, wall ms, the bound from the round's digits.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
@@ -71,19 +91,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT8_OPS_PER_S = 1979e12
+from hydrabadger_tpu_torch.experiments._common import wall_ms  # noqa: E402
+from hydrabadger_tpu_torch.ops import roofline  # noqa: E402
 
 N_NODES, INSTANCES, SHARD_LEN, EPOCHS = 64, 1024, 12, 50
 FC_NODES, FC_INSTANCES, FC_EPOCHS = 64, 64, 3
 COIN_NODES, COIN_INSTANCES, COIN_ROUNDS = 64, 64, 3
+DEC_NODES, DEC_ROUNDS = 64, 3
 RAGGED = 1013  # a lane count that is no multiple of a block
-# A 384-bit Montgomery product in its cheapest exact form at a published
-# peak: int8 digit MACs on the tensor cores, 48x48 for a*b, the low half
-# (48*49/2) for m = t p' mod R, 48x48 for m*p; one MAC = 2 ops.
-OPS_PER_PRODUCT = 2 * (48 * 48 + 48 * 49 // 2 + 48 * 48)
-ELEMENT_BYTES = 48
 
 
 class SmokeFailure(RuntimeError):
@@ -145,24 +160,6 @@ def launch_ms(fn, reps: int = 10, batches: int = 3) -> float:
         end.synchronize()
         per.append(start.elapsed_time(end) / reps)
     return float(np.median(per))
-
-
-def wall_ms(fn) -> float:
-    """Host ms of one call of fn, ended by a synchronize (after a warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
-
-
-def bound(products: int, lanes: int, elements: int) -> tuple[float, float]:
-    """(operations ms, bytes ms) of `products` Montgomery products per lane
-    over `lanes` lanes that read and write `elements` field elements each."""
-    ops_ms = products * lanes * OPS_PER_PRODUCT / PEAK_INT8_OPS_PER_S * 1e3
-    bytes_ms = elements * ELEMENT_BYTES * lanes / PEAK_BYTES_PER_S * 1e3
-    return ops_ms, bytes_ms
 
 
 def full_crypto(dev: torch.device, tag: str) -> list[dict]:
@@ -328,7 +325,7 @@ def full_crypto(dev: torch.device, tag: str) -> list[dict]:
             prods = circ.n_products
             ms = launch_ms(lambda: circ(xin))
             p_ms = wall_ms(lambda: circ.plain(xin))
-        ops_ms, bytes_ms = bound(prods, r.lanes, r.elements)
+        ops_ms, bytes_ms = roofline.product_ms(prods * r.lanes, r.elements * r.lanes)
         rows.append({"kernel": r.kernel, "entry": r.name, "form": r.form, "lanes": r.lanes,
                      "per_epoch": r.count, "products_per_lane": prods,
                      "elements_per_lane": r.elements, "ms": ms, "plain_ms": p_ms,
@@ -556,8 +553,7 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
     launches_of += [("add", m, need["add"] * m) for m in tree]
     rows = {}
     for entry, m, products in launches_of:
-        ops_ms = products * OPS_PER_PRODUCT / PEAK_INT8_OPS_PER_S * 1e3
-        bytes_ms = f2.ELEMENTS[entry] * ELEMENT_BYTES * m / PEAK_BYTES_PER_S * 1e3
+        ops_ms, bytes_ms = roofline.product_ms(products, f2.ELEMENTS[entry] * m)
         r = rows.setdefault((entry, m), {
             "entry": entry, "lanes": m, "per_round": 0, "products_per_lane_formula": f2.PRODUCTS[entry],
             "products_needed": 0, "elements_per_lane": f2.ELEMENTS[entry],
@@ -601,6 +597,236 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
         "ms": per["ms"],
         "plain_ms": per["plain_ms"],
         "bound_ms": per["bound_ms"],
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def fp_probes(dev: torch.device, tag: str) -> dict:
+    """Phases 14-15: the fp_probe kernel (E1-E4) against its plain version
+    and the probes' timings.  Returns the kernel's entry of the `kernels`
+    line."""
+    from hydrabadger_tpu_torch.experiments import (cuda_fq, prof_fixed_cost, prof_mix_vs_mul,
+                                                   prof_mul_variants)
+    from hydrabadger_tpu_torch.experiments._common import fp_operands
+    from hydrabadger_tpu_torch.ops import fp_probe_torch as fp
+
+    # -- 14. fp_probe against its plain version ------------------------------
+    worst = 0
+
+    def hold(label, got_fn, want_fn):
+        nonlocal worst
+        got = got_fn()
+        torch.cuda.synchronize()
+        want = want_fn()
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"fp_probe != plain at {label} (max err {err})")
+        print(f"kernel == plain, exact: fp_probe {label}")
+
+    for m in (cuda_fq.LANES, RAGGED):
+        a, b = fp_operands(m, 11, dev), fp_operands(m, 12, dev)
+        for t in cuda_fq.THREADS:
+            hold(f"mul [12, {m}] threads {t}", lambda: fp.fp_mul(a, b, t),
+                 lambda: fp.fp_mul_plain(a, b))
+    for m, iters in [(n, prof_mul_variants.ITERS[0]) for n in prof_mul_variants.LANES] + [
+            (RAGGED, prof_mul_variants.ITERS[1])]:
+        x, b = fp_operands(m, 13, dev), fp_operands(m, 14, dev)
+        for body in fp.BODIES:
+            hold(f"chain {body} x {iters} [12, {m}]", lambda: fp.fp_chain(x, b, body, iters),
+                 lambda: fp.fp_chain_plain(x, b, body, iters))
+    for w in (prof_mix_vs_mul.LANES * prof_mix_vs_mul.BATCH, RAGGED):
+        x = fp_operands(2 * w, 15, dev)
+        for t in prof_mix_vs_mul.THREADS:
+            hold(f"mul_layer [12, 2 x {w}] threads {t}", lambda: fp.fp_mul_layer(x, t),
+                 lambda: fp.fp_mul_layer_plain(x))
+    rng = np.random.default_rng(16)
+    for shape in (prof_fixed_cost.SHAPE, (RAGGED,)):
+        x = torch.from_numpy(rng.integers(-2**20, 2**20, shape).astype(np.int32)).to(dev)
+        for inner in (1, 100):
+            hold(f"noop +{inner} {list(shape)}", lambda: fp.noop(x, inner),
+                 lambda: fp.noop_plain(x, inner))
+
+    # -- 15. the probes: their modules' entry points, counted ------------------
+    torch.cuda.synchronize()
+    fp.launches = 0
+    fp.launches_by_entry.clear()
+    e1 = cuda_fq.measure(dev)
+    e2 = prof_mul_variants.measure(dev)
+    e3 = prof_mix_vs_mul.measure(dev)
+    e4 = prof_fixed_cost.measure(dev)
+    counted, by_entry = fp.launches, dict(fp.launches_by_entry)
+    want = {"mul", "mul_layer", "noop"} | {f"chain_{body}" for body in fp.BODIES}
+    check(set(by_entry) == want and min(by_entry.values()) > 0,
+          f"the probes' fp_probe launches by entry {by_entry}")
+    print(f"the probes: fp_probe launches {counted}, by entry {by_entry}")
+    for r in e1:
+        print(f"E1 mul x {r['lanes']} lanes, {r['threads']} threads: {r['ms']:.5f} ms per launch, "
+              f"{r['ns_per_product']:.4f} ns/product; bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+              f"{r['ms'] / r['bound_ms']:.1f}x; plain {r['plain_ms']:.2f} ms {tag}")
+    for r in e2:
+        print(f"E2 chain {r['body']} x {r['lanes']} lanes: {r['ms'] * 1e3:.3f} us per body, "
+              f"{r['ns_per_lane']:.4f} ns/lane; bound {r['bound_ms'] * 1e3:.4f} us "
+              f"({r['bound_by']}), {r['ms'] / r['bound_ms']:.1f}x {tag}")
+    for r in e3:
+        print(f"E3 {r['entry']} ({r['products']} products{', ' + str(r['threads']) + ' threads' if 'threads' in r else ''}): "
+              f"{r['ms']:.5f} ms per launch, {r['ns_per_product']:.4f} ns/product; bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); plain {r['plain_ms']:.2f} ms {tag}")
+    for r in e4:
+        print(f"E4 {r['entry']} inner {r['inner']}: {r['us_per_launch']:.3f} us per launch over "
+              f"{r['launches']}; bound {r['bound_us']:.4f} us ({r['bound_by']}) {tag}")
+    print(json.dumps({"fp_probes": e1 + e2 + e3 + e4}))
+
+    best = min(e1, key=lambda r: r["ms"])
+    full8k = next(r for r in e2 if r["body"] == "full")  # at E2's own 8192 lanes
+    layer = min((r for r in e3 if r["entry"] == "mul_layer"), key=lambda r: r["ms"])
+    circ = next(r for r in e3 if r["entry"] != "mul_layer")
+    q = {r["entry"]: r for r in e4 if r["inner"] == 1}
+
+    def entry(probe, replaces, r, ms, plain_ms, bound, by, library_ms=None):
+        return {"probe": probe, "replaces": replaces, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": library_ms, "shape": r}
+
+    per_probe = [
+        entry("E1", "experiments/pallas_fq.py:87", f"mul x {best['lanes']}, {best['threads']} threads",
+              best["ms"], best["plain_ms"], best["bound_ms"], best["bound_by"]),
+        entry("E2", "experiments/prof_mul_variants.py:44", f"chain full, one body x {full8k['lanes']} lanes",
+              full8k["ms"], full8k["plain_ms"], full8k["bound_ms"], full8k["bound_by"]),
+        entry("E3", "experiments/prof_mix_vs_mul.py:60",
+              f"mul_layer x {layer['products']}, {layer['threads']} threads (B3 add circuit at "
+              f"the same products: {circ['ms']:.5f} ms)", layer["ms"], layer["plain_ms"],
+              layer["bound_ms"], layer["bound_by"]),
+        entry("E4", "experiments/prof_fixed_cost.py:27", "noop [32, 1024] +1, back to back",
+              q["back_to_back"]["us_per_launch"] / 1e3, q["back_to_back"]["plain_us"] / 1e3,
+              q["back_to_back"]["bound_us"] / 1e3,
+              q["back_to_back"]["bound_by"], q["torch x + 1 back_to_back"]["us_per_launch"] / 1e3),
+    ]
+    return {
+        "name": "fp_probe",
+        "route": "cuda",
+        "source": "hydrabadger_tpu_torch/csrc/fp_probe.cu",
+        "replaces": "experiments/pallas_fq.py:87",
+        "also_replaces": ["experiments/prof_mul_variants.py:44", "experiments/prof_mix_vs_mul.py:60",
+                          "experiments/prof_fixed_cost.py:27"],
+        "launches": counted,
+        "path": "the probe modules (hydrabadger_tpu_torch/experiments/); no epoch path runs it",
+        "max_abs_err": worst,
+        "per": f"E1: one mul launch over {best['lanes']} lanes, {best['threads']} threads per block",
+        "ms": best["ms"],
+        "plain_ms": best["plain_ms"],
+        "bound_ms": best["bound_ms"],
+        "bound_by": best["bound_by"],
+        "library_ms": None,
+        "probes": per_probe,
+    }
+
+
+def decrypt_plane(dev: torch.device, tag: str) -> dict:
+    """Phase 16: the threshold-decrypt round on kernel B2.  Returns the
+    round's numbers for kernel B2's entry of the `kernels` line."""
+    from hydrabadger_tpu_torch.ops import bls_torch, circuit_torch, fq_torch
+    from hydrabadger_tpu_torch.ops import fp_probe_torch, fq2_torch, gf256_torch
+    from hydrabadger_tpu_torch.sim import decrypt
+
+    cfg = decrypt.DecryptConfig(n_nodes=DEC_NODES)
+    n_shares, q = cfg.n_nodes * cfg.n_nodes, cfg.threshold + 1
+    t0 = time.perf_counter()
+    rnd = decrypt.DecryptRound(cfg, device=dev, seed=0)
+    print(f"decrypt set-up: key set (t = {cfg.threshold}), {q} host G1 multiplies, "
+          f"{cfg.n_nodes} host encryptions: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rnd.run()
+    print(f"warm-up decrypt round {time.perf_counter() - t0:.3f} s")
+    plain = decrypt.DecryptRound(cfg, device=dev, seed=0, use_kernel=False)
+    t0 = time.perf_counter()
+    plain.run()
+    plain_round_s = time.perf_counter() - t0
+    check(torch.equal(rnd.shares_limbs, plain.shares_limbs),
+          "the round's decryption shares != the plain versions' round, limb for limb")
+    check(torch.equal(rnd.combined_limbs, plain.combined_limbs),
+          "the round's combined points != the plain versions' round, limb for limb")
+    check(rnd.plaintexts == plain.plaintexts, "plaintexts != the plain versions' round")
+    print(f"decrypt round at {cfg.n_nodes} x {cfg.n_nodes}: {n_shares} shares and "
+          f"{cfg.n_nodes} combined points == the same round through the plain versions on the "
+          f"card, limb for limb ({plain_round_s:.2f} s)")
+    del plain
+
+    plan = rnd.plan()
+    want = {part: bls_torch.launch_counts(rows) for part, rows in plan.items()}
+    want_by_kind = {}
+    for counts in want.values():
+        for k, v in counts.items():
+            want_by_kind[k] = want_by_kind.get(k, 0) + v
+    torch.cuda.synchronize()
+    fq_torch.launches, fq2_torch.launches, circuit_torch.launches = 0, 0, 0
+    gf256_torch.launches, fp_probe_torch.launches = 0, 0
+    fq_torch.launches_by_kind.clear()
+    t0 = time.perf_counter()
+    plaintexts = rnd.run()
+    round_s = [time.perf_counter() - t0]
+    counted, by_kind = fq_torch.launches, dict(fq_torch.launches_by_kind)
+    others = fq2_torch.launches + circuit_torch.launches + gf256_torch.launches + fp_probe_torch.launches
+    check(rnd.last_launches == {part: len(rows) for part, rows in plan.items()},
+          f"decrypt round launches {rnd.last_launches}, the digits' plan {want}")
+    check(by_kind == want_by_kind, f"fq_point launches by entry {by_kind}, the plan {want_by_kind}")
+    check(others == 0, f"the decrypt round launched {others} kernels of other libraries")
+    print(f"main path: one decrypt round, fq_point launches {counted} ({rnd.last_launches}, "
+          f"by entry {by_kind}) == the plan from the digits")
+    sample = [0, 1, cfg.n_nodes + 5, n_shares // 2, n_shares - 1]
+    t0 = time.perf_counter()
+    check(rnd.oracle_check(sample), "decrypt round != the host oracle")
+    check(plaintexts == rnd.contributions, "a plaintext != the contribution encrypted")
+    print(f"shares {sample} == mul_sub(U, sk_i), all {cfg.n_nodes} combined points == "
+          f"U * master (host oracle, {time.perf_counter() - t0:.2f} s); all {cfg.n_nodes} "
+          f"plaintexts == the {cfg.contribution_bytes}-byte contributions encrypted")
+
+    for _ in range(DEC_ROUNDS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rnd.run()
+        round_s.append(time.perf_counter() - t0)
+    items = rnd.items()
+    pts, digits = bls_torch.scalar_mul_operands([ct.u for _sk, ct in items],
+                                                [sk.scalar for sk, _ct in items], dev)
+    lams = rnd.lagrange()
+    cpts, cwins, _ = bls_torch.weighted_sum_operands(
+        [[rnd.shares[j * cfg.n_nodes + i].point for i in qu] for j, qu in enumerate(rnd.quorums)],
+        lams, dev)
+    share_ms = timed_ms(lambda: bls_torch.g1_scalar_mul_glv(pts, digits), 5)
+    comb_ms = timed_ms(lambda: bls_torch.g1_weighted_sum_windowed(cpts, cwins, q), 5)
+    share_plain = wall_ms(lambda: bls_torch.g1_scalar_mul_glv(pts, digits, use_kernel=False))
+    comb_plain = wall_ms(lambda: bls_torch.g1_weighted_sum_windowed(cpts, cwins, q, use_kernel=False))
+    share_wall = wall_ms(lambda: rnd.engine.decrypt_share_batch(items))
+    bound = {}
+    for part, rows in plan.items():
+        per_launch = [roofline.product_ms(r.products, r.elements * r.lanes) for r in rows]
+        bound[part] = {"bound_ms": sum(max(b) for b in per_launch),
+                       "ops_ms": sum(b[0] for b in per_launch),
+                       "bytes_ms": sum(b[1] for b in per_launch),
+                       "products": sum(r.products for r in rows)}
+    bound_ms = sum(b["bound_ms"] for b in bound.values())
+    bound_by = ("operations" if sum(b["ops_ms"] for b in bound.values())
+                >= sum(b["bytes_ms"] for b in bound.values()) else "bytes")
+    round_ms = 1e3 * float(np.median(round_s))
+    dev_ms = share_ms + comb_ms
+    print(f"decrypt round {round_ms:.2f} ms wall (median of {len(round_s)}; "
+          f"{[round(1 / s, 3) for s in round_s]} rounds/s); shares {share_ms:.3f} ms + combine "
+          f"{comb_ms:.3f} ms device by events ({n_shares / share_ms * 1e3:.1f} shares/s, "
+          f"{cfg.n_nodes / comb_ms * 1e3:.1f} combines/s device-only); share batch wall "
+          f"{share_wall:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}; shares "
+          f"{bound['share']['bound_ms']:.4f}, combine {bound['combine']['bound_ms']:.4f}), "
+          f"{dev_ms / bound_ms:.0f}x; plain ladders {share_plain:.1f} + {comb_plain:.1f} ms {tag}")
+    print(json.dumps({"decrypt_round_s": round_s, "plain_round_s": plain_round_s,
+                      "share_device_ms": share_ms, "combine_device_ms": comb_ms,
+                      "share_plain_ms": share_plain, "combine_plain_ms": comb_plain,
+                      "share_wall_ms": share_wall, "bound": bound, "launches": rnd.last_launches}))
+    return {
+        "per": f"one decrypt round ({cfg.n_nodes} x {cfg.n_nodes}): the share ladder and the "
+               f"combine, device time by events",
+        "launches": counted,
+        "ms": dev_ms,
+        "plain_ms": share_plain + comb_plain,
+        "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
     }
@@ -746,8 +972,7 @@ def main() -> int:
         del x16
         nbytes = cols * (k + m) + m * k * 8 * 4  # data + out once, the constant table
         ops = 2 * (8 * m) * (8 * k) * cols  # bit-product form, one MAC = 2 ops
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_INT8_OPS_PER_S * 1e3
+        ops_ms, bytes_ms = roofline.ops_bytes_ms(ops, nbytes)
         shapes.append({
             "shape": label, "m": m, "k": k, "cols": cols, "ms": ms, "plain_ms": plain_ms,
             "matmul_bf16_yardstick_ms": yard_ms, "bytes": nbytes, "int8_ops": ops,
@@ -782,6 +1007,9 @@ def main() -> int:
     }]
     kernels += full_crypto(dev, tag)
     kernels.append(coin_plane(dev, tag))
+    kernels.append(fp_probes(dev, tag))
+    fq_entry = next(k for k in kernels if k["name"] == "fq_point")
+    fq_entry["decrypt_round"] = decrypt_plane(dev, tag)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ needs of the JAX-free host code it keeps as its own copy (crypto/).
     crypto/rs.py         encode/decode matrices, numpy ReedSolomon (the oracle)
     crypto/bls12_381.py  G1 over Fp, G2 over Fp2, hash onto G2, pure Python
                          (the host oracle)
-    crypto/threshold.py  Shamir key sets, Lagrange, decryption shares,
-                         signature shares and their combine
+    crypto/threshold.py  Shamir key sets, Lagrange, threshold encryption and
+                         decryption shares, signature shares and their combine
     crypto/futures.py    CryptoFuture: fetch once, warn when dropped
     crypto/engine.py     CpuEngine, GpuEngine and their registry
     csrc/                hand-written CUDA sources for sm_90a (H100)
@@ -19,15 +19,20 @@ needs of the JAX-free host code it keeps as its own copy (crypto/).
     ops/rs_torch         batched RS encode / reconstruct
     ops/limbs.py         the Fp and G2 limb layouts and host conversions
     ops/fq_torch         Fp and Jacobian G1 ops: kernel B2 and its plain version
+    ops/bls_torch        batched G1 ladders: decryption shares, Lagrange combines
     ops/fp12_circuit     the circuit recorder (numpy)
     ops/circuit_torch    recorded circuits: kernel B3 and its plain version
     ops/decrypt_torch    the fused threshold-decrypt epoch (config 8)
     ops/fq2_torch        Fp2 and Jacobian G2 ops: kernel B4 and its plain version
     ops/bls_g2_torch     batched G2 ladders: sign shares, Lagrange combines
+    ops/fp_probe_torch   the Fp probes' kernel and its plain versions
     sim/tensor.py        the fast-path epoch (TensorSim) and the
                          threshold-decrypt plane (FullCryptoTensorSim)
     sim/coin.py          one common-coin round for every ABA instance
                          (CoinRound) through GpuEngine
+    sim/decrypt.py       one epoch's threshold decryption (DecryptRound)
+                         through GpuEngine
+    experiments/         the Fp probes E1-E4 (python -m ..., on a card)
 
 Importing builds nothing and touches no card; kernels build at their
 first launch on a CUDA tensor.

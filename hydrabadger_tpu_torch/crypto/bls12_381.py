@@ -4,8 +4,8 @@ Copy of what the port needs of hydrabadger_tpu/crypto/bls12_381.py: the
 fields FQ and FQ2 (Fp[u]/(u^2 + 1)), the generators G1 and G2 and the
 twist constant B2, projective add / double / multiply / normalize / eq
 for points over either field, the psi endomorphism, cofactor clearing,
-`hash_to_g2` (try-and-increment, then clearing) and the compressed G2
-encoding.  No native engine: `multiply` and `mul_sub` are the plain
+`hash_to_g2` (try-and-increment, then clearing) and the compressed G1
+and G2 encodings.  No native engine: `multiply` and `mul_sub` are the plain
 double-and-add ladder (the JAX package's pure-Python fallback), which
 gives the same group element as the native GLV/GLS ladders.
 
@@ -423,6 +423,19 @@ def clear_cofactor_g2(pt):
 
 def _fq_sign(n: int) -> int:
     return 1 if n > (P - 1) // 2 else 0
+
+
+def g1_to_bytes(pt) -> bytes:
+    """48-byte compressed encoding (zcash-style flag bits)."""
+    aff = normalize(pt)
+    if aff is None:
+        return bytes([0xC0] + [0] * 47)
+    x, y = aff
+    out = bytearray(x.n.to_bytes(48, "big"))
+    out[0] |= 0x80  # compressed
+    if _fq_sign(y.n):
+        out[0] |= 0x20
+    return bytes(out)
 
 
 def g2_to_bytes(pt) -> bytes:

@@ -13,17 +13,19 @@ logic.  Two engines:
 * `GpuEngine` ("gpu", `device="cuda"`): `rs_encode_batch` /
   `rs_reconstruct_batch` on kernel B1 (ops/rs_torch), `sign_share_batch`
   and `combine_signature_shares_batch` on kernel B4 (ops/bls_g2_torch),
-  each batch one device dispatch.  Its `submit_*` twins dispatch at once
-  and defer only the device-to-host copy and the affine conversion
-  (crypto/futures).  `device="cpu"` runs the kernels' plain versions on
-  the host; `use_kernel=False` runs them on the card.
+  `decrypt_share_batch` and `combine_decryption_shares_batch` on kernel
+  B2 (ops/bls_torch), each batch one device dispatch.  Its `submit_*`
+  twins dispatch at once and defer only the device-to-host copy and the
+  affine conversion (crypto/futures).  `device="cpu"` runs the kernels'
+  plain versions on the host; `use_kernel=False` runs them on the card.
 
 Both engines hash each distinct document onto G2 once and keep the point
 in a bounded per-engine cache (`hash_to_g2` is pure Python, ~28 ms).
 The registry (`get_engine`, `register_engine`) is the port's own; nothing
 is registered into the JAX package.  Its default is "gpu", which raises
-without a card; the host engine, the oracle, is had only by its name.  Signature-share verification
-(pairings) and the decryption entries come with later slices.
+without a card; the host engine, the oracle, is had only by its name.
+Signature-share and decryption-share verification (pairings) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import bls_g2_torch, limbs, rs_torch
+from ..ops import bls_g2_torch, bls_torch, limbs, rs_torch
 from . import futures
 from . import threshold as th
 from .bls12_381 import hash_to_g2, mul_sub
@@ -138,6 +140,22 @@ class CpuEngine:
         """Lagrange combine in the exponent over G2, job by job."""
         return [pk_set.combine_signatures(shares) for pk_set, shares in jobs]
 
+    # -- threshold decryption (hbbft::threshold_decrypt) --------------------
+
+    def decrypt_share_batch(self, items: Sequence[Tuple[th.SecretKeyShare, th.Ciphertext]]
+                            ) -> List[th.DecryptionShare]:
+        """U * sk_i across (instance, node) pairs, one host ladder each."""
+        return [sk.decrypt_share(ct) for sk, ct in items]
+
+    def submit_decrypt_share_batch(self, items) -> futures.CryptoFuture:
+        return futures.immediate(self.decrypt_share_batch(items), "decrypt_share_batch")
+
+    def combine_decryption_shares_batch(
+        self, jobs: Sequence[Tuple[th.PublicKeySet, Mapping[int, th.DecryptionShare], th.Ciphertext]]
+    ) -> List[bytes]:
+        """Lagrange combine in the exponent over G1 and the KDF unwrap, job by job."""
+        return [pk_set.decrypt(shares, ct) for pk_set, shares, ct in jobs]
+
     def __repr__(self) -> str:
         return f"<{type(self).__name__}>"
 
@@ -189,12 +207,12 @@ class GpuEngine(CpuEngine):
         shares).  Each distinct message is hashed (cached) and converted to
         limbs once."""
         hashed = {msg: self.hash_to_g2(msg) for msg in dict.fromkeys(m for _sk, m in items)}
-        out = bls_g2_torch.g2_scalar_mul_dispatch(
+        out, finish = bls_g2_torch.g2_scalar_mul_batch_submit(
             [hashed[msg] for _sk, msg in items], [sk.scalar for sk, _msg in items],
             self.device, self.use_kernel,
         )
         return out, futures.submit(
-            lambda: [th.SignatureShare(p) for p in bls_g2_torch.to_host(out)], "sign_share_batch"
+            lambda: [th.SignatureShare(p) for p in finish()], "sign_share_batch"
         )
 
     def submit_sign_share_batch(self, items) -> futures.CryptoFuture:
@@ -223,6 +241,48 @@ class GpuEngine(CpuEngine):
 
     def combine_signature_shares_batch(self, jobs) -> List[th.Signature]:
         return self.dispatch_combine_signature_shares_batch(jobs)[1].result()
+
+    # -- threshold decryption on kernel B2 ----------------------------------
+
+    def dispatch_decrypt_share_batch(self, items) -> Tuple[torch.Tensor, futures.CryptoFuture]:
+        """All shares as lanes of one G1 GLV ladder -> (the [3, 12, n]
+        shares on the device, dispatched and not waited for; the future of
+        the host shares).  Each distinct U is converted to limbs once."""
+        out, finish = bls_torch.g1_scalar_mul_batch_submit(
+            [ct.u for _sk, ct in items], [sk.scalar for sk, _ct in items],
+            self.device, self.use_kernel,
+        )
+        return out, futures.submit(
+            lambda: [th.DecryptionShare(p) for p in finish()], "decrypt_share_batch"
+        )
+
+    def submit_decrypt_share_batch(self, items) -> futures.CryptoFuture:
+        return self.dispatch_decrypt_share_batch(items)[1]
+
+    def decrypt_share_batch(self, items) -> List[th.DecryptionShare]:
+        return self.submit_decrypt_share_batch(items).result()
+
+    def dispatch_combine_decryption_shares_batch(self, jobs
+                                                 ) -> Tuple[torch.Tensor, futures.CryptoFuture]:
+        """Lagrange combines in the exponent over G1 -> (the [3, 12, B]
+        combined points U * master on the device in job order, dispatched
+        and not waited for; the future of the B plaintexts, each unwrapped
+        with the KDF).  One weighted-sum dispatch per quorum size S."""
+        prepared, by_size = quorum_prep([(pk_set.threshold, shares) for pk_set, shares, _ct in jobs])
+        out = torch.empty((3, limbs.N_LIMBS, len(jobs)), dtype=torch.int32, device=self.device)
+        for idxs in by_size.values():
+            out[..., idxs] = bls_torch.g1_weighted_sum_dispatch(
+                [prepared[i][0] for i in idxs], [prepared[i][1] for i in idxs],
+                self.device, self.use_kernel,
+            )
+        return out, futures.submit(
+            lambda: [th.unwrap_ciphertext(g, ct) for g, (_pk, _shares, ct)
+                     in zip(bls_torch.to_host(out), jobs)],
+            "combine_decryption_shares_batch",
+        )
+
+    def combine_decryption_shares_batch(self, jobs) -> List[bytes]:
+        return self.dispatch_combine_decryption_shares_batch(jobs)[1].result()
 
 
 _REGISTRY: Dict[str, type] = {"cpu": CpuEngine, "gpu": GpuEngine}

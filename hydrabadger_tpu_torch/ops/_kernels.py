@@ -79,6 +79,14 @@ LIBRARIES = {
             "fq2_point_error_string": ([_I], ctypes.c_char_p),
         },
     ),
+    "fp_probe": (
+        "fp_probe.cu",
+        {
+            # device, kind, body, iters, threads, a, b, out, n, stream
+            "fp_probe_launch": ([_I, _I, _I, _I, _I, _P, _P, _P, _LL, _P], _I),
+            "fp_probe_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
 }
 
 _lock = threading.Lock()

@@ -15,9 +15,10 @@ lanes on kernel B4 (ops/fq2_torch, csrc/fq2_point.cu):
 The host entry points take host points: `g2_scalar_mul_dispatch` and
 `g2_weighted_sum_dispatch` convert them to limbs, copy the points and the
 digits to the device once and return the device result without waiting;
-`to_host` converts it back (affine host points), and
-`g2_scalar_mul_batch(_submit)` / `g2_weighted_sum_batch` are the two
-steps together.  `use_kernel=False` runs the plain versions on any
+`to_host` converts it back (affine host points).
+`g2_scalar_mul_batch_submit` returns the device result and its finisher,
+and `g2_scalar_mul_batch` / `g2_weighted_sum_batch` are the two steps
+together.  `use_kernel=False` runs the plain versions on any
 device; a CPU device always runs them.  bls_jax._pad_mul_batch's lane
 bucketing is not ported: it exists only to spare XLA retraces.
 """
@@ -94,7 +95,8 @@ def g2_weighted_sum_windowed(points: torch.Tensor, windows: torch.Tensor, terms:
 
 
 # ---------------------------------------------------------------------------
-# Host entry points (crypto/engine.GpuEngine calls the *_dispatch ones)
+# Host entry points (crypto/engine.GpuEngine calls g2_scalar_mul_batch_submit
+# and g2_weighted_sum_dispatch)
 # ---------------------------------------------------------------------------
 
 
@@ -122,16 +124,17 @@ def g2_scalar_mul_dispatch(points: Sequence, scalars: Sequence[int], device="cud
 def g2_scalar_mul_batch_submit(points: Sequence, scalars: Sequence[int], device="cuda",
                                use_kernel: bool = True):
     """Dispatch the batched ladder now, defer the device-to-host copy and
-    the affine conversion: returns a zero-argument finisher."""
+    the affine conversion: returns (the products on the device, not waited
+    for; a zero-argument finisher that returns the host points)."""
     out = g2_scalar_mul_dispatch(points, scalars, device, use_kernel)
-    return lambda: to_host(out)
+    return out, lambda: to_host(out)
 
 
 def g2_scalar_mul_batch(points: Sequence, scalars: Sequence[int], device="cuda",
                         use_kernel: bool = True) -> list:
     """sk * P over G2 for every (P, sk) pair: signature-share generation
     for a whole batch of (node, instance) coin rounds at once."""
-    return g2_scalar_mul_batch_submit(points, scalars, device, use_kernel)()
+    return g2_scalar_mul_batch_submit(points, scalars, device, use_kernel)[1]()
 
 
 def weighted_sum_operands(points_batch: Sequence[Sequence], coeffs_batch: Sequence[Sequence[int]],

@@ -1,0 +1,34 @@
+"""The bound model every kernel is held against: the card's peaks and what
+one Fp product and one field element cost at them.
+
+A kernel's bound is the larger of two times: the int8 operations of its
+work at the card's int8 tensor-core peak, and the bytes it must move (each
+input read once, each output written once) at the card's memory rate.
+"""
+from __future__ import annotations
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT8_OPS_PER_S = 1979e12
+
+# A 384-bit Montgomery product in its cheapest exact form at a published
+# peak: int8 digit MACs on the tensor cores, 48x48 for a*b, the low half
+# (48*49/2) for m = t p' mod R, 48x48 for m*p; one MAC = 2 ops.
+OPS_PER_PRODUCT = 2 * (48 * 48 + 48 * 49 // 2 + 48 * 48)
+ELEMENT_BYTES = 48  # one Fp element, 12 words
+
+
+def ops_bytes_ms(ops: float, nbytes: float) -> tuple[float, float]:
+    """(operations ms, bytes ms) of `ops` int8 operations and `nbytes` bytes."""
+    return ops / PEAK_INT8_OPS_PER_S * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def product_ms(products: int, elements: int) -> tuple[float, float]:
+    """(operations ms, bytes ms) of `products` Fp products that move
+    `elements` field elements."""
+    return ops_bytes_ms(products * OPS_PER_PRODUCT, elements * ELEMENT_BYTES)
+
+
+def bound_ms(ops_ms: float, bytes_ms: float) -> tuple[float, str]:
+    """(bound ms, "operations" or "bytes"): the larger of the two times."""
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")

@@ -6,6 +6,7 @@
         [--epochs 3] [--instances 64] [--trace PATH]
     python -m hydrabadger_tpu_torch.sim.trace_epoch --coin
         [--instances 64] [--trace PATH]
+    python -m hydrabadger_tpu_torch.sim.trace_epoch --decrypt [--trace PATH]
 
 Warms a `TensorSim` at the config-6 geometry (64 nodes, 12-byte shards),
 or with --full-crypto a `FullCryptoTensorSim` at the config-8 geometry
@@ -16,7 +17,12 @@ copy intervals) and idle share, and device ms per epoch for each kernel
 name.  With --coin it warms a `CoinRound` (64 nodes; set-up: 22 host G1
 multiplies and one host hash onto G2 per instance), traces one round and
 splits its device time into kernel B4's `table`, `step` and `add`
-launches and the glue (every other kernel and copy).  `--trace` also
+launches and the glue (every other kernel and copy).  With --decrypt it
+warms a `DecryptRound` (64 nodes; set-up: 22 host G1 multiplies and one
+host encryption per proposer), traces one round and splits its device
+time into kernel B2's launches by part of the ladders (`table` with the
+beta twist, `window`, `tree`, matched to the round's launch plan in
+order) and the glue.  `--trace` also
 writes the Chrome trace.  The profiler adds host
 cost to every launch, so the traced epochs/s is below the untraced one;
 the device times are the kernels' own.  Needs a card.
@@ -33,6 +39,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .coin import CoinConfig, CoinRound
+from .decrypt import DecryptConfig, DecryptRound
 from .tensor import FullCryptoConfig, FullCryptoTensorSim, TensorSim, TensorSimConfig
 
 # kernel B4's entries by their instantiation (csrc/fq2_point.cu's Kind)
@@ -122,6 +129,44 @@ def trace_coin(cfg: CoinConfig, device="cuda", trace_path=None) -> dict:
     }
 
 
+def trace_decrypt(cfg: DecryptConfig, device="cuda", trace_path=None) -> dict:
+    """Profile one threshold-decrypt round after a warm-up round: wall,
+    device busy and idle share, and device ms by part (table / window /
+    tree / glue)."""
+    rnd = DecryptRound(cfg, device=device)
+    rnd.run()  # builds the kernel, warms the allocator
+    plan = rnd.plan()
+    parts_in_order = [r.part for r in plan["share"] + plan["combine"]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rnd.run()  # ends in the host's unwrap of the plaintexts
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    b2 = sorted((e for e in events if "fq_point_kernel" in e.name), key=lambda e: e.time_range.start)
+    if len(b2) != len(parts_in_order):
+        raise RuntimeError(f"traced {len(b2)} B2 launches, the plan has {len(parts_in_order)}")
+    parts = defaultdict(float)
+    for e, part in zip(b2, parts_in_order):
+        parts[part] += e.time_range.elapsed_us() / 1e3
+    for e in events:
+        if "fq_point_kernel" not in e.name:
+            parts["glue"] += e.time_range.elapsed_us() / 1e3
+    busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in events) / 1e3
+    return {
+        "device": torch.cuda.get_device_name(rnd.engine.device),
+        "nodes": cfg.n_nodes,
+        "ciphertexts": cfg.n_nodes,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if events else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if events else None,
+        "device_ms": dict(parts),
+        "launches": rnd.last_launches,
+    }
+
+
 def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> dict:
     """Profile `epochs` fast-path epochs after a warm-up; see the module docstring."""
     return _trace_sim(TensorSim(cfg, device=device), cfg.instances, epochs, 2, trace_path)
@@ -139,12 +184,16 @@ def main(argv=None) -> int:
                     help="trace FullCryptoTensorSim (config 8) instead of TensorSim")
     ap.add_argument("--coin", action="store_true",
                     help="trace one CoinRound (64 nodes) instead of TensorSim")
+    ap.add_argument("--decrypt", action="store_true",
+                    help="trace one DecryptRound (64 nodes) instead of TensorSim")
     ap.add_argument("--epochs", type=int, default=None, help="default 20, or 3 with --full-crypto")
     ap.add_argument("--instances", type=int, default=None,
                     help="default 1024, or 64 with --full-crypto or --coin")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args(argv)
-    if args.coin:
+    if args.decrypt:
+        out = trace_decrypt(DecryptConfig(), trace_path=args.trace)
+    elif args.coin:
         out = trace_coin(CoinConfig(n_nodes=64, instances=args.instances or 64),
                          trace_path=args.trace)
     elif args.full_crypto:

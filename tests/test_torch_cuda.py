@@ -14,7 +14,8 @@ from hydrabadger_tpu_torch.crypto import bls12_381 as bls
 from hydrabadger_tpu_torch.crypto import gf256
 from hydrabadger_tpu_torch.ops import circuit_torch, decrypt_torch, fq_torch, gf256_torch, limbs, rs_torch
 from hydrabadger_tpu_torch.ops import bls_g2_torch as g2, fq2_torch
-from hydrabadger_tpu_torch.sim import coin
+from hydrabadger_tpu_torch.ops import bls_torch, fp_probe_torch
+from hydrabadger_tpu_torch.sim import coin, decrypt
 from hydrabadger_tpu_torch.sim import tensor as ts
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +171,61 @@ def test_coin_round_on_the_card_equals_the_cpu(card):
     assert torch.equal(gpu.shares_limbs.cpu(), cpu.shares_limbs)
     assert torch.equal(gpu.signatures_limbs.cpu(), cpu.signatures_limbs)
     assert bits == cpu_bits and gpu.oracle_check([0, 5, 15])
+
+
+def _fp(card, n, seed):
+    """[12, n] canonical Fp elements on the card, with 0, 1 and p - 1 lanes."""
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(48), "little") % limbs.P for _ in range(n)]
+    vals[:3] = [0, 1, limbs.P - 1]
+    return torch.from_numpy(limbs.ints_to_limbs_batch(vals).T.copy()).to(card)
+
+
+@pytest.mark.parametrize("entry", ["mul", "full", "fdigit", "product", "carry", "mul_layer", "noop"])
+def test_fp_probe_kernel_matches_plain(card, entry):
+    n = 1013
+    a, b = _fp(card, n, 1), _fp(card, n, 2)
+    before = fp_probe_torch.launches
+    if entry == "mul":
+        got, want = fp_probe_torch.fp_mul(a, b, 96), fp_probe_torch.fp_mul_plain(a, b)
+    elif entry == "mul_layer":
+        x = torch.cat([a, b], 1)
+        got, want = fp_probe_torch.fp_mul_layer(x, 64), fp_probe_torch.fp_mul_layer_plain(x)
+    elif entry == "noop":
+        got, want = fp_probe_torch.noop(a, 100), fp_probe_torch.noop_plain(a, 100)
+    else:
+        got = fp_probe_torch.fp_chain(a, b, entry, 7)
+        want = fp_probe_torch.fp_chain_plain(a, b, entry, 7)
+    assert fp_probe_torch.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_g1_ladders_on_the_card_equal_plain_and_host(card):
+    pts = [bls.multiply(bls.G1, k) for k in (3, 5, 7, 11, 13)]
+    ks = [0, 1, bls.R - 1, 12345, 0xC0FFEE << 200]  # 12345 < lambda: its k2 is 0
+    p, d = bls_torch.scalar_mul_operands(pts, ks, card)
+    before = fq_torch.launches
+    got = bls_torch.g1_scalar_mul_glv(p, d)
+    assert fq_torch.launches == before + len(bls_torch.glv_plan(d.cpu().numpy()))
+    assert torch.equal(got, bls_torch.g1_scalar_mul_glv(p, d, use_kernel=False))
+    assert all(bls.eq(o, bls.mul_sub(q, k)) for o, q, k in zip(bls_torch.to_host(got), pts, ks))
+    cp, cw, s = bls_torch.weighted_sum_operands([pts[:3], pts[2:]], [ks[:3], ks[2:]], card)
+    got = bls_torch.g1_weighted_sum_windowed(cp, cw, s)
+    assert torch.equal(got, bls_torch.g1_weighted_sum_windowed(cp, cw, s, use_kernel=False))
+    want = [bls.add(bls.add(bls.mul_sub(pts[0], 0), pts[1]), bls.mul_sub(pts[2], bls.R - 1)),
+            bls.add(bls.add(bls.mul_sub(pts[2], bls.R - 1), bls.mul_sub(pts[3], 12345)),
+                    bls.mul_sub(pts[4], ks[4]))]
+    assert all(bls.eq(o, w) for o, w in zip(bls_torch.to_host(got), want))
+
+
+def test_decrypt_round_on_the_card_equals_the_cpu(card):
+    cfg = decrypt.DecryptConfig(n_nodes=4)
+    gpu = decrypt.DecryptRound(cfg, device="cuda", seed=5)
+    plan = gpu.plan()
+    assert gpu.run() == gpu.contributions
+    assert gpu.last_launches == {part: len(rows) for part, rows in plan.items()}
+    cpu = decrypt.DecryptRound(cfg, device="cpu", seed=5)
+    cpu.run()
+    assert torch.equal(gpu.shares_limbs.cpu(), cpu.shares_limbs)
+    assert torch.equal(gpu.combined_limbs.cpu(), cpu.combined_limbs)
+    assert gpu.oracle_check([0, 5, 15])
