@@ -27,17 +27,20 @@ failure:
      1013, with infinity, P + P and P + (-P) lanes, and the main path's
      wider shapes;
   8. kernel B3 (circuit) against its plain version, exact: the three
-     decrypt circuits at 94,208 (23 ladders x 4096) and 4096 lanes, and
-     the signed-mix regression vector;
+     decrypt circuits at 94,208 (23 ladders x 4096), 4096 and a ragged
+     1013 lanes, the signed-mix regression vector, and the Straus chain
+     entry at 4096 lanes against its plain loop and against a loop of
+     single-circuit launches, byte for byte;
   9. the main path: one warm-up epoch, held byte for byte against the same
      epoch through the plain versions on the card; then 3 epochs with every
      launch counter set to 0 just before and read just after: the verdict,
-     the launch counts the static digits imply, and sampled lanes against
-     the host oracle;
- 10. timings: epochs/s; each B2 entry's and circuit's device time per
-     launch at the main path's shapes and operand forms (CUDA events over
-     back-to-back launches, median), its plain version, its bound and what
-     sets it;
+     the launch counts the static digits imply (B3: 21 + 22 circuit
+     launches and one chain launch per epoch at 64 x 64), and sampled
+     lanes against the host oracle;
+ 10. timings: epochs/s; each B2 entry's and B3 launch shape's device time
+     per launch at the main path's shapes and operand forms, the chain
+     included (CUDA events over back-to-back launches, median), its plain
+     version, its bound and what sets it;
  11. kernel B4 (fq2_point) against its plain version, exact: `table`,
      `step` and `add` at 4096 and at a ragged 1013 lanes with an infinity
      lane, a digit-0 lane, acc == sel, acc == -sel and a scalar-0 lane,
@@ -230,15 +233,52 @@ def full_crypto(dev: torch.device, tag: str) -> list[dict]:
          lambda: fq.fq_mul(tx[:, :1013], beta), lambda: fq.fq_mul_plain(tx[:, :1013], beta))
 
     # -- 8. B3 against its plain version -----------------------------------
+    P = limbs.P
     circuits = [dt._dblk_add_circuit(6), dt._add_circuit(), dt._dblk_add_circuit(4)]
-    for lanes in (S * n, n):
-        k = lanes // n
-        xin = torch.cat([a.repeat(1, 1, k), b.repeat(1, 1, k)])
+    for circ in circuits:
+        sp = circ.slots
+        print(f"B3 program {circ.name}: {circ.n_products} products in layers "
+              f"{circ.circ.n_lanes}, {sp.warps} warps x 32 lanes per block, {sp.n_slots} "
+              f"slots ({sp.n_slots_chain} in a chain), "
+              f"{circ.smem} B shared")
+    for lanes in (S * n, n, RAGGED):
+        k = -(-lanes // n)
+        xin = torch.cat([a.repeat(1, 1, k), b.repeat(1, 1, k)])[..., :lanes].contiguous()
         for circ in circuits:
             hold("circuit", f"{circ.name} [6, 12, {lanes}] ({circ.n_products} products)",
                  lambda: circ(xin), lambda: circ.plain(xin))
+    # every input element at p - 1, p - 2, 0 or 1 in a third of the lanes:
+    # each mix at the top of its range
+    edge = torch.from_numpy(limbs.ints_to_limbs_batch([P - 1, P - 2, 0, 1]).T.copy()).to(dev)
+    xe = torch.cat([a, b]).clone()
+    lane3 = torch.arange((n + 2) // 3, device=dev)
+    pick = (lane3[None] + torch.arange(6, device=dev)[:, None]).remainder(4)
+    xe[:, :, ::3] = edge[:, pick].transpose(0, 1)  # [6, 12, lanes / 3]
+    for circ in circuits:
+        hold("circuit", f"{circ.name} [6, 12, {n}], a third of the lanes at p-1, p-2, 0, 1",
+             lambda: circ(xe), lambda: circ.plain(xe))
+    # the Straus chain at the main path's shape, over a table of distinct
+    # points per quorum member
+    chain = sim.epoch.straus
+    tabs = dt._build_table(torch.cat([b.roll(i, -1) for i in range(q)], -1), 1 << dt.W2,
+                           dt._Ops(True)).reshape(3, limbs.N_LIMBS, (1 << dt.W2) * q, n)
+    acc0 = fq.jac_infinity(n, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain_plain = chain.plain(acc0, tabs)
+    torch.cuda.synchronize()
+    chain_plain_ms = (time.perf_counter() - t0) * 1e3
+    hold("circuit", f"straus chain [3, 12, {n}] ({len(chain.steps)} steps, "
+         f"{chain.products} products per lane, plain loop {chain_plain_ms:.0f} ms)",
+         lambda: chain(acc0, tabs), lambda: chain_plain)
+    looped = acc0
+    for c, entry, take in chain.steps:
+        sel = tabs[:, :, entry]
+        looped = sel if c is None else chain.circuits[c](torch.cat([looped, sel]))[3 * take : 3 * take + 3]
+    check(torch.equal(chain(acc0, tabs), looped), "straus chain != its loop of circuit launches")
+    print(f"straus chain == its loop of {sum(c is not None for c, _, _ in chain.steps)} "
+          f"single-circuit launches, byte for byte")
     # tests/test_circuit_T.py's crafted signed-carry vector in lane 0
-    P = limbs.P
     kp = [(4 * P >> (12 * i)) & 4095 for i in range(35)]
     tt = [0] * 32
     tt[2], tt[3], tt[4], tt[5] = -4096 - kp[2], -kp[3], -kp[4], -kp[5]
@@ -306,6 +346,7 @@ def full_crypto(dev: torch.device, tag: str) -> list[dict]:
 
     by_name = {circ.name: circ for circ in circuits}
     rows = []
+    warps = {**{c.name: c.slots.warps for c in circuits}, chain.name: chain.warps}
     for r in sim.epoch.launch_shapes():
         k = r.lanes // n
         if r.kernel == "fq_point":
@@ -319,10 +360,14 @@ def full_crypto(dev: torch.device, tag: str) -> list[dict]:
             prods = fq.products(r.name)
             ms = launch_ms(lambda: fn(*ins))
             p_ms = wall_ms(lambda: plain_fn(*ins))
+        elif r.name == chain.name:
+            prods = r.products
+            ms = launch_ms(lambda: chain(acc0, tabs))
+            p_ms = chain_plain_ms  # one call (phase 8): the loop of 747 plain circuits
         else:
             circ = by_name[r.name]
             xin = torch.cat([a.repeat(1, 1, k), b.repeat(1, 1, k)])
-            prods = circ.n_products
+            prods = r.products
             ms = launch_ms(lambda: circ(xin))
             p_ms = wall_ms(lambda: circ.plain(xin))
         ops_ms, bytes_ms = roofline.product_ms(prods * r.lanes, r.elements * r.lanes)
@@ -332,8 +377,11 @@ def full_crypto(dev: torch.device, tag: str) -> list[dict]:
                      "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
                      "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+        if r.kernel == "circuit":
+            rows[-1]["warps"] = warps[r.name]
         print(f"{r.kernel} {r.name}{' ' + r.form if r.form else ''} x {r.lanes} lanes "
-              f"({r.count}/epoch): kernel {ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+              f"({r.count}/epoch, {prods} products per lane): kernel {ms:.4f} ms, plain "
+              f"{p_ms:.2f} ms, bound "
               f"{max(ops_ms, bytes_ms):.5f} ms (int8 ops {ops_ms:.5f}, bytes {bytes_ms:.5f}), "
               f"{ms / max(ops_ms, bytes_ms):.0f}x {tag}")
     epoch_ms = 1e3 / float(np.median(eps))
@@ -843,6 +891,7 @@ def main() -> int:
     from hydrabadger_tpu_torch.ops import _kernels, circuit_torch, fq_torch, gf256_torch
     from hydrabadger_tpu_torch.sim import tensor as ts
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     # the plain version's float32 product must stay full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1010,6 +1059,7 @@ def main() -> int:
     kernels.append(fp_probes(dev, tag))
     fq_entry = next(k for k in kernels if k["name"] == "fq_point")
     fq_entry["decrypt_round"] = decrypt_plane(dev, tag)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

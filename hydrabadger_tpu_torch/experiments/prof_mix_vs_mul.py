@@ -7,10 +7,11 @@ lazy Montgomery multiply of a [32, 2 * lanes * b] operand's halves (a
 circuit's multiply layer without its mixes) in blocks of 64 or 128 lanes.
 Here `fp_probe`'s `mul_layer` entry multiplies column l of a [12, 2W]
 stacked operand by column W + l, W = lanes * batch = 18,432 products,
-reading the words as kernel B3 (csrc/circuit.cu) reads its scratch, and
-B3 itself runs the decrypt epoch's `add` circuit (16 products per lane) at
+reading lane-fastest words from device memory, and B3 (csrc/circuit.cu)
+itself runs the decrypt epoch's `add` circuit (16 products per lane) at
 W / 16 = 1152 lanes, the same number of products.  What B3 spends per
-product beyond `mul_layer`'s is what its program walk and mixes cost.
+product beyond `mul_layer`'s is what its program walk, mixes and layer
+barriers cost.
 Each is timed by the difference of 100 and 10 launches (CUDA events) and
 first held against its plain version.  One JSON line each: ms per launch,
 ns per product, the bound (bytes: the elements read and written once;

@@ -66,8 +66,14 @@ LIBRARIES = {
     "circuit": (
         "circuit.cu",
         {
-            # device, prog, prog_len, in, consts, scratch, out, n, stream
-            "circuit_launch": ([_I, _P, _I, _P, _P, _P, _P, _LL, _P], _I),
+            # device, prog, prog_len, smem, warps, in, consts, n_const, out, n, stream
+            "circuit_launch": ([_I, _P, _I, _I, _I, _P, _P, _I, _P, _LL, _P], _I),
+            # device, progs, progs_len, smem, warps, steps, n_steps, table,
+            # n_entries, acc_in, consts, n_const, acc_out, n, n_acc, stream
+            "circuit_chain_launch": (
+                [_I, _P, _I, _I, _I, _P, _I, _P, _LL, _P, _P, _I, _P, _LL, _I, _P],
+                _I,
+            ),
             "circuit_error_string": ([_I], ctypes.c_char_p),
         },
     ),
@@ -148,10 +154,21 @@ def build(names=None) -> dict[str, tuple[float, str]]:
             target,
             time.perf_counter(),
         )
-    built, failed = {}, []
-    for name, (proc, tmp, target, t0) in procs.items():
+    done = {}
+
+    def finish(name, proc, t0):  # each build's own seconds, not its turn to be read
         output, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+        done[name] = (output, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=finish, args=(name, proc, t0))
+               for name, (proc, _, _, t0) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    built, failed = {}, []
+    for name, (proc, tmp, target, _) in procs.items():
+        output, seconds = done[name]
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{output}")
             continue

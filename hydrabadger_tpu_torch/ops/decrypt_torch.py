@@ -28,7 +28,11 @@ each lane computes:
     booleans: glue selects are plain tensor choices or one `where` with
     a per-segment mask built at construction, never a host sync, and a
     circuit launch whose every result the glue would discard is skipped
-    (`launch_counts` gives the numbers the digits imply).
+    (`launch_counts` gives the numbers the digits imply);
+  - the Straus combine is ONE launch of the circuit kernel's chain entry
+    (`circuit_torch.CircuitChain`, JAX's `lax.scan`): its steps, table
+    entries and glue are fixed by the Lagrange digits at construction,
+    and the accumulator stays on the card's SMs between steps.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import torch
 
 from ..crypto import bls12_381 as bls
 from . import fq_torch
-from .circuit_torch import CircuitExec, executor
+from .circuit_torch import SEL as TAKE_ENTRY, CircuitChain, CircuitExec, executor
 from .fp12_circuit import CircuitBuilder
 from .fq_torch import jac_add_core_formula, jac_double_formula, jac_infinity
 from .limbs import BETA_MONT, GLV_LAMBDA, N_LIMBS
@@ -129,15 +133,34 @@ def _glue_codes(started: np.ndarray, nz: np.ndarray) -> np.ndarray:
     return np.where(started, np.where(nz, ADDED, BASE), np.where(nz, SEL, PREV))
 
 
+def _chain_steps(plan, q: int):
+    """The Straus plan as `CircuitChain` steps over a [3, 12, 16 q, n]
+    table (entry dig*q + i): circuit 0 (dbl^4 + add) for member 0 of a
+    window, circuit 1 (add) for the others.  ADDED takes output group 0,
+    BASE the doubled accumulator (group 1) for member 0 and the
+    accumulator itself otherwise; SEL takes the entry; PREV keeps the
+    accumulator.  A step whose result the glue discards is not a step."""
+    steps = []
+    for col in plan:
+        for i, (dig, need, code) in enumerate(col):
+            entry = dig * q + i
+            if code == SEL:
+                steps.append((None, entry, TAKE_ENTRY))
+            elif need:
+                steps.append((0 if i == 0 else 1, entry, 0 if code == ADDED else 1))
+    return steps
+
+
 class Launch(NamedTuple):
     """One launch shape of an epoch."""
 
     kernel: str  # "fq_point" (B2) or "circuit" (B3)
-    name: str  # the B2 entry or the circuit: the launch counters' key
+    name: str  # the B2 entry, the circuit or the chain: the launch counters' key
     lanes: int
     count: int  # launches per epoch
     elements: int  # field elements per lane the launch must read or write, each once
     form: str = ""  # a B2 `mul`'s operands: "a*b", "a*a" (a square) or "a*const"
+    products: int = 0  # B3: Montgomery products per lane of one launch
 
 
 class _Ops:
@@ -153,6 +176,9 @@ class _Ops:
 
     def circuit(self, circ: CircuitExec, x: torch.Tensor) -> torch.Tensor:
         return circ(x) if self.use_kernel else circ.plain(x)
+
+    def chain(self, chain: CircuitChain, acc: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        return chain(acc, table) if self.use_kernel else chain.plain(acc, table)
 
 
 def _build_table(pt: torch.Tensor, order: int, ops: _Ops) -> torch.Tensor:
@@ -205,7 +231,8 @@ class DecryptEpoch:
         self.circ_a = _add_circuit()
         self.circ_da2 = _dblk_add_circuit(W2)
         self._plan1 = self._stage1_plan()
-        self._plan2 = self._straus_plan()
+        self.straus = CircuitChain([self.circ_da2, self.circ_a],
+                                   _chain_steps(self._straus_plan(), q), 3, "straus")
 
     # -- the static plan ----------------------------------------------------
 
@@ -246,8 +273,8 @@ class DecryptEpoch:
         `Launch` per shape and operand form."""
         n, q = self.n_ct, self.q
         S = q + 1
-        stage1, straus = self._plan1, self._plan2
-        da1, a, da2 = self.circ_da1, self.circ_a, self.circ_da2
+        stage1, straus = self._plan1, self.straus
+        da1, a = self.circ_da1, self.circ_a
         rows = [
             Launch("fq_point", "dbl", n, 1, 6),  # the shared table's entry 2
             Launch("fq_point", "ladd", n, (1 << W1) - 3, 9),  # its chain
@@ -259,13 +286,10 @@ class DecryptEpoch:
             Launch("fq_point", "mul", 4 * n, 1, 3, "a*b"),  # X Z^2, Y Z^2
             Launch("fq_point", "mul", 2 * n, 1, 3, "a*b"),  # Y Z^2 * Z
             Launch("circuit", da1.name, S * n, sum(p[1] for p in stage1),
-                   da1.n_inputs + da1.n_outputs),
+                   da1.n_inputs + da1.n_outputs, products=da1.n_products),
             Launch("circuit", a.name, S * n, sum(p[3] for p in stage1),
-                   a.n_inputs + a.n_outputs),
-            Launch("circuit", da2.name, n, sum(col[0][1] for col in straus),
-                   da2.n_inputs + da2.n_outputs),
-            Launch("circuit", a.name, n, sum(need for col in straus for _, need, _ in col[1:]),
-                   a.n_inputs + a.n_outputs),
+                   a.n_inputs + a.n_outputs, products=a.n_products),
+            Launch("circuit", straus.name, n, 1, straus.elements(), products=straus.products),
         ]
         return [r for r in rows if r.count]
 
@@ -342,18 +366,8 @@ class DecryptEpoch:
 
         # 3. Straus combine: U + sum_i lam_i share_i
         tabs = _build_table(shares.reshape(3, N_LIMBS, q * n), 1 << W2, ops)
-        tabs = tabs.reshape(3, N_LIMBS, 1 << W2, q, n)
-        comb = jac_infinity(n, self.device)
-        for col in self._plan2:
-            for i, (dig, need, code) in enumerate(col):
-                sel = tabs[:, :, dig, i]
-                added = doubled = None
-                if need:
-                    circ = self.circ_da2 if i == 0 else self.circ_a
-                    out = ops.circuit(circ, torch.cat([comb, sel], 0))
-                    added, doubled = out[:3], out[3:]
-                base = doubled if i == 0 else comb
-                comb = (added, base, sel, comb)[code]
+        comb = ops.chain(self.straus, jac_infinity(n, self.device),
+                         tabs.reshape(3, N_LIMBS, (1 << W2) * q, n))
 
         # 4. the final add is the COMPLETE body (U == comb is legitimate
         # when master == 1), then the check against the direct lane

@@ -14,7 +14,9 @@ or with --full-crypto a `FullCryptoTensorSim` at the config-8 geometry
 runs `run(epochs)` under `torch.profiler` and prints one JSON object:
 the window's wall ms, the device's busy ms (the union of its kernel and
 copy intervals) and idle share, and device ms per epoch for each kernel
-name.  With --coin it warms a `CoinRound` (64 nodes; set-up: 22 host G1
+name; with --full-crypto also kernel B3's device ms per epoch split into
+its circuit launches (stage 1) and its chain launch (the Straus
+combine), with their launches per epoch.  With --coin it warms a `CoinRound` (64 nodes; set-up: 22 host G1
 multiplies and one host hash onto G2 per instance), traces one round and
 splits its device time into kernel B4's `table`, `step` and `add`
 launches and the glue (every other kernel and copy).  With --decrypt it
@@ -172,10 +174,26 @@ def trace(cfg: TensorSimConfig, epochs: int, device="cuda", trace_path=None) -> 
     return _trace_sim(TensorSim(cfg, device=device), cfg.instances, epochs, 2, trace_path)
 
 
+# kernel B3's two entries by their kernel names (csrc/circuit.cu)
+_B3_PARTS = (("straus chain", "circuit_chain_kernel"), ("stage-1 circuits", "circuit_kernel"))
+
+
 def trace_full_crypto(cfg: FullCryptoConfig, epochs: int, device="cuda", trace_path=None) -> dict:
     """Profile `epochs` threshold-decrypt epochs after one warm-up epoch."""
     sim = FullCryptoTensorSim(cfg, device=device)
-    return _trace_sim(sim, cfg.instances, epochs, 1, trace_path)
+    out = _trace_sim(sim, cfg.instances, epochs, 1, trace_path)
+    b3 = defaultdict(float)
+    for name, ms in out["device_ms_per_epoch"].items():
+        part = next((p for p, kernel in _B3_PARTS if kernel in name), None)
+        if part:
+            b3[part] += ms
+    counts = sim.epoch.launch_counts()["circuit"]
+    out["b3_ms_per_epoch"] = dict(b3)
+    out["b3_launches_per_epoch"] = {
+        "straus chain": counts.get(sim.epoch.straus.name, 0),
+        "stage-1 circuits": sum(v for k, v in counts.items() if k != sim.epoch.straus.name),
+    }
+    return out
 
 
 def main(argv=None) -> int:

@@ -95,15 +95,96 @@ def test_fq_point_kernel_matches_plain(card, entry):
     assert torch.equal(got, plain(*args))
 
 
+@pytest.mark.parametrize("lanes", [515, 32, 1])
 @pytest.mark.parametrize("k", [6, 0, 4])
-def test_circuit_kernel_matches_plain(card, k):
+def test_circuit_kernel_matches_plain(card, k, lanes):
     circ = decrypt_torch._dblk_add_circuit(k) if k else decrypt_torch._add_circuit()
     a, b = _points(card, 515)
-    x = torch.cat([a, b])
+    x = torch.cat([a, b])[..., :lanes].contiguous()
     before = circuit_torch.launches
     got = circ(x)
     assert circuit_torch.launches == before + 1
     assert torch.equal(got, circ.plain(x))
+
+
+def test_circuit_kernel_at_extreme_field_values(card):
+    """Inputs that put every mix at the top of its range: p - 1, p - 2, 0
+    and 1 beside random elements (the circuits are field arithmetic, the
+    inputs need not be points)."""
+    rng = np.random.default_rng(9)
+    vals = [limbs.P - 1, limbs.P - 2, 0, 1]
+    vals += [int.from_bytes(rng.bytes(48), "little") % limbs.P for _ in range(28)]
+    pick = rng.integers(0, len(vals), (6, 301))
+    pick[:, :8] = 0  # every input p - 1
+    x = np.stack([limbs.ints_to_limbs_batch([vals[i] for i in row]).T for row in pick])
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(card)
+    for circ in (decrypt_torch._dblk_add_circuit(6), decrypt_torch._add_circuit(),
+                 decrypt_torch._dblk_add_circuit(4)):
+        assert torch.equal(circ(x), circ.plain(x))
+
+
+def _const_circuit(k1, k2):
+    from hydrabadger_tpu_torch.ops.fp12_circuit import CircuitBuilder
+
+    b = CircuitBuilder(3)
+    i0, i1, i2 = (b.input(i) for i in range(3))
+    k1, k2 = b.const(k1), b.const(k2)
+    y = (i0 + k1) * (i1 - k2)
+    z = y * y - i2 * k1
+    w = (z + k2) * (y.dbl() - i0)
+    return circuit_torch.CircuitExec(b.compile([w, z - k1, y + w, -k2]), "consts")
+
+
+def test_circuit_kernel_with_constants_matches_plain(card):
+    circ = _const_circuit(7, limbs.P - 5)
+    a, b = _points(card, 301)
+    assert torch.equal(circ(a), circ.plain(a))
+    # two circuits with different constants in one chain
+    chain = circuit_torch.CircuitChain(
+        [circ, _const_circuit(11, 3)], [(0, 1, 0), (1, 2, 3), (1, 0, 2), (0, 2, 1)], 1, "consts")
+    table = torch.stack([a[1:], b[:2], b[1:]], 2)  # [2, 12, 3 entries, 301]
+    assert torch.equal(chain(a[:1].contiguous(), table), chain.plain(a[:1], table))
+
+
+def test_circuit_chain_with_an_entry_wider_than_its_layers(card):
+    """A chain of one-product layers over 4-element entries runs 4 warps
+    (warp e fetches entry element e) and equals its plain loop."""
+    from hydrabadger_tpu_torch.ops.fp12_circuit import CircuitBuilder
+
+    cb = CircuitBuilder(5)
+    x = [cb.input(i) for i in range(5)]
+    y = ((x[0] * x[1]) * x[2] + x[3]) * x[4]
+    narrow = circuit_torch.CircuitExec(cb.compile([y, x[0] - y]), "narrow")
+    chain = circuit_torch.CircuitChain([narrow], [(0, 1, 0), (0, 0, 1), (0, 1, 0)], 1, "narrow")
+    assert (narrow.slots.warps, chain.warps) == (1, 4)
+    a, b = _points(card, 301)
+    table = torch.stack([torch.cat([a[1:], b[:2]]), torch.cat([b, a[:1]])], 2)  # [4, 12, 2, 301]
+    got = chain(a[:1].contiguous(), table)
+    assert torch.equal(got, chain.plain(a[:1], table))
+    assert not torch.equal(got, a[:1])
+
+
+@pytest.mark.parametrize("lanes", [515, 33])
+def test_circuit_chain_matches_plain(card, lanes):
+    """A chain with entry steps, both output groups and both circuits
+    against its plain loop, on ragged lanes."""
+    a, b = _points(card, lanes)
+    tab = decrypt_torch._build_table(torch.cat([a, b], -1), 16, decrypt_torch._Ops(False))
+    tab = tab.reshape(3, 12, 32, lanes)
+    rng = np.random.default_rng(4)
+    steps = [(None, 3, circuit_torch.SEL)]
+    for _ in range(5):
+        steps += [(0, int(rng.integers(1, 32)), int(rng.integers(0, 2))),
+                  (1, int(rng.integers(1, 32)), 0)]
+    steps += [(None, 17, circuit_torch.SEL), (1, 5, 0)]
+    chain = circuit_torch.CircuitChain(
+        [decrypt_torch._dblk_add_circuit(4), decrypt_torch._add_circuit()], steps, 3, "test")
+    acc = fq_torch.jac_infinity(lanes, card)
+    acc[:, :, 1] = b[:, :, 1]
+    before = circuit_torch.launches
+    got = chain(acc, tab)
+    assert circuit_torch.launches == before + 1
+    assert torch.equal(got, chain.plain(acc, tab))
 
 
 def test_full_crypto_sim_on_the_card_equals_the_cpu(card):

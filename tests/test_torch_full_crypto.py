@@ -42,6 +42,10 @@ class _Counting:
         self.circ[circ.name] = self.circ.get(circ.name, 0) + 1
         return self.inner.circuit(circ, x)
 
+    def chain(self, chain, acc, table):
+        self.circ[chain.name] = self.circ.get(chain.name, 0) + 1
+        return self.inner.chain(chain, acc, table)
+
 
 @pytest.fixture(scope="module")
 def one_epoch():
@@ -70,9 +74,15 @@ def test_launch_counts_are_the_ones_the_digits_imply(one_epoch):
     assert counting.circ == want["circuit"]
     q = CFG.threshold + 1
     assert want["fq_point"] == {"dbl": 2, "ladd": 61 + 13, "mul": 4, "add": 1}
-    # every window launches at most its circuits: 22 GLV windows, 64 Straus windows
-    assert want["circuit"]["dblk6_add"] <= 22 and want["circuit"]["dblk4_add"] <= 64
-    assert want["circuit"]["add"] <= 22 + 64 * (q - 1)
+    # every GLV window launches at most its two circuits; the Straus combine
+    # is one chain launch whose steps are the digits' circuit calls
+    assert set(want["circuit"]) == {"dblk6_add", "add", "straus"}
+    assert want["circuit"]["dblk6_add"] <= 22 and want["circuit"]["add"] <= 22
+    assert want["circuit"]["straus"] == 1
+    chain = sim.epoch.straus
+    calls = [c for c in chain.step_words[::3].tolist() if c >= 0]
+    assert calls.count(0) <= 64 and calls.count(1) <= 64 * (q - 1)
+    assert chain.products == 44 * calls.count(0) + 16 * calls.count(1)
 
 
 def test_a_wrong_check_scalar_is_caught(one_epoch):
