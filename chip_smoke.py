@@ -22,10 +22,12 @@ failure:
   6. the threshold-decrypt set-up: FullCryptoTensorSim at the config-8
      geometry (64 nodes x 64 instances = 4096 ciphertexts, t = 21): the
      key set and one host G1 multiply per ciphertext;
-  7. kernel B2 (fq_point) against its plain version, exact: every entry
-     (mul, dbl, add, ladd, dblk4, win6) at 4096 lanes and at a ragged
-     1013, with infinity, P + P and P + (-P) lanes, and the main path's
-     wider shapes;
+  7. kernel B2 (fq_point) against its plain version, exact: every point
+     entry (mul, dbl, add, ladd, dblk4, win6) at 4096 lanes and at a ragged
+     1013, with infinity, P + P and P + (-P) lanes, the main path's wider
+     shapes, and the two ladders at the decrypt round's shapes
+     (`glv_ladder` x 4096, `windowed_ladder` x 1408) and a ragged 1013,
+     with scalar-0, 1 and r - 1 lanes;
   8. kernel B3 (circuit) against its plain version, exact: the three
      decrypt circuits at 94,208 (23 ladders x 4096), 4096 and a ragged
      1013 lanes, the signed-mix regression vector, and the Straus chain
@@ -44,17 +46,21 @@ failure:
  11. kernel B4 (fq2_point) against its plain version, exact: `table`,
      `step` and `add` at 4096 and at a ragged 1013 lanes with an infinity
      lane, a digit-0 lane, acc == sel, acc == -sel and a scalar-0 lane,
-     and at the coin round's 1408-lane (and tree) shapes;
+     at the coin round's 1408-lane (and tree) shapes, and `ladder` at
+     4096, 1408 and 1013 lanes with scalar-0, 1 and r - 1 lanes;
  12. the main path: CoinRound at 64 nodes x 64 instances (set-up: the key
      set, 22 host G1 multiplies, 64 host hashes onto G2); a warm-up round;
      the round's device results held limb for limb against the same round
      through the plain versions on the card; a counted round, every launch
-     counter set to 0 just before and read just after: 135 launches, 65 to
-     sign and 70 to combine; sampled shares and all 64 combined signatures
-     against the host oracle; the 64 coin bits;
- 13. timings: each B4 entry's device time per launch at the main path's
-     shapes against its bound and its plain version; shares/s and
-     combines/s, device-only (CUDA events) and wall; coin rounds/s;
+     counter set to 0 just before and read just after: B4's launches by
+     entry equal to the plan from the digits (7: a ladder to sign, a
+     ladder and 5 tree adds to combine); sampled shares and all 64
+     combined signatures against the host oracle; the 64 coin bits;
+ 13. timings: each B4 launch shape's device time at the main path's
+     operands against its bound from the round's digits and its plain
+     version, and the `table` and `step` entries kept beside the ladder;
+     shares/s and combines/s, device-only (CUDA events) and wall; coin
+     rounds/s;
  14. the Fp probe kernel (fp_probe) against its plain version, exact:
      `mul` at E1's 65,536 lanes for every block width, `chain` with each of
      its four bodies at E2's 8192 and the decrypt path's 4096 and 94,208
@@ -71,7 +77,8 @@ failure:
      shares and 64 combined points held limb for limb against the same
      round through the plain versions on the card; a counted round, every
      launch counter set to 0 just before and read just after: kernel B2's
-     launches by entry equal to the plan from the digits, no other kernel;
+     launches by entry equal to the plan from the digits (7: `glv_ladder`,
+     `windowed_ladder` and 5 tree adds), no other kernel;
      sampled shares and all 64 combined points against the host oracle and
      all 64 plaintexts against the contributions encrypted; timings: device
      ms by events, wall ms, the bound from the round's digits.
@@ -141,6 +148,19 @@ def timed_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     return float(np.median(times))
 
 
+def ladder_scalars(m: int, seed: int) -> list[int]:
+    """m scalars below r from a seed, with 0 at lanes 0 and m // 2, 1 at
+    lane 1 and r - 1 at lane 2."""
+    from hydrabadger_tpu_torch.crypto.bls12_381 import R
+
+    rng = np.random.default_rng(seed)
+    ks = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(m)]
+    for i, k in ((0, 0), (m // 2, 0), (1, 1), (2, R - 1)):
+        if i < m:
+            ks[i] = k
+    return ks
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max().item())
 
@@ -168,8 +188,8 @@ def launch_ms(fn, reps: int = 10, batches: int = 3) -> float:
 def full_crypto(dev: torch.device, tag: str) -> list[dict]:
     """Phases 6-10: kernels B2 and B3 and the threshold-decrypt main path.
     Returns the two kernels' entries of the `kernels` line."""
-    from hydrabadger_tpu_torch.ops import circuit_torch, fq_torch as fq, gf256_torch, limbs
-    from hydrabadger_tpu_torch.ops import decrypt_torch as dt
+    from hydrabadger_tpu_torch.ops import bls_g2_torch, bls_torch, circuit_torch
+    from hydrabadger_tpu_torch.ops import decrypt_torch as dt, fq_torch as fq, gf256_torch, limbs
     from hydrabadger_tpu_torch.ops.fp12_circuit import CircuitBuilder
     from hydrabadger_tpu_torch.ops.circuit_torch import CircuitExec
     from hydrabadger_tpu_torch.sim import tensor as ts
@@ -231,6 +251,19 @@ def full_crypto(dev: torch.device, tag: str) -> list[dict]:
          lambda: fq.fq_mul(tx, beta), lambda: fq.fq_mul_plain(tx, beta))
     hold("fq_point", f"mul [12, 1013] by one constant element (beta)",
          lambda: fq.fq_mul(tx[:, :1013], beta), lambda: fq.fq_mul_plain(tx[:, :1013], beta))
+    # the decrypt round's ladders: the share ladder at 4096 lanes, the
+    # combine's at 1408 (22 x 64), and a ragged 1013, scalar-0 lanes included
+    for m, entries in ((n, ("glv_ladder",)), (q * FC_NODES, ("windowed_ladder",)),
+                       (RAGGED, ("glv_ladder", "windowed_ladder"))):
+        ks = ladder_scalars(m, m)
+        x = a[..., :m].contiguous()
+        digits = {"glv_ladder": bls_torch.glv_windows(ks),
+                  "windowed_ladder": bls_g2_torch.scalars_to_windows(ks)}
+        for entry in entries:
+            d = torch.from_numpy(digits[entry]).to(dev)
+            fn, plain_fn = fq.ENTRIES[entry]
+            hold("fq_point", f"{entry} [3, 12, {m}] (scalar-0, 1, r-1 lanes)",
+                 lambda: fn(x, d), lambda: plain_fn(x, d))
 
     # -- 8. B3 against its plain version -----------------------------------
     P = limbs.P
@@ -432,6 +465,7 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
     kernel's entry of the `kernels` line."""
     from hydrabadger_tpu_torch.crypto.engine import quorum_prep
     from hydrabadger_tpu_torch.ops import bls_g2_torch as g2, circuit_torch, fq_torch
+    from hydrabadger_tpu_torch.ops.bls_torch import launch_counts
     from hydrabadger_tpu_torch.ops import fq2_torch as f2, gf256_torch, limbs
     from hydrabadger_tpu_torch.sim import coin
 
@@ -503,6 +537,20 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
     hold(f"add [3, 2, 12, {tree[0]}] (the tree's first level)",
          lambda: f2.g2_add(a[..., :tree[0]], acc[..., :tree[0]]),
          lambda: f2.g2_add_plain(a[..., :tree[0]], acc[..., :tree[0]]))
+    # the round's two ladders (4096 and 1408 lanes) and a ragged 1013, with
+    # scalar-0, 1 and r-1 lanes; the plain ladders' one host-timed call each
+    ladder_plain_ms = {}
+    for m in (n_shares, lanes, RAGGED):
+        x = pool[..., rng.integers(0, pool.shape[-1], m)].contiguous()
+        w = torch.from_numpy(g2.scalars_to_windows(ladder_scalars(m, m))).to(dev)
+        got = f2.g2_ladder(x, w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = f2.g2_ladder_plain(x, w)
+        torch.cuda.synchronize()
+        ladder_plain_ms[m] = (time.perf_counter() - t0) * 1e3
+        hold(f"ladder [3, 2, 12, {m}] x [64, {m}] digits (scalar-0, 1, r-1 lanes; plain "
+             f"{ladder_plain_ms[m]:.0f} ms)", lambda: got, lambda: want)
 
     # -- 12. the main path -------------------------------------------------
     t0 = time.perf_counter()
@@ -521,8 +569,9 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
           f"round through the plain versions on the card, limb for limb ({plain_round_s:.2f} s)")
     del plain
 
-    windows = g2.N_WINDOWS
-    want = {"sign": 1 + windows, "combine": 1 + windows + len(tree)}
+    plan = cr.plan()
+    want = {part: len(rows) for part, rows in plan.items()}
+    want_by_kind = launch_counts(plan["sign"] + plan["combine"])
     torch.cuda.synchronize()
     f2.launches, fq_torch.launches, circuit_torch.launches, gf256_torch.launches = 0, 0, 0, 0
     f2.launches_by_kind.clear()
@@ -532,13 +581,13 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
     counted = f2.launches
     by_kind = dict(f2.launches_by_kind)
     others = fq_torch.launches + circuit_torch.launches + gf256_torch.launches
-    check(cr.last_launches == want, f"coin round launches {cr.last_launches}, want {want}")
-    check(counted == sum(want.values()), f"fq2_point launches {counted}, want {sum(want.values())}")
-    check(by_kind == {"table": 2, "step": 2 * windows, "add": len(tree)},
-          f"fq2_point launches by entry {by_kind}")
+    check(cr.last_launches == want, f"coin round launches {cr.last_launches}, the plan {want}")
+    check(by_kind == want_by_kind, f"fq2_point launches by entry {by_kind}, the plan {want_by_kind}")
+    check(counted == sum(want.values()) == 2 + len(tree),
+          f"fq2_point launches {counted}, the plan {sum(want.values())}")
     check(others == 0, f"the coin round launched {others} kernels of other libraries")
     print(f"main path: one coin round, fq2_point launches {counted} ({cr.last_launches}, "
-          f"by entry {by_kind})")
+          f"by entry {by_kind}) == the plan from the digits")
     sample = [0, 1, cfg.n_nodes + 5, n_shares // 2, n_shares - 1]
     t0 = time.perf_counter()
     check(cr.oracle_check(sample), "coin round != the host oracle")
@@ -573,45 +622,35 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
           f"({cfg.instances / comb_ms * 1e3:.1f} combines/s), wall {comb_wall:.1f} ms "
           f"({cfg.instances / comb_wall * 1e3:.1f} combines/s) {tag}")
 
-    # per launch at the main path's shapes; the bound counts what this
-    # round's data needs: a table is a double and 13 general adds, a step
-    # 4 doubles and a general add only where its window's digit and an
-    # earlier one are nonzero, a tree add a general add
-    need = {"table": f2.PRODUCTS["dbl"] + (f2.TABLE_SIZE - 3) * f2.GENERAL_ADD_PRODUCTS,
-            "add": f2.GENERAL_ADD_PRODUCTS}
-    step_dbl = f2.DOUBLINGS * f2.PRODUCTS["dbl"]
-    shapes = [("table", n_shares), ("step", n_shares), ("table", lanes), ("step", lanes)]
-    shapes += [("add", m) for m in sorted(set(tree), reverse=True)]
+    # per launch at the main path's shapes and operands; the bound counts
+    # what this round's digits need (the plan)
+    ladder_ops = {n_shares: (sign_pts, sign_wins), lanes: (comb_pts, comb_wins)}
     per_launch = {}
-    for entry, m in shapes:
-        x = pool[..., rng.integers(0, pool.shape[-1], m)].contiguous()
-        y = f2.g2_double_plain(x.roll(1, -1))
-        tab = f2.g2_table_plain(x) if entry == "step" else None
-        dg = torch.from_numpy(rng.integers(0, 16, m).astype(np.int32)).to(dev)
-        fn, plain_fn = f2.ENTRIES[entry]
-        ins = {"table": (x,), "step": (y, tab, dg), "add": (x, y)}[entry]
-        per_launch[entry, m] = (launch_ms(lambda: fn(*ins)), wall_ms(lambda: plain_fn(*ins)))
-    # every launch of the round: (entry, lanes, products its data needs)
-    launches_of = [("table", n_shares, need["table"] * n_shares)]
-    launches_of += [("step", n_shares, step_dbl * n_shares + f2.GENERAL_ADD_PRODUCTS * int(g))
-                    for g in g2.general_adds(sign_wins.cpu().numpy())]
-    launches_of.append(("table", lanes, need["table"] * lanes))
-    launches_of += [("step", lanes, step_dbl * lanes + f2.GENERAL_ADD_PRODUCTS * int(g))
-                    for g in g2.general_adds(comb_wins.cpu().numpy())]
-    launches_of += [("add", m, need["add"] * m) for m in tree]
+    for r in plan["sign"] + plan["combine"]:
+        if (r.entry, r.lanes) in per_launch:
+            continue
+        if r.entry == "ladder":
+            ins = ladder_ops[r.lanes]
+            per_launch[r.entry, r.lanes] = (launch_ms(lambda: f2.g2_ladder(*ins), reps=3),
+                                            ladder_plain_ms[r.lanes])
+        else:
+            x = pool[..., rng.integers(0, pool.shape[-1], r.lanes)].contiguous()
+            y = f2.g2_double_plain(x.roll(1, -1))
+            per_launch[r.entry, r.lanes] = (launch_ms(lambda: f2.g2_add(x, y)),
+                                            wall_ms(lambda: f2.g2_add_plain(x, y)))
     rows = {}
-    for entry, m, products in launches_of:
-        ops_ms, bytes_ms = roofline.product_ms(products, f2.ELEMENTS[entry] * m)
-        r = rows.setdefault((entry, m), {
-            "entry": entry, "lanes": m, "per_round": 0, "products_per_lane_formula": f2.PRODUCTS[entry],
-            "products_needed": 0, "elements_per_lane": f2.ELEMENTS[entry],
-            "ms": per_launch[entry, m][0], "plain_ms": per_launch[entry, m][1],
+    for r in plan["sign"] + plan["combine"]:
+        ops_ms, bytes_ms = r.bound()
+        row = rows.setdefault((r.entry, r.lanes), {
+            "entry": r.entry, "lanes": r.lanes, "per_round": 0, "products_needed": 0,
+            "elements_per_lane": r.elements, "digit_bytes_per_lane": r.digit_bytes,
+            "ms": per_launch[r.entry, r.lanes][0], "plain_ms": per_launch[r.entry, r.lanes][1],
             "bound_ms": 0.0, "ops_bound_ms": 0.0, "bytes_bound_ms": 0.0})
-        r["per_round"] += 1
-        r["products_needed"] += products
-        r["ops_bound_ms"] += ops_ms
-        r["bytes_bound_ms"] += bytes_ms
-        r["bound_ms"] += max(ops_ms, bytes_ms)
+        row["per_round"] += 1
+        row["products_needed"] += r.products
+        row["ops_bound_ms"] += ops_ms
+        row["bytes_bound_ms"] += bytes_ms
+        row["bound_ms"] += max(ops_ms, bytes_ms)
     rows = list(rows.values())
     for r in rows:
         r["bound_by"] = "operations" if r["ops_bound_ms"] >= r["bytes_bound_ms"] else "bytes"
@@ -619,17 +658,36 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
         print(f"fq2_point {r['entry']} x {r['lanes']} lanes ({r['per_round']}/round): kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, bound {per_b:.5f} ms per launch "
               f"({r['bound_by']}; {r['products_needed'] / r['per_round'] / r['lanes']:.1f} products "
-              f"per lane needed, {r['products_per_lane_formula']} by the formulas), "
-              f"{r['ms'] / per_b:.0f}x {tag}")
+              f"per lane needed), {r['ms'] / per_b:.0f}x {tag}")
+    # the entries kept beside the ladder (no coin-round launch), per launch at
+    # the round's lane counts; the bound charges a step's add the general formula
+    kept = []
+    for entry, m in (("table", n_shares), ("step", n_shares), ("table", lanes), ("step", lanes)):
+        x = pool[..., rng.integers(0, pool.shape[-1], m)].contiguous()
+        ins = (x,) if entry == "table" else (
+            f2.g2_double_plain(x.roll(1, -1)), f2.g2_table_plain(x),
+            torch.from_numpy(rng.integers(0, 16, m).astype(np.int32)).to(dev))
+        fn, plain_fn = f2.ENTRIES[entry]
+        products = (f2.TABLE_PRODUCTS if entry == "table" else
+                    f2.DOUBLINGS * f2.DBL_PRODUCTS + f2.GENERAL_ADD_PRODUCTS)
+        b_ms = max(roofline.product_ms(products * m, f2.ELEMENTS[entry] * m))
+        kept.append({"entry": entry, "lanes": m, "ms": launch_ms(lambda: fn(*ins)),
+                     "plain_ms": wall_ms(lambda: plain_fn(*ins)), "bound_ms": b_ms})
+        print(f"fq2_point {entry} x {m} lanes (kept beside the ladder; 0/round): kernel "
+              f"{kept[-1]['ms']:.4f} ms (PR 3's kernel: table 1.168 / 1.165, step 0.2469 / "
+              f"0.2465 ms at 4096 / 1408), plain {kept[-1]['plain_ms']:.2f} ms, bound "
+              f"{b_ms:.5f} ms {tag}")
     per = {"ms": sum(r["ms"] * r["per_round"] for r in rows),
            "plain_ms": sum(r["plain_ms"] * r["per_round"] for r in rows),
            "bound_ms": sum(r["bound_ms"] for r in rows)}
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     bound_by = "operations" if 2 * by_ops >= per["bound_ms"] else "bytes"
     round_ms = 1e3 * float(np.median(round_s))
-    print(f"coin round {round_ms:.2f} ms wall; device {sign_ms + comb_ms:.3f} ms by events, "
-          f"B4 launches {per['ms']:.3f} ms by shape; bound {per['bound_ms']:.4f} ms ({bound_by}) {tag}")
-    print(json.dumps({"coin_shapes": rows, "coin_round_s": round_s, "plain_round_s": plain_round_s,
+    print(f"coin round {round_ms:.2f} ms wall; device {sign_ms + comb_ms:.3f} ms by events "
+          f"(PR 3-4's kernel: 34.26-34.46 ms), B4 launches {per['ms']:.3f} ms by shape; bound "
+          f"{per['bound_ms']:.4f} ms ({bound_by}) {tag}")
+    print(json.dumps({"coin_shapes": rows, "kept_entries": kept, "coin_round_s": round_s,
+                      "plain_round_s": plain_round_s,
                       "sign_device_ms": sign_ms, "combine_device_ms": comb_ms,
                       "sign_wall_ms": sign_wall, "combine_wall_ms": comb_wall}))
     return {
@@ -642,6 +700,7 @@ def coin_plane(dev: torch.device, tag: str) -> dict:
         "max_abs_err": worst,
         "per": f"one coin round ({cfg.n_nodes} x {cfg.instances}): every launch shape times "
                f"its launches per round",
+        "kept_entries": kept,
         "ms": per["ms"],
         "plain_ms": per["plain_ms"],
         "bound_ms": per["bound_ms"],
@@ -847,7 +906,7 @@ def decrypt_plane(dev: torch.device, tag: str) -> dict:
     share_wall = wall_ms(lambda: rnd.engine.decrypt_share_batch(items))
     bound = {}
     for part, rows in plan.items():
-        per_launch = [roofline.product_ms(r.products, r.elements * r.lanes) for r in rows]
+        per_launch = [r.bound() for r in rows]
         bound[part] = {"bound_ms": sum(max(b) for b in per_launch),
                        "ops_ms": sum(b[0] for b in per_launch),
                        "bytes_ms": sum(b[1] for b in per_launch),
@@ -859,7 +918,8 @@ def decrypt_plane(dev: torch.device, tag: str) -> dict:
     dev_ms = share_ms + comb_ms
     print(f"decrypt round {round_ms:.2f} ms wall (median of {len(round_s)}; "
           f"{[round(1 / s, 3) for s in round_s]} rounds/s); shares {share_ms:.3f} ms + combine "
-          f"{comb_ms:.3f} ms device by events ({n_shares / share_ms * 1e3:.1f} shares/s, "
+          f"{comb_ms:.3f} ms device by events (PR 4's kernel: 20.72 ms; "
+          f"{n_shares / share_ms * 1e3:.1f} shares/s, "
           f"{cfg.n_nodes / comb_ms * 1e3:.1f} combines/s device-only); share batch wall "
           f"{share_wall:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}; shares "
           f"{bound['share']['bound_ms']:.4f}, combine {bound['combine']['bound_ms']:.4f}), "

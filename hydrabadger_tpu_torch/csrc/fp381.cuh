@@ -1,6 +1,7 @@
-// BLS12-381 base-field arithmetic and Jacobian G1 formulas for one CUDA thread.
+// BLS12-381 base-field arithmetic for one CUDA thread.
 //
-// Shared by fq_point.cu (kernel B2) and circuit.cu (kernel B3).  A field
+// Shared by fq_point.cu (kernel B2), circuit.cu (kernel B3), fq2_point.cu
+// (kernel B4, through point_block.cuh) and fp_probe.cu.  A field
 // element is 12 little-endian 32-bit words in Montgomery form with
 // R = 2^384 (the JAX package's R too), always canonical (< p) between
 // operations, so every result equals the JAX package's bit for bit.
@@ -26,10 +27,6 @@ struct Fp {
   uint32_t w[kWords];
 };
 
-struct Pt {
-  Fp x, y, z;
-};
-
 // (no restrict qualifiers: circuit.cu reads back what it stored in one launch)
 __device__ __forceinline__ Fp load(const uint32_t* base, long long n, long long lane) {
   Fp a;
@@ -42,18 +39,6 @@ __device__ __forceinline__ void store(uint32_t* base, long long n, long long lan
                                       const Fp& a) {
 #pragma unroll
   for (int i = 0; i < kWords; ++i) base[i * n + lane] = a.w[i];
-}
-
-__device__ __forceinline__ Pt load_pt(const uint32_t* base, long long n, long long lane) {
-  return {load(base, n, lane), load(base + kWords * n, n, lane),
-          load(base + 2 * kWords * n, n, lane)};
-}
-
-__device__ __forceinline__ void store_pt(uint32_t* base, long long n, long long lane,
-                                         const Pt& p) {
-  store(base, n, lane, p.x);
-  store(base + kWords * n, n, lane, p.y);
-  store(base + 2 * kWords * n, n, lane, p.z);
 }
 
 __device__ __forceinline__ Fp zero() {
@@ -154,69 +139,5 @@ __device__ __forceinline__ Fp mul(const Fp& a, const Fp& b) {
 }
 
 __device__ __forceinline__ Fp sqr(const Fp& a) { return mul(a, a); }
-
-// The two point formulas of ops/fq_T (jac_double_formula and
-// jac_add_core_formula), term for term.
-
-__device__ __forceinline__ Pt jac_double(const Pt& p) {
-  const Fp a = sqr(p.x);
-  const Fp b = sqr(p.y);
-  const Fp c = sqr(b);
-  const Fp t = add(p.x, b);
-  Fp d = sub(sub(sqr(t), a), c);
-  d = add(d, d);
-  const Fp e = add(add(a, a), a);
-  const Fp f = sqr(e);
-  Pt out;
-  out.x = sub(f, add(d, d));
-  Fp c8 = add(c, c);
-  c8 = add(c8, c8);
-  c8 = add(c8, c8);
-  out.y = sub(mul(e, sub(d, out.x)), c8);
-  const Fp yz = mul(p.y, p.z);
-  out.z = add(yz, yz);
-  return out;
-}
-
-// the general add core; also returns h and r for the complete add's
-// doubling case
-__device__ __forceinline__ Pt jac_add_core(const Pt& p1, const Pt& p2, Fp& h, Fp& r) {
-  const Fp z1z1 = sqr(p1.z);
-  const Fp z2z2 = sqr(p2.z);
-  const Fp u1 = mul(p1.x, z2z2);
-  const Fp u2 = mul(p2.x, z1z1);
-  const Fp s1 = mul(mul(p1.y, p2.z), z2z2);
-  const Fp s2 = mul(mul(p2.y, p1.z), z1z1);
-  h = sub(u2, u1);
-  r = sub(s2, s1);
-  const Fp hh = sqr(h);
-  const Fp hhh = mul(h, hh);
-  const Fp v = mul(u1, hh);
-  const Fp rr = sqr(r);
-  Pt out;
-  out.x = sub(sub(rr, hhh), add(v, v));
-  out.y = sub(mul(r, sub(v, out.x)), mul(s1, hhh));
-  out.z = mul(mul(p1.z, p2.z), h);
-  return out;
-}
-
-// incomplete ladder add: infinity on either side, no doubling case
-__device__ __forceinline__ Pt jac_add_ladder(const Pt& p1, const Pt& p2) {
-  if (is_zero(p1.z)) return p2;
-  if (is_zero(p2.z)) return p1;
-  Fp h, r;
-  return jac_add_core(p1, p2, h, r);
-}
-
-// complete add: the selects of fq_T._jac_add_body in its order of
-// precedence (p1 at infinity, p2 at infinity, p1 == p2, general)
-__device__ __forceinline__ Pt jac_add(const Pt& p1, const Pt& p2) {
-  if (is_zero(p1.z)) return p2;
-  if (is_zero(p2.z)) return p1;
-  Fp h, r;
-  const Pt gen = jac_add_core(p1, p2, h, r);
-  if (is_zero(h) && is_zero(r)) return jac_double(p1);
-  return gen;
-}
 
 }  // namespace fp381

@@ -58,8 +58,12 @@ LIBRARIES = {
     "fq_point": (
         "fq_point.cu",
         {
-            # device, kind, k, a, b, c, out, n, stream
-            "fq_point_launch": ([_I, _I, _I, _P, _P, _P, _P, _LL, _P], _I),
+            # device, kind, k, set, set_len, smem, warps, a, b, c, digits,
+            # windows, table, out, n, stream
+            "fq_point_launch": (
+                [_I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _P],
+                _I,
+            ),
             "fq_point_error_string": ([_I], ctypes.c_char_p),
         },
     ),
@@ -80,8 +84,9 @@ LIBRARIES = {
     "fq2_point": (
         "fq2_point.cu",
         {
-            # device, kind, a, b, digits, out, n, stream
-            "fq2_point_launch": ([_I, _I, _P, _P, _P, _P, _LL, _P], _I),
+            # device, kind, set, set_len, smem, warps, a, b, digits, windows,
+            # table, out, n, stream
+            "fq2_point_launch": ([_I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _LL, _P], _I),
             "fq2_point_error_string": ([_I], ctypes.c_char_p),
         },
     ),

@@ -6,11 +6,14 @@ math: a signature share per (node, instance) and a Lagrange combine per
 instance.  Both run here as one fixed-window (w = 4) ladder over all
 lanes on kernel B4 (ops/fq2_torch, csrc/fq2_point.cu):
 
-    g2_scalar_mul_windowed     1 table launch + 64 window-step launches
+    g2_scalar_mul_windowed     one `ladder` launch: the table and 64 windows
     g2_weighted_sum_windowed   one ladder over the [S * B] lanes of B jobs
                                of S terms each, then the pairwise tree of
-                               complete adds, one launch per level over all
-                               B jobs (5 levels at S = 22)
+                               complete adds, one `add` launch per level over
+                               all B jobs (5 levels at S = 22)
+
+`scalar_mul_plan` and `weighted_sum_plan` list those launches with the
+Montgomery products the digits need (ops/roofline.Launch).
 
 The host entry points take host points: `g2_scalar_mul_dispatch` and
 `g2_weighted_sum_dispatch` convert them to limbs, copy the points and the
@@ -24,7 +27,7 @@ bucketing is not ported: it exists only to spare XLA retraces.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +36,7 @@ from ..crypto.bls12_381 import R
 from ..device import resolve_device
 from . import fq2_torch as fq2
 from . import limbs
+from .roofline import Launch
 
 N_WINDOWS = 64  # 4-bit windows of 256-bit scalars
 
@@ -47,14 +51,45 @@ def scalars_to_windows(scalars: Sequence[int]) -> np.ndarray:
     return np.ascontiguousarray(digits.T.astype(np.int32))
 
 
-def general_adds(windows) -> np.ndarray:
-    """[64, n] digits -> [64]: for each window, the lanes whose step add
-    takes the general formula (a nonzero digit after the lane's first
-    nonzero one; a zero digit adds infinity, the first nonzero one adds to
-    infinity).  What a ladder over these digits needs of its adds."""
-    nz = np.asarray(windows) != 0
+def window_needs(digit_rows) -> tuple:
+    """[k, n] digits in the order a ladder adds them -> (lanes whose add
+    takes the general formula, lanes already started) per row: an add is
+    general where its digit and an earlier one are nonzero (a zero digit
+    adds infinity, the first nonzero one adds to infinity), and a doubling
+    is needed only after the lane's first nonzero digit."""
+    nz = np.asarray(digit_rows) != 0
     started_before = (np.cumsum(nz, axis=0) - nz) > 0
-    return (nz & started_before).sum(axis=1)
+    return (nz & started_before).sum(axis=1), started_before.sum(axis=1)
+
+
+def scalar_mul_plan(windows: np.ndarray) -> List[Launch]:
+    """The launches of g2_scalar_mul_windowed over these [64, n] windows:
+    one `ladder` (the table, and per window the doublings of started lanes
+    and the adds whose formula is general)."""
+    n = windows.shape[-1]
+    general, started = window_needs(windows)
+    products = (n * fq2.TABLE_PRODUCTS + int(started.sum()) * fq2.DOUBLINGS * fq2.DBL_PRODUCTS
+                + int(general.sum()) * fq2.GENERAL_ADD_PRODUCTS)
+    return [Launch("ladder", n, products, fq2.ELEMENTS["ladder"], "ladder", 4 * windows.shape[0])]
+
+
+def weighted_sum_plan(windows: np.ndarray, terms: int) -> List[Launch]:
+    """The launches of g2_weighted_sum_windowed over these [64, S*B]
+    windows: the ladder, then one general add per pair at each tree level."""
+    b = windows.shape[-1] // terms
+    return scalar_mul_plan(windows) + [
+        Launch("add", half * b, half * b * fq2.GENERAL_ADD_PRODUCTS, fq2.ELEMENTS["add"], "tree")
+        for half in tree_levels(terms)]
+
+
+def tree_levels(terms: int) -> list:
+    """The pairwise tree's adds per job at each level (an odd last term
+    carries to the next level): [11, 5, 3, 1, 1] at 22 terms."""
+    out = []
+    while terms > 1:
+        out.append(terms // 2)
+        terms = (terms + 1) // 2
+    return out
 
 
 def _entries(use_kernel: bool):
@@ -65,13 +100,8 @@ def _entries(use_kernel: bool):
 def g2_scalar_mul_windowed(points: torch.Tensor, windows: torch.Tensor,
                            use_kernel: bool = True) -> torch.Tensor:
     """[3, 2, 12, n] points x [64, n] int32 digits (same device) ->
-    [3, 2, 12, n] Jacobian products: one table launch, 64 step launches."""
-    ops = _entries(use_kernel)
-    table = ops["table"](points)
-    acc = fq2.g2_infinity(points.shape[-1], points.device)
-    for j in range(windows.shape[0]):
-        acc = ops["step"](acc, table, windows[j])
-    return acc
+    [3, 2, 12, n] Jacobian products: one `ladder` launch."""
+    return _entries(use_kernel)["ladder"](points, windows)
 
 
 def g2_weighted_sum_windowed(points: torch.Tensor, windows: torch.Tensor, terms: int,

@@ -6,21 +6,20 @@ over G1 and a combine is a Lagrange-weighted sum of t + 1 shares, so a
 threshold-decrypt round is G1 group math, run here on kernel B2
 (ops/fq_torch, csrc/fq_point.cu) with no kernel of its own:
 
-    g1_scalar_mul_glv          fq_T.glv_ladder_T: the table T[i] = i*P (14
-                               complete `add`s), its beta-twisted copy (one
-                               `mul` by beta over 16 n lanes), then 33
-                               windows of one `dblk4` launch and two complete
-                               `add`s of the per-lane gathers T1[k1 digit]
-                               and T2[k2 digit]
+    g1_scalar_mul_glv          fq_T.glv_ladder_T in one `glv_ladder` launch:
+                               the table T[i] = i*P (14 complete adds), its
+                               beta-twisted copy, then 33 windows of 4
+                               doublings and two complete adds of the
+                               entries T1[k1 digit] and T2[k2 digit]
     g1_weighted_sum_windowed   fq_T.windowed_ladder_T over the [S * B] lanes
-                               of B jobs of S terms (the table, then 64
-                               windows of `dblk4` and one complete `add`),
-                               then the pairwise tree of complete adds, one
+                               of B jobs of S terms in one `windowed_ladder`
+                               launch (the table, then 64 windows of 4
+                               doublings and one complete add), then the
+                               pairwise tree of complete adds, one `add`
                                launch per level (5 levels at S = 22)
 
 The adds are the COMPLETE body, as in fq_T: a digit 0 adds the table's
 infinity, and an accumulator at infinity takes the table entry itself.
-The gathers are tensor glue (`torch.gather` over the table's entry axis).
 Every lane computes what fq_T's ladder computes, op for op, so the result
 equals it limb for limb.
 
@@ -38,7 +37,7 @@ spare XLA retraces.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -47,8 +46,9 @@ from ..crypto.bls12_381 import R
 from ..device import resolve_device
 from . import fq_torch as fq
 from . import limbs
-from .bls_g2_torch import scalars_to_windows
+from .bls_g2_torch import scalars_to_windows, tree_levels, window_needs
 from .decrypt_torch import glv_digits
+from .roofline import Launch
 
 WINDOW = 4
 TABLE_SIZE = 1 << WINDOW
@@ -59,10 +59,10 @@ GENERAL_ADD_PRODUCTS = fq.PRODUCTS["ladd"]
 
 
 def glv_windows(scalars: Sequence[int]) -> np.ndarray:
-    """Python ints -> [2, 33, n] int64 GLV digits, MSB first: [0] the k1
+    """Python ints -> [2, 33, n] int32 GLV digits, MSB first: [0] the k1
     windows, [1] the k2 (beta-twisted) windows of k = k1 + k2 lambda
     (bls_jax.scalars_to_glv_windows, lane axis last)."""
-    return np.ascontiguousarray(glv_digits(scalars, WINDOW).transpose(1, 2, 0).astype(np.int64))
+    return np.ascontiguousarray(glv_digits(scalars, WINDOW).transpose(1, 2, 0))
 
 
 def _entries(use_kernel: bool):
@@ -70,65 +70,18 @@ def _entries(use_kernel: bool):
     return {name: fns[col] for name, fns in fq.ENTRIES.items()}
 
 
-def g1_table(points: torch.Tensor, add) -> torch.Tensor:
-    """[3, 12, n] -> [16, 3, 12, n]: entry i is i*P (infinity, P, then 14
-    chained complete adds)."""
-    n = points.shape[-1]
-    tbl = [fq.jac_infinity(n, points.device), points]
-    for _ in range(TABLE_SIZE - 2):
-        tbl.append(add(tbl[-1], points))
-    return torch.stack(tbl)
-
-
-def _gather(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """[16, 3, 12, n] table x [n] int64 digits -> [3, 12, n]: lane l's
-    table[digits[l]]."""
-    n = table.shape[-1]
-    idx = digits.view(1, 1, 1, n).expand(1, 3, limbs.N_LIMBS, n)
-    return table.gather(0, idx)[0]
-
-
 def g1_scalar_mul_glv(points: torch.Tensor, digits: torch.Tensor,
                       use_kernel: bool = True) -> torch.Tensor:
-    """[3, 12, n] points x [2, 33, n] int64 GLV digits (same device) ->
-    [3, 12, n] Jacobian products: 14 table adds, one twist product, then
-    per window one dblk4 and two complete adds (114 launches)."""
-    ops = _entries(use_kernel)
-    t1 = g1_table(points, ops["add"])
-    beta = torch.as_tensor(limbs.BETA_MONT, device=points.device)[:, None]  # one element
-    tx = ops["mul"](t1[:, 0].transpose(0, 1).contiguous(), beta)  # [12, 16, n]
-    t2 = t1.clone()
-    t2[:, 0] = tx.transpose(0, 1)
-    acc = fq.jac_infinity(points.shape[-1], points.device)
-    for j in range(digits.shape[1]):
-        acc = ops["dblk"](acc, WINDOW)
-        acc = ops["add"](acc, _gather(t1, digits[0, j]))
-        acc = ops["add"](acc, _gather(t2, digits[1, j]))
-    return acc
+    """[3, 12, n] points x [2, 33, n] int32 GLV digits (same device) ->
+    [3, 12, n] Jacobian products: one `glv_ladder` launch."""
+    return _entries(use_kernel)["glv_ladder"](points, digits)
 
 
 def g1_scalar_mul_windowed(points: torch.Tensor, windows: torch.Tensor,
                            use_kernel: bool = True) -> torch.Tensor:
-    """[3, 12, n] points x [64, n] int64 4-bit digits -> [3, 12, n]: the
-    single-table ladder, 14 table adds then a dblk4 and a complete add per
-    window."""
-    ops = _entries(use_kernel)
-    table = g1_table(points, ops["add"])
-    acc = fq.jac_infinity(points.shape[-1], points.device)
-    for j in range(windows.shape[0]):
-        acc = ops["dblk"](acc, WINDOW)
-        acc = ops["add"](acc, _gather(table, windows[j]))
-    return acc
-
-
-def tree_levels(terms: int) -> list:
-    """The pairwise tree's adds per job at each level (an odd last term
-    carries to the next level): [11, 5, 3, 1, 1] at 22 terms."""
-    out = []
-    while terms > 1:
-        out.append(terms // 2)
-        terms = (terms + 1) // 2
-    return out
+    """[3, 12, n] points x [64, n] int32 4-bit digits -> [3, 12, n]: one
+    `windowed_ladder` launch."""
+    return _entries(use_kernel)["windowed_ladder"](points, windows)
 
 
 def g1_weighted_sum_windowed(points: torch.Tensor, windows: torch.Tensor, terms: int,
@@ -154,60 +107,33 @@ def g1_weighted_sum_windowed(points: torch.Tensor, windows: torch.Tensor, terms:
 # Launch plans: every B2 launch of a ladder and the products its data needs
 # ---------------------------------------------------------------------------
 
-
-class Launch(NamedTuple):
-    """One B2 launch of a ladder."""
-
-    entry: str  # the launch counters' key: "add", "mul" (by beta) or "dblk4"
-    lanes: int
-    products: int  # Montgomery products these digits need, over all lanes
-    elements: int  # field elements per lane read or written, each once
-    part: str  # "table" (with the twist), "window" or "tree"
-
-
-def _table_plan(lanes: int) -> List[Launch]:
-    # T[2] = P + P takes the doubling arm, T[3..15] the general one
-    return [Launch("add", lanes, (DBL_PRODUCTS if i == 2 else GENERAL_ADD_PRODUCTS) * lanes, 9,
-                   "table") for i in range(2, TABLE_SIZE)]
-
-
-def _window_needs(digit_rows: np.ndarray):
-    """[k, n] digits in the order a ladder adds them -> (lanes whose add
-    takes the general formula, lanes already started) per row: an add is
-    general where its digit and an earlier one are nonzero, and a doubling
-    is needed only after the lane's first nonzero digit."""
-    nz = np.asarray(digit_rows) != 0
-    started_before = (np.cumsum(nz, axis=0) - nz) > 0
-    return (nz & started_before).sum(axis=1), started_before.sum(axis=1)
+# the table: T[2] = P + P by the doubling arm, T[3..15] by the general formula
+TABLE_PRODUCTS = DBL_PRODUCTS + (TABLE_SIZE - 3) * GENERAL_ADD_PRODUCTS
 
 
 def glv_plan(digits: np.ndarray) -> List[Launch]:
-    """The launches of g1_scalar_mul_glv over these [2, 33, n] digits."""
+    """The launches of g1_scalar_mul_glv over these [2, 33, n] digits: one
+    `glv_ladder` (the table, its 16 twist products, and per window the
+    doublings of started lanes and the adds whose formula is general)."""
     n = digits.shape[-1]
-    general, started = _window_needs(np.stack([digits[0], digits[1]], axis=1).reshape(-1, n))
-    rows = _table_plan(n) + [Launch("mul", TABLE_SIZE * n, TABLE_SIZE * n, 2, "table")]
-    for j in range(digits.shape[1]):
-        rows.append(Launch(f"dblk{WINDOW}", n, int(started[2 * j]) * WINDOW * DBL_PRODUCTS, 6,
-                           "window"))
-        rows += [Launch("add", n, int(general[2 * j + i]) * GENERAL_ADD_PRODUCTS, 9, "window")
-                 for i in (0, 1)]
-    return rows
+    general, started = window_needs(np.stack([digits[0], digits[1]], axis=1).reshape(-1, n))
+    products = (n * (TABLE_PRODUCTS + TABLE_SIZE) + int(started[::2].sum()) * WINDOW * DBL_PRODUCTS
+                + int(general.sum()) * GENERAL_ADD_PRODUCTS)
+    return [Launch("glv_ladder", n, products, 6, "ladder", 4 * digits[:, :, 0].size)]
 
 
 def weighted_sum_plan(windows: np.ndarray, terms: int) -> List[Launch]:
     """The launches of g1_weighted_sum_windowed over these [64, S*B]
-    windows: the ladder, then one general add per pair at each tree level."""
+    windows: one `windowed_ladder`, then one general add per pair at each
+    tree level."""
     lanes = windows.shape[-1]
-    general, started = _window_needs(windows)
-    rows = _table_plan(lanes)
-    for j in range(windows.shape[0]):
-        rows.append(Launch(f"dblk{WINDOW}", lanes, int(started[j]) * WINDOW * DBL_PRODUCTS, 6,
-                           "window"))
-        rows.append(Launch("add", lanes, int(general[j]) * GENERAL_ADD_PRODUCTS, 9, "window"))
+    general, started = window_needs(windows)
+    products = (lanes * TABLE_PRODUCTS + int(started.sum()) * WINDOW * DBL_PRODUCTS
+                + int(general.sum()) * GENERAL_ADD_PRODUCTS)
     b = lanes // terms
-    rows += [Launch("add", half * b, half * b * GENERAL_ADD_PRODUCTS, 9, "tree")
-             for half in tree_levels(terms)]
-    return rows
+    return [Launch("windowed_ladder", lanes, products, 6, "ladder", 4 * windows.shape[0])] + [
+        Launch("add", half * b, half * b * GENERAL_ADD_PRODUCTS, 9, "tree")
+        for half in tree_levels(terms)]
 
 
 def launch_counts(plan: Sequence[Launch]) -> Dict[str, int]:
@@ -228,7 +154,7 @@ def to_host(out: torch.Tensor) -> list:
 
 def scalar_mul_operands(points: Sequence, scalars: Sequence[int], device="cuda"):
     """n host G1 points x n scalars -> (points [3, 12, n], digits
-    [2, 33, n] int64) on the device.  Each distinct point object is
+    [2, 33, n] int32) on the device.  Each distinct point object is
     converted to limbs once (a decrypt round shares each U n times)."""
     dev = resolve_device(device)
     distinct = {id(p): p for p in points}
@@ -267,7 +193,7 @@ def g1_scalar_mul_batch(points: Sequence, scalars: Sequence[int], device="cuda",
 def weighted_sum_operands(points_batch: Sequence[Sequence], coeffs_batch: Sequence[Sequence[int]],
                           device="cuda"):
     """[B][S] host G1 points x [B][S] Fr coefficients -> (points
-    [3, 12, S*B], windows [64, S*B] int64, S) on the device, term s of job
+    [3, 12, S*B], windows [64, S*B] int32, S) on the device, term s of job
     b at lane s*B + b."""
     b, s = len(points_batch), len(points_batch[0])
     if any(len(row) != s for row in points_batch) or [len(c) for c in coeffs_batch] != [s] * b:
@@ -276,7 +202,7 @@ def weighted_sum_operands(points_batch: Sequence[Sequence], coeffs_batch: Sequen
     flat_pts = [points_batch[j][i] for i in range(s) for j in range(b)]
     flat_coeffs = [coeffs_batch[j][i] % R for i in range(s) for j in range(b)]
     pts = torch.from_numpy(limbs.points_to_limbs(flat_pts)).to(dev)
-    wins = torch.from_numpy(scalars_to_windows(flat_coeffs).astype(np.int64)).to(dev)
+    wins = torch.from_numpy(scalars_to_windows(flat_coeffs)).to(dev)
     return pts, wins, s
 
 

@@ -93,7 +93,7 @@ class SlotProgram(NamedTuple):
     # products of a layer), at most MAX_WARPS
 
 
-def slot_program(circ: Circuit, const_base: int = 0) -> SlotProgram:
+def slot_program(circ: Circuit, const_base: int = 0, keep_inputs: bool = False) -> SlotProgram:
     """Compile `circ` into csrc/circuit.cu's int32 program.
 
     Inputs take slots 0 .. n_inputs-1.  A wire's slot is freed after the
@@ -103,7 +103,9 @@ def slot_program(circ: Circuit, const_base: int = 0) -> SlotProgram:
     overwrite a wire another warp of its own layer still reads.  The
     output slots (written only by a chain step) are free at the output
     mix, distinct, and above the inputs' slots.  Constants are not slots:
-    a row names constant k as -1 - (const_base + k).
+    a row names constant k as -1 - (const_base + k).  With `keep_inputs`
+    no input slot is ever freed, so the program writes only slots at or
+    above n_inputs (csrc/point_block.cuh keeps its points there).
     """
     n_in, n_const = circ.n_inputs, circ.const_vals.shape[0]
     n_fixed = n_in + n_const
@@ -113,6 +115,8 @@ def slot_program(circ: Circuit, const_base: int = 0) -> SlotProgram:
     for layer, (sl, sr) in enumerate(circ.mats):
         last[: sl.shape[1]][(sl != 0).any(0) | (sr != 0).any(0)] = layer
     last[(circ.T != 0).any(0)] = n_layers
+    if keep_inputs:
+        last[:n_in] = n_layers + 1  # released after the output mix: never
 
     slot_of: Dict[int, int] = {w: w for w in range(n_in)}
     release: Dict[int, List[int]] = {}

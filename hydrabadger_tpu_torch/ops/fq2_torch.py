@@ -8,7 +8,9 @@ entry is contiguous across lanes).  Every result is canonical (< p)
 Montgomery form with R = 2^384, the same value and so the same bits as
 the JAX package's 12-bit-limb result.
 
-The kernel: csrc/fq2_point.cu, one CUDA thread per lane, with three
+The kernel: csrc/fq2_point.cu, a block of 32 lanes x T warps running
+the layered point programs of ops/point_block (warp t computes products
+t, t + T, ... of each layer of independent Fp products), with four
 entries:
   - `table` (B4a, fq2_T._pallas_table_call): [inf, P, 2P, ..., 15P] by 14
     chained complete adds;
@@ -16,7 +18,10 @@ entries:
     entry the lane's 4-bit digit names (a gather; the TPU kernel used a
     16-way one-hot sum for lack of one), then a complete add;
   - `add`: the complete add alone, for the Lagrange combine's pairwise
-    tree (composed XLA in bls_g2_jax.g2_weighted_sum_windowed).
+    tree (composed XLA in bls_g2_jax.g2_weighted_sum_windowed);
+  - `ladder`: a whole w = 4 scalar multiplication, the table and every
+    window, in one launch (the table in a device scratch, each window's
+    entry gathered in the kernel).
 Each wrapper below launches it for a CUDA tensor (or raises) and runs the
 plain version for a CPU tensor; `*_plain` runs the plain version on any
 device.
@@ -38,6 +43,7 @@ import torch
 
 from . import _kernels
 from . import fq_torch as fq
+from . import point_block
 from .limbs import N_LIMBS
 
 # Kernel launches made by the wrappers (one per launch, none for CPU
@@ -50,25 +56,22 @@ TABLE_SIZE = 16  # w = 4 windows
 DOUBLINGS = 4
 
 # kinds of csrc/fq2_point.cu's launch entry
-KIND_TABLE, KIND_STEP, KIND_ADD = range(3)
+KIND_TABLE, KIND_STEP, KIND_ADD, KIND_LADDER = range(4)
 
-# Fp Montgomery products per lane of each B4 entry, 3 per Karatsuba Fp2
-# product and 2 per complex Fp2 square: a double is 2 products and 5
-# squares, the complete add's general formula 12 and 4, plus its doubling
-# arm (counted as B2's `add` is), the table 14 adds, a step 4 doubles and
-# an add
+# Fp Montgomery products per lane, 3 per Karatsuba Fp2 product and 2 per
+# complex Fp2 square: a double is 2 products and 5 squares, the complete
+# add's general formula 12 and 4.  What the data needs of an add is its
+# general formula alone (the doubling arm runs only where P == Q, and an
+# add with infinity on either side needs none), and of a table 2P by the
+# doubling arm and 13 general adds.
 DBL_PRODUCTS = 2 * 3 + 5 * 2
-# what the data needs of an add: its general formula alone; the doubling
-# arm runs only where P == Q, and an add with infinity on either side
-# needs none
 GENERAL_ADD_PRODUCTS = 12 * 3 + 4 * 2
-PRODUCTS = {"dbl": DBL_PRODUCTS, "add": GENERAL_ADD_PRODUCTS + DBL_PRODUCTS}
-PRODUCTS["table"] = (TABLE_SIZE - 2) * PRODUCTS["add"]
-PRODUCTS["step"] = DOUBLINGS * PRODUCTS["dbl"] + PRODUCTS["add"]
+TABLE_PRODUCTS = DBL_PRODUCTS + (TABLE_SIZE - 3) * GENERAL_ADD_PRODUCTS
 
 # field elements each entry must read and write per lane: a point is 6;
-# the step reads its accumulator, the one selected entry and writes one
-ELEMENTS = {"table": 6 + 6 * TABLE_SIZE, "step": 18, "add": 18}
+# the step reads its accumulator, the one selected entry and writes one;
+# the ladder reads its point and writes its product (and reads the digits)
+ELEMENTS = {"table": 6 + 6 * TABLE_SIZE, "step": 18, "add": 18, "ladder": 12}
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +214,17 @@ def g2_window_step_plain(acc: torch.Tensor, table: torch.Tensor, digits: torch.T
     return _pt2_w(g2_add_h(*h, *_pt2_h(_select(table, digits))), acc.shape[-1])
 
 
+def g2_ladder_plain(points: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """[3, 2, 12, n] points x [w, n] int32 digits, MSB first -> [3, 2, 12, n]:
+    the table, then per window 4 doublings and a complete add of the
+    entry the digit names, from infinity (bls_g2_jax's windowed ladder)."""
+    table = g2_table_plain(points)
+    acc = g2_infinity(points.shape[-1], points.device)
+    for j in range(windows.shape[0]):
+        acc = g2_window_step_plain(acc, table, windows[j])
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # The kernel's wrappers
 # ---------------------------------------------------------------------------
@@ -225,9 +239,11 @@ def _check(x: torch.Tensor, shape: tuple, what: str, dtype=torch.int32) -> None:
         raise ValueError(f"{what} runs on cuda or cpu tensors, not {x.device}")
 
 
-def _launch(kind: int, label: str, a: torch.Tensor, out_shape: tuple, b=None, digits=None):
+def _launch(kind: int, label: str, a: torch.Tensor, out_shape: tuple, b=None, digits=None,
+            scratch_shape=None):
     """One csrc/fq2_point.cu launch over the last axis of `a`; every
-    operand on one card and contiguous."""
+    operand on one card and contiguous.  `scratch_shape`: the ladder's
+    table, allocated here for the kernel's own use."""
     global launches
     dev = a.device
     a, b, digits = (None if x is None else x.contiguous() for x in (a, b, digits))
@@ -236,10 +252,18 @@ def _launch(kind: int, label: str, a: torch.Tensor, out_shape: tuple, b=None, di
     out = torch.empty(out_shape, dtype=torch.int32, device=dev)
     n = out_shape[-1]
     if n:
+        prog = point_block.programs(2)
+        words = point_block.words_on(2, dev)
+        table = None if scratch_shape is None else torch.empty(scratch_shape, dtype=torch.int32,
+                                                               device=dev)
+        windows = digits.shape[0] if kind == KIND_LADDER else 0
         lib = _kernels.load("fq2_point")
         ptrs = [0 if x is None else x.data_ptr() for x in (a, b, digits)]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fq2_point_launch(dev.index, kind, *ptrs, out.data_ptr(), n, stream)
+        rc = lib.fq2_point_launch(dev.index, kind, words.data_ptr(), int(words.numel()),
+                                  prog.smem, prog.warps, *ptrs, windows,
+                                  0 if table is None else table.data_ptr(), out.data_ptr(), n,
+                                  stream)
         _kernels.check("fq2_point", lib, rc, "fq2_point_error_string")
         launches += 1
         launches_by_kind[label] = launches_by_kind.get(label, 0) + 1
@@ -278,10 +302,24 @@ def g2_add(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     return g2_add_plain(p1, p2)
 
 
+def g2_ladder(points: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """The whole windowed ladder in one launch: [3, 2, 12, n] points x
+    [w, n] int32 4-bit digits, MSB first (each read & 15) -> [3, 2, 12, n]."""
+    n = points.shape[-1] if points.dim() == 4 else -1
+    _check(points, (3, 2, N_LIMBS, n), "g2_ladder points")
+    w = windows.shape[0] if windows.dim() == 2 else -1
+    _check(windows, (w, n), "g2_ladder windows")
+    if points.device.type == "cuda":
+        return _launch(KIND_LADDER, "ladder", points, points.shape, digits=windows,
+                       scratch_shape=(TABLE_SIZE, 3, 2, N_LIMBS, n))
+    return g2_ladder_plain(points, windows)
+
+
 # The entries as (name -> (kernel wrapper, plain version)); the G2 ladder
 # picks one column (use_kernel) and chip_smoke holds one against the other.
 ENTRIES = {
     "table": (g2_table, g2_table_plain),
     "step": (g2_window_step, g2_window_step_plain),
     "add": (g2_add, g2_add_plain),
+    "ladder": (g2_ladder, g2_ladder_plain),
 }

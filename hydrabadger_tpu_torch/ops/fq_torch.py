@@ -6,11 +6,15 @@ point batch is [3, 12, n].  Every result is canonical (< p) Montgomery
 form with R = 2^384, the same value — and so the same bits — as the JAX
 package's 12-bit-limb result.
 
-The kernel: csrc/fq_point.cu, one CUDA thread per lane, with the entries
-of fq_T._pallas_point_call: `mul`, `dbl`, `add` (complete), `ladd`
-(incomplete ladder add), `dblk{k}` and `win{k}`.  Each wrapper below
-launches it for a CUDA tensor (or raises) and runs the plain version for
-a CPU tensor; `*_plain` runs the plain version on any device.
+The kernel: csrc/fq_point.cu, with the entries of
+fq_T._pallas_point_call: `mul` (one thread per lane), and `dbl`, `add`
+(complete), `ladd` (incomplete ladder add), `dblk{k}` and `win{k}` on a
+block of 32 lanes x T warps running the layered point programs of
+ops/point_block; and the two G1 ladders of ops/bls_torch in one launch
+each, `glv_ladder` (fq_T.glv_ladder_T) and `windowed_ladder`
+(fq_T.windowed_ladder_T).  Each wrapper below launches it for a CUDA
+tensor (or raises) and runs the plain version for a CPU tensor;
+`*_plain` runs the plain version on any device.
 
 The plain version works on 24 16-bit digits in int64 ("half" form, [24,
 ...] with the lane axes after the digit axis).  Products of two digits
@@ -30,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _kernels
-from .limbs import N_LIMBS, ONE_MONT, P, R_MONT
+from .limbs import BETA_MONT, N_LIMBS, ONE_MONT, P, R_MONT
 
 # Kernel launches made by the wrappers (one per launch, none for CPU
 # tensors), in all and per entry.  chip_smoke.py sets them to 0 before
@@ -44,7 +48,9 @@ MASK = (1 << HALF) - 1
 PINV = (-pow(P, -1, R_MONT)) % R_MONT  # p * PINV == -1 mod R
 
 # kinds of csrc/fq_point.cu's launch entry
-KIND_MUL, KIND_DBL, KIND_ADD, KIND_LADD, KIND_DBLK, KIND_WIN, KIND_MULC = range(7)
+(KIND_MUL, KIND_DBL, KIND_ADD, KIND_LADD, KIND_DBLK, KIND_WIN, KIND_MULC, KIND_GLV_LADDER,
+ KIND_WINDOWED_LADDER) = range(9)
+TABLE_SIZE = 16  # the ladders' w = 4 tables
 
 # Montgomery products per launch per lane of each B2 entry (from the
 # formulas: jac_double 5 squares + 2 muls, the ladder add 12 muls + 4
@@ -372,6 +378,51 @@ def jac_infinity(n: int, device) -> torch.Tensor:
     return torch.stack([one, one, torch.zeros_like(one)])
 
 
+def _table_plain(points: torch.Tensor) -> torch.Tensor:
+    """[3, 12, n] -> [16, 3, 12, n]: entry i is i*P (infinity, P, then 14
+    chained complete adds)."""
+    tbl = [jac_infinity(points.shape[-1], points.device), points]
+    for _ in range(TABLE_SIZE - 2):
+        tbl.append(jac_add_plain(tbl[-1], points))
+    return torch.stack(tbl)
+
+
+def _gather(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """[16, 3, 12, n] table x [n] digits -> [3, 12, n]: lane l's table[digits[l]]."""
+    n = table.shape[-1]
+    idx = (digits.to(torch.int64) & (TABLE_SIZE - 1)).view(1, 1, 1, n)
+    return table.gather(0, idx.expand(1, 3, N_LIMBS, n))[0]
+
+
+def glv_ladder_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """fq_T.glv_ladder_T: [3, 12, n] points x [2, w, n] GLV digits, MSB
+    first -> [3, 12, n]: the table T1[i] = i*P, its beta-twisted copy T2,
+    then per window 4 doublings and the complete adds of T1[k1 digit] and
+    T2[k2 digit], from infinity."""
+    t1 = _table_plain(points)
+    beta = torch.as_tensor(BETA_MONT, device=points.device)[:, None]  # one element
+    t2 = t1.clone()
+    t2[:, 0] = fq_mul_plain(t1[:, 0].transpose(0, 1).contiguous(), beta).transpose(0, 1)
+    acc = jac_infinity(points.shape[-1], points.device)
+    for j in range(digits.shape[1]):
+        acc = jac_double_k_plain(acc, 4)
+        acc = jac_add_plain(acc, _gather(t1, digits[0, j]))
+        acc = jac_add_plain(acc, _gather(t2, digits[1, j]))
+    return acc
+
+
+def windowed_ladder_plain(points: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """fq_T.windowed_ladder_T: [3, 12, n] points x [w, n] 4-bit digits,
+    MSB first -> [3, 12, n]: the table, then per window 4 doublings and a
+    complete add of the entry the digit names, from infinity."""
+    table = _table_plain(points)
+    acc = jac_infinity(points.shape[-1], points.device)
+    for j in range(windows.shape[0]):
+        acc = jac_double_k_plain(acc, 4)
+        acc = jac_add_plain(acc, _gather(table, windows[j]))
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # The kernel's wrappers
 # ---------------------------------------------------------------------------
@@ -386,10 +437,13 @@ def _check(x: torch.Tensor, lead: tuple, what: str) -> None:
         raise ValueError(f"{what} runs on cuda or cpu tensors, not {x.device}")
 
 
-def _launch(kind: int, k: int, label: str, ins, lead: tuple, const=None) -> torch.Tensor:
+def _launch(kind: int, k: int, label: str, ins, lead: tuple, const=None, digits=None,
+            scratch_elements: int = 0) -> torch.Tensor:
     """One csrc/fq_point.cu launch over the lanes of `ins` (all on one
-    card, same shape), with `const` (one [12, 1...] element, for
-    KIND_MULC) after them; returns the [*lead, n...] result."""
+    card, same shape), with `const` (one [12, 1...] element: KIND_MULC's
+    operand, the GLV ladder's beta) after them; a ladder also takes its
+    digits and a [16, scratch_elements, 12, n] table scratch, allocated
+    here for the kernel's own use.  Returns the [*lead, n...] result."""
     global launches
     dev = ins[0].device
     if any(x.device != dev or x.shape != ins[0].shape for x in ins):
@@ -399,13 +453,28 @@ def _launch(kind: int, k: int, label: str, ins, lead: tuple, const=None) -> torc
         if const.device != dev:
             raise ValueError("fq_point: operands must share one device")
         flat.append(const.reshape(N_LIMBS).contiguous())
+    if digits is not None:
+        if digits.device != dev:
+            raise ValueError("fq_point: operands must share one device")
+        digits = digits.contiguous()
     out = torch.empty_like(flat[0])
     n = flat[0][(0,) * len(lead)].numel()
     if n:
+        from . import point_block  # its recorder imports this module's formulas
+
+        prog = point_block.programs(1)
+        words = point_block.words_on(1, dev)
+        table = (torch.empty((TABLE_SIZE, scratch_elements, N_LIMBS, n), dtype=torch.int32,
+                             device=dev) if scratch_elements else None)
         lib = _kernels.load("fq_point")
         ptrs = [x.data_ptr() for x in flat] + [0] * (3 - len(flat))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fq_point_launch(dev.index, kind, k, *ptrs, out.data_ptr(), n, stream)
+        rc = lib.fq_point_launch(
+            dev.index, kind, k, words.data_ptr(), int(words.numel()), prog.smem,
+            prog.dbl_warps if kind in (KIND_DBL, KIND_DBLK) else prog.warps,
+            *ptrs, 0 if digits is None else digits.data_ptr(),
+            0 if digits is None else digits.shape[-2], 0 if table is None else table.data_ptr(),
+            out.data_ptr(), n, stream)
         _kernels.check("fq_point", lib, rc, "fq_point_error_string")
         launches += 1
         launches_by_kind[label] = launches_by_kind.get(label, 0) + 1
@@ -468,6 +537,38 @@ def window_step(acc, sel1, sel2, k: int) -> torch.Tensor:
     return window_step_plain(acc, sel1, sel2, k)
 
 
+def _check_digits(digits: torch.Tensor, lead: tuple, n: int, what: str) -> None:
+    if not isinstance(digits, torch.Tensor) or digits.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32 digits")
+    if digits.dim() != len(lead) + 2 or tuple(digits.shape[: len(lead)]) != lead \
+            or digits.shape[-1] != n:
+        raise ValueError(f"{what}: digits must be [{', '.join(map(str, lead + ('w',)))}, {n}], "
+                         f"got {tuple(digits.shape)}")
+
+
+def glv_ladder(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """The GLV ladder in one launch: [3, 12, n] points x [2, w, n] int32
+    GLV digits, MSB first (each read & 15) -> [3, 12, n]."""
+    _check(points, (3, N_LIMBS), "glv_ladder")
+    _check_digits(digits, (2,), points.shape[-1], "glv_ladder")
+    if points.device.type == "cuda":
+        beta = torch.as_tensor(BETA_MONT, device=points.device)
+        return _launch(KIND_GLV_LADDER, 0, "glv_ladder", (points,), (3, N_LIMBS), const=beta,
+                       digits=digits, scratch_elements=4)
+    return glv_ladder_plain(points, digits)
+
+
+def windowed_ladder(points: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """The single-table ladder in one launch: [3, 12, n] points x [w, n]
+    int32 4-bit digits, MSB first (each read & 15) -> [3, 12, n]."""
+    _check(points, (3, N_LIMBS), "windowed_ladder")
+    _check_digits(windows, (), points.shape[-1], "windowed_ladder")
+    if points.device.type == "cuda":
+        return _launch(KIND_WINDOWED_LADDER, 0, "windowed_ladder", (points,), (3, N_LIMBS),
+                       digits=windows, scratch_elements=3)
+    return windowed_ladder_plain(points, windows)
+
+
 # The entries as (name -> (kernel wrapper, plain version)); the decrypt
 # engine picks one column (use_kernel) and chip_smoke holds one against
 # the other.
@@ -478,4 +579,6 @@ ENTRIES = {
     "ladd": (jac_add_ladder, jac_add_ladder_plain),
     "dblk": (jac_double_k, jac_double_k_plain),
     "win": (window_step, window_step_plain),
+    "glv_ladder": (glv_ladder, glv_ladder_plain),
+    "windowed_ladder": (windowed_ladder, windowed_ladder_plain),
 }

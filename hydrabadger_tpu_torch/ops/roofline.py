@@ -7,6 +7,8 @@ input read once, each output written once) at the card's memory rate.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
@@ -32,3 +34,20 @@ def product_ms(products: int, elements: int) -> tuple[float, float]:
 def bound_ms(ops_ms: float, bytes_ms: float) -> tuple[float, str]:
     """(bound ms, "operations" or "bytes"): the larger of the two times."""
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+class Launch(NamedTuple):
+    """One launch of a ladder's plan (ops/bls_torch, ops/bls_g2_torch): the
+    products its data needs and what it must move, each once."""
+
+    entry: str  # the launch counters' key
+    lanes: int
+    products: int  # Montgomery products these digits need, over all lanes
+    elements: int  # field elements per lane read or written
+    part: str  # "ladder" or "tree"
+    digit_bytes: int = 0  # digit bytes per lane read
+
+    def bound(self) -> tuple[float, float]:
+        """(operations ms, bytes ms) of this launch."""
+        return ops_bytes_ms(self.products * OPS_PER_PRODUCT,
+                            self.lanes * (self.elements * ELEMENT_BYTES + self.digit_bytes))

@@ -9,14 +9,14 @@ epoch at once through the port's `GpuEngine`, as the JAX package's
 TpuEngine batches it:
 
     sign      n_nodes x instances shares sk_i * H(doc_j), one G2 ladder
-              (1 table + 64 window-step launches of kernel B4)
+              (one `ladder` launch of kernel B4)
     combine   one Lagrange combine of t+1 shares per instance, one ladder
               over the t+1 x instances terms and the pairwise tree
-              (1 + 64 + 5 launches at t + 1 = 22)
+              (1 + 5 launches at t + 1 = 22)
 
 At `CoinConfig()` (64 nodes x 64 instances, the config-8 geometry of the
 JAX bench applied to the coin) that is 4096 shares and 64 combines of 22,
-135 launches.  The key set comes from `random.Random(seed)` in the JAX
+7 launches (`plan` lists them from the digits).  The key set comes from `random.Random(seed)` in the JAX
 sim's order (`SecretKeySet.random`), the quorums from the same generator
 after it (t + 1 distinct nodes per instance, so the Lagrange sets
 differ).  Each document is hashed onto G2 once, at set-up (pure Python,
@@ -26,14 +26,15 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from ..crypto import threshold as th
 from ..crypto.bls12_381 import eq, mul_sub
 from ..crypto.engine import GpuEngine
-from ..ops import fq2_torch
+from ..ops import bls_g2_torch, fq2_torch
+from ..ops.roofline import Launch
 
 
 def coin_doc(epoch: int, instance: int, rnd: int) -> bytes:
@@ -82,6 +83,18 @@ class CoinRound:
         self.signatures_limbs: Optional[torch.Tensor] = None
         self.coins: list = []
         self.last_launches: dict = {}
+
+    def plan(self) -> Dict[str, List[Launch]]:
+        """Every B4 launch of a round, from the digits: {"sign": the share
+        ladder's, "combine": the weighted sum's}."""
+        q = self.cfg.threshold + 1
+        sign = [sk.scalar for _doc in self.docs for sk in self._sks]
+        lams = [th.lagrange_coeffs_at_zero([i + 1 for i in qu]) for qu in self.quorums]
+        # term s of job b at lane s*B + b (bls_g2_torch.weighted_sum_operands)
+        coeffs = [lams[b][s] for s in range(q) for b in range(len(lams))]
+        return {"sign": bls_g2_torch.scalar_mul_plan(bls_g2_torch.scalars_to_windows(sign)),
+                "combine": bls_g2_torch.weighted_sum_plan(
+                    bls_g2_torch.scalars_to_windows(coeffs), q)}
 
     def run(self):
         """Sign every share, combine every instance's quorum; returns the

@@ -10,11 +10,10 @@ in the exponent to U * master, which unwraps the plaintext
 `GpuEngine`, as the JAX package's TpuEngine batches it:
 
     share     n_nodes x proposers shares sk_i * U_j, one G1 GLV ladder
-              (14 table adds, 1 twist product, 33 x (dblk4 + 2 adds): 114
-              launches of kernel B2)
+              (one `glv_ladder` launch of kernel B2)
     combine   one Lagrange combine of t + 1 shares per ciphertext, one
               windowed ladder over the t + 1 x proposers terms and the
-              pairwise tree (14 + 64 x 2 + 5 = 147 launches at t + 1 = 22)
+              pairwise tree (1 + 5 launches at t + 1 = 22)
 
 At `DecryptConfig()` (64 nodes, each proposing one contribution: the
 config-8 geometry) that is 4096 shares and 64 combines of 22.  The key

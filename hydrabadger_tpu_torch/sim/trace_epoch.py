@@ -18,13 +18,13 @@ name; with --full-crypto also kernel B3's device ms per epoch split into
 its circuit launches (stage 1) and its chain launch (the Straus
 combine), with their launches per epoch.  With --coin it warms a `CoinRound` (64 nodes; set-up: 22 host G1
 multiplies and one host hash onto G2 per instance), traces one round and
-splits its device time into kernel B4's `table`, `step` and `add`
-launches and the glue (every other kernel and copy).  With --decrypt it
-warms a `DecryptRound` (64 nodes; set-up: 22 host G1 multiplies and one
-host encryption per proposer), traces one round and splits its device
-time into kernel B2's launches by part of the ladders (`table` with the
-beta twist, `window`, `tree`, matched to the round's launch plan in
-order) and the glue.  `--trace` also
+splits its device time into kernel B4's launches by entry (`ladder`,
+`add`; `table` and `step` where a caller still launches them) and the
+glue (every other kernel and copy).  With --decrypt it warms a
+`DecryptRound` (64 nodes; set-up: 22 host G1 multiplies and one host
+encryption per proposer), traces one round and splits its device time
+into kernel B2's launches (`glv_ladder`, `windowed_ladder`, the `tree`
+adds, matched to the round's launch plan in order) and the glue.  `--trace` also
 writes the Chrome trace.  The profiler adds host
 cost to every launch, so the traced epochs/s is below the untraced one;
 the device times are the kernels' own.  Needs a card.
@@ -45,7 +45,7 @@ from .decrypt import DecryptConfig, DecryptRound
 from .tensor import FullCryptoConfig, FullCryptoTensorSim, TensorSim, TensorSimConfig
 
 # kernel B4's entries by their instantiation (csrc/fq2_point.cu's Kind)
-_B4_PARTS = {"table": "0", "step": "1", "add": "2"}
+_B4_PARTS = {"table": "0", "step": "1", "add": "2", "ladder": "3"}
 
 
 def _union_us(intervals) -> float:
@@ -104,7 +104,7 @@ def _b4_part(name: str) -> str:
 
 def trace_coin(cfg: CoinConfig, device="cuda", trace_path=None) -> dict:
     """Profile one coin round after a warm-up round: wall, device busy and
-    idle share, and device ms by part (table / step / add / glue)."""
+    idle share, and device ms by part (B4's entries / glue)."""
     cr = CoinRound(cfg, device=device)
     cr.run()  # builds the kernel, warms the allocator
     torch.cuda.synchronize()
@@ -133,12 +133,13 @@ def trace_coin(cfg: CoinConfig, device="cuda", trace_path=None) -> dict:
 
 def trace_decrypt(cfg: DecryptConfig, device="cuda", trace_path=None) -> dict:
     """Profile one threshold-decrypt round after a warm-up round: wall,
-    device busy and idle share, and device ms by part (table / window /
-    tree / glue)."""
+    device busy and idle share, and device ms by part (glv_ladder /
+    windowed_ladder / tree / glue)."""
     rnd = DecryptRound(cfg, device=device)
     rnd.run()  # builds the kernel, warms the allocator
     plan = rnd.plan()
-    parts_in_order = [r.part for r in plan["share"] + plan["combine"]]
+    parts_in_order = [r.entry if r.part == "ladder" else r.part
+                      for r in plan["share"] + plan["combine"]]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -147,14 +148,14 @@ def trace_decrypt(cfg: DecryptConfig, device="cuda", trace_path=None) -> dict:
     if trace_path:
         prof.export_chrome_trace(trace_path)
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    b2 = sorted((e for e in events if "fq_point_kernel" in e.name), key=lambda e: e.time_range.start)
+    b2 = sorted((e for e in events if "fq_point" in e.name), key=lambda e: e.time_range.start)
     if len(b2) != len(parts_in_order):
         raise RuntimeError(f"traced {len(b2)} B2 launches, the plan has {len(parts_in_order)}")
     parts = defaultdict(float)
     for e, part in zip(b2, parts_in_order):
         parts[part] += e.time_range.elapsed_us() / 1e3
     for e in events:
-        if "fq_point_kernel" not in e.name:
+        if "fq_point" not in e.name:
             parts["glue"] += e.time_range.elapsed_us() / 1e3
     busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in events) / 1e3
     return {

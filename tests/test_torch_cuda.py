@@ -245,8 +245,9 @@ def test_coin_round_on_the_card_equals_the_cpu(card):
     gpu = coin.CoinRound(cfg, device="cuda", seed=5)
     before = fq2_torch.launches
     _, bits = gpu.run()
-    assert gpu.last_launches == {"sign": 65, "combine": 66}  # t + 1 = 2: one tree level
-    assert fq2_torch.launches == before + 131
+    assert gpu.last_launches == {"sign": 1, "combine": 2}  # t + 1 = 2: one tree level
+    assert gpu.last_launches == {part: len(rows) for part, rows in gpu.plan().items()}
+    assert fq2_torch.launches == before + 3
     cpu = coin.CoinRound(cfg, device="cpu", seed=5)
     _, cpu_bits = cpu.run()
     assert torch.equal(gpu.shares_limbs.cpu(), cpu.shares_limbs)
@@ -310,3 +311,65 @@ def test_decrypt_round_on_the_card_equals_the_cpu(card):
     assert torch.equal(gpu.shares_limbs.cpu(), cpu.shares_limbs)
     assert torch.equal(gpu.combined_limbs.cpu(), cpu.combined_limbs)
     assert gpu.oracle_check([0, 5, 15])
+
+
+def _ladder_operands(card, entry, n):
+    """Points and digits for one ladder entry over n lanes: lanes 0 and
+    n // 2 have scalar 0, lane 1 scalar 1, lane 2 scalar r - 1."""
+    rng = np.random.default_rng(n)
+    ks = [int.from_bytes(rng.bytes(32), "little") % bls.R for _ in range(n)]
+    for i, k in ((0, 0), (n // 2, 0), (1, 1), (2, bls.R - 1)):
+        if i < n:
+            ks[i] = k
+    if entry == "ladder":
+        h = [bls.hash_to_g2(b"ladder%d" % i) for i in range(4)]
+        pts = fq2_torch.g2_table_plain(torch.from_numpy(limbs.g2_points_to_limbs(h)))[1:]
+        pool = pts.permute(1, 2, 3, 0, 4).reshape(3, 2, limbs.N_LIMBS, -1)
+        digits = g2.scalars_to_windows(ks)
+    else:
+        base = [bls.multiply(bls.G1, int(k)) for k in rng.integers(2, 2**20, 16)]
+        pool = fq_torch.jac_double_plain(torch.from_numpy(limbs.points_to_limbs(base)))
+        digits = bls_torch.glv_windows(ks) if entry == "glv_ladder" else g2.scalars_to_windows(ks)
+    points = pool[..., rng.integers(0, pool.shape[-1], n)].contiguous()
+    return points.to(card), torch.from_numpy(digits).to(card)
+
+
+@pytest.mark.parametrize("lanes", [1, 33, 1013, 1408])
+@pytest.mark.parametrize("entry", ["ladder", "glv_ladder", "windowed_ladder"])
+def test_ladder_entries_match_plain(card, entry, lanes):
+    points, digits = _ladder_operands(card, entry, lanes)
+    module = fq2_torch if entry == "ladder" else fq_torch
+    kernel, plain = module.ENTRIES[entry]
+    before = module.launches
+    got = kernel(points, digits)
+    assert module.launches == before + 1
+    assert torch.equal(got, plain(points, digits))
+
+
+@pytest.mark.parametrize("entry", ["g2 add", "g2 step", "g1 add"])
+def test_doubling_arm_matches_plain(card, entry):
+    """Whole blocks of lanes through the complete add's doubling arm
+    (P + P, and a step whose doubled accumulator equals its entry), beside
+    lanes that take the general formula and infinity."""
+    n = 301
+    if entry.startswith("g1"):
+        a, _ = _points(card, n)
+        b = fq_torch.jac_double_plain(a).roll(1, -1).contiguous()
+        b[..., 32:96] = a[..., 32:96]
+        got, want = fq_torch.jac_add(a, b), fq_torch.jac_add_plain(a, b)
+    else:
+        a, b, digits = _g2_points(card, n)
+        if entry == "g2 add":
+            b[..., 32:96] = a[..., 32:96]
+            got, want = fq2_torch.g2_add(a, b), fq2_torch.g2_add_plain(a, b)
+        else:
+            acc16 = b
+            for _ in range(fq2_torch.DOUBLINGS):
+                acc16 = fq2_torch.g2_double_plain(acc16)
+            base = a.clone()
+            base[..., 32:96] = acc16[..., 32:96]  # table[1] == 16 acc
+            digits[32:96] = 1
+            table = fq2_torch.g2_table_plain(base)
+            got = fq2_torch.g2_window_step(b, table, digits)
+            want = fq2_torch.g2_window_step_plain(b, table, digits)
+    assert torch.equal(got, want)

@@ -22,8 +22,9 @@ from hydrabadger_tpu.ops import fq_T
 from hydrabadger_tpu_torch.crypto import bls12_381 as bls
 from hydrabadger_tpu_torch.crypto import engine
 from hydrabadger_tpu_torch.crypto import threshold as th
-from hydrabadger_tpu_torch.ops import bls_torch, limbs
+from hydrabadger_tpu_torch.ops import bls_torch, fq_torch as fq, limbs
 from hydrabadger_tpu_torch.sim import decrypt
+from test_torch_point_block import block_ladder
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -141,11 +142,20 @@ def test_decrypt_round_on_the_cpu_recovers_every_contribution():
     rnd = decrypt.DecryptRound(cfg, device="cpu", seed=1)
     assert rnd.run() == rnd.contributions
     plan = rnd.plan()
-    assert bls_torch.launch_counts(plan["share"]) == {"add": 80, "mul": 1, "dblk4": 33}
-    assert bls_torch.launch_counts(plan["combine"]) == {"add": 14 + 64 + 1, "dblk4": 64}
+    assert bls_torch.launch_counts(plan["share"]) == {"glv_ladder": 1}
+    assert bls_torch.launch_counts(plan["combine"]) == {"windowed_ladder": 1, "add": 1}
     assert rnd.last_launches == {"share": 0, "combine": 0}  # the plain versions launch nothing
     assert rnd.shares_limbs.shape == (3, 12, 16) and rnd.combined_limbs.shape == (3, 12, 4)
     assert rnd.oracle_check([0, 6, 15])
+
+
+def test_interpreted_glv_ladder_equals_the_plain_ladder():
+    """Kernel B2's `glv_ladder` as a block runs it (tests/test_torch_point_block)
+    against the plain GLV ladder, limb for limb, with a scalar 0, r - 1 and
+    one whose k2 half is 0."""
+    pts = [bls.multiply(bls.G1, k) for k in (3, 5, 7)]
+    p, d = bls_torch.scalar_mul_operands(pts, [0, bls.R - 1, K2_ZERO], "cpu")
+    assert torch.equal(block_ladder(1, p, d, glv=True), fq.glv_ladder_plain(p, d))
 
 
 def test_decrypt_entry_points_raise_without_a_card():
@@ -182,7 +192,7 @@ def test_plain_g1_ladder_equals_fq_T_ladder(ladder):
                                                          jnp.asarray(bj.BETA_COL)))(
             base, jnp.asarray(w1.T), jnp.asarray(w2.T))
     else:
-        wins = bls_torch.scalars_to_windows(ks).astype(np.int64)
+        wins = bls_torch.scalars_to_windows(ks)
         p = torch.from_numpy(limbs.points_to_limbs(pts))
         got = bls_torch.g1_scalar_mul_windowed(p, torch.from_numpy(wins))
         want = jax.jit(lambda b, w: fq_T.windowed_ladder_T(fq_T.from_points_BC(b), w))(

@@ -1,7 +1,8 @@
 """The port's host copies, limb layout and B2 plain versions against the JAX
 package: crypto/bls12_381 and crypto/threshold on sampled scalars and a
 key set, the 12-bit <-> 32-bit limb regrouping, and ops/fq_torch's point
-bodies against ops/fq_T limb for limb at B = 4."""
+bodies and kernel B2's layered point programs (as a block runs them,
+tests/test_torch_point_block) against ops/fq_T limb for limb at B = 4."""
 import random
 
 import numpy as np
@@ -19,6 +20,7 @@ from hydrabadger_tpu_torch.crypto import bls12_381 as bls
 from hydrabadger_tpu_torch.crypto import threshold as th
 from hydrabadger_tpu_torch.ops import fq_torch as fq
 from hydrabadger_tpu_torch.ops import limbs
+from test_torch_point_block import block_entry, g1_lanes
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -167,6 +169,23 @@ def test_point_bodies_plain_equal_fq_T(jitted_fq_T, lanes, body):
     else:
         got, want = fq.window_step(p1, p2, p1, 1), fq_T.window_step_T(t1, t2, t1, 1)
     assert np.array_equal(got.numpy(), _from_T(want))
+
+
+def test_point_programs_equal_fq_T_bodies(jitted_fq_T, lanes):
+    """Kernel B2's layered double, complete and ladder adds and window (the
+    programs of ops/point_block, as a block runs them) against fq_T's
+    bodies limb for limb: the edge lanes, and lanes of raw coordinates
+    p - 1 and 0."""
+    raw1, raw2 = g1_lanes()
+    for p1, p2 in (lanes, (raw1[..., 4:], raw2[..., 4:])):
+        t1, t2 = _to_T(p1), _to_T(p2)
+        cases = [("dbl", dict(k=1), fq_T.jac_double_T(t1)),
+                 ("dblk", dict(k=2), fq_T.jac_double_k_T(t1, 2)),
+                 ("add", dict(b=p2), fq_T.jac_add_T(t1, t2)),
+                 ("ladd", dict(b=p2), fq_T.jac_add_ladder_T(t1, t2)),
+                 ("win", dict(b=p2, third=p1, k=1), fq_T.window_step_T(t1, t2, t1, 1))]
+        for entry, kw, want in cases:
+            assert np.array_equal(block_entry(1, entry, p1, **kw).numpy(), _from_T(want)), entry
 
 
 def test_complete_add_cases_against_the_host_oracle(lanes):

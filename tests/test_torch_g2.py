@@ -1,9 +1,11 @@
 """The port's G2 plane against the JAX package: the FQ2 / G2 / hash /
 serialisation host copy against crypto/bls12_381, the G2 limb layout
 against bls_g2_jax's, and ops/fq2_torch's plain versions (kernel B4's
-entries) against the jitted composed bls_g2_jax ops limb for limb at
-B = 4; the plain ladder against the host oracle (and, slow, against
-bls_g2_jax's XLA ladder limb for limb)."""
+entries) and kernel B4's layered point programs (as a block runs them,
+tests/test_torch_point_block) against the jitted composed bls_g2_jax ops
+limb for limb at B = 4; the plain ladder against the host oracle and the
+interpreted kernel ladder (and, slow, against bls_g2_jax's XLA ladder
+limb for limb)."""
 import random
 
 import numpy as np
@@ -22,6 +24,7 @@ from hydrabadger_tpu_torch.crypto import threshold as th
 from hydrabadger_tpu_torch.ops import bls_g2_torch as g2
 from hydrabadger_tpu_torch.ops import fq2_torch as f2
 from hydrabadger_tpu_torch.ops import limbs
+from test_torch_point_block import block_entry, block_ladder, g2_lanes
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -210,14 +213,46 @@ def test_table_entries_equal_host_multiples(hashed):
         assert all(bls.eq(g, bls.multiply(p, i)) for g, p in zip(got, pts)), i
 
 
-def test_plain_ladder_equals_the_host():
+@pytest.fixture(scope="module")
+def plain_ladder():
+    """Four host points, their scalars and the plain ladder's [3, 2, 12, 4]
+    products through the host entry (one plain ladder for the module)."""
     h = bls.hash_to_g2(b"coin")
     ks = [0, 1, bls.R - 1, random.Random(0).randrange(bls.R)]
     pts = [h, bls.double(h), h, bls.G2]
-    out = g2.g2_scalar_mul_batch(pts, ks, device="cpu")
+    return pts, ks, g2.g2_scalar_mul_dispatch(pts, ks, device="cpu")
+
+
+def test_plain_ladder_equals_the_host(plain_ladder):
+    pts, ks, products = plain_ladder
+    out = g2.to_host(products)
     for p, k, o in zip(pts, ks, out):
         assert bls.eq(o, bls.mul_sub(p, k))
-    assert bls.is_inf(out[0]) and bls.eq(out[2], bls.neg(h))
+    assert bls.is_inf(out[0]) and bls.eq(out[2], bls.neg(pts[0]))
+
+
+def test_interpreted_ladder_equals_the_plain_ladder(plain_ladder):
+    """Kernel B4's `ladder` as a block runs it (tests/test_torch_point_block)
+    against the plain ladder, limb for limb."""
+    pts, ks, products = plain_ladder
+    points = torch.from_numpy(limbs.g2_points_to_limbs(pts))
+    windows = torch.from_numpy(g2.scalars_to_windows(ks))
+    assert torch.equal(block_ladder(2, points, windows), products)
+
+
+def test_point_programs_equal_jax_g2_ops(jitted, lanes):
+    """Kernel B4's layered double, four doublings and complete add (the
+    programs of ops/point_block, as a block runs them) against the jitted
+    bls_g2_jax ops, limb for limb: the edge lanes, and lanes of raw
+    coordinates p - 1 and 0."""
+    raw1, raw2 = g2_lanes()
+    for p1, p2 in (lanes, (raw1[..., 3:], raw2[..., 3:])):
+        assert torch.equal(block_entry(2, "add", p1, p2), _from_jax(jitted["add"](_jax(p1), _jax(p2))))
+        j = _jax(p1)
+        assert torch.equal(block_entry(2, "dbl", p1, k=1), _from_jax(jitted["dbl"](j)))
+        for _ in range(4):
+            j = jitted["dbl"](j)
+        assert torch.equal(block_entry(2, "dblk", p1, k=4), _from_jax(j))
 
 
 @pytest.mark.slow
