@@ -8,17 +8,25 @@ beside itself) and needs one CUDA card with nvcc.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every kernel from csrc/ (one nvcc per source, in parallel);
-  3. each kernel against its plain PyTorch version on the card, exact
-     bytes, at the main path's shapes and a ragged one, and against the
-     numpy GF(2^8) reference on sampled instances;
+  2. build every kernel from csrc/ (one nvcc per source, in parallel):
+     each kernel's registers and spills (ptxas), and B1's matrix
+     instructions in its SASS (cuobjdump);
+  3. kernel B1 (gf256_matmul, the bit product on the int8 tensor cores)
+     against its plain PyTorch version on the card, exact bytes, at the
+     main path's shapes (the encode into the codeword's parity rows, the
+     reconstruct from the parity-quorum view), an unaligned view, a ragged
+     one, the 4-node engine shape (2, 2), several launches over row chunks
+     (233, 22) and many K tiles (32, 223), and against the numpy GF(2^8)
+     reference on sampled instances;
   4. the main path: TensorSim at the config-6 geometry (64 nodes x 1024
      instances, 12-byte shards), 50 epochs with every launch counter set
      to 0 just before and read just after; the verdict, 2 launches per
      epoch, the final state against the same epochs through the plain
      version, and one epoch of sampled instances against the host oracle;
-  5. timings: epochs/s, each kernel's time per launch against its bound,
-     its plain version and a torch.matmul yardstick;
+  5. timings: epochs/s, B1's time per launch at the epoch's two shapes
+     (cold L2, median of 20) against its bound (ops/roofline.gf_matmul_ms),
+     the ratio, the earlier SWAR kernel's time, its plain version and a bf16
+     torch.matmul yardstick;
   6. the threshold-decrypt set-up: FullCryptoTensorSim at the config-8
      geometry (64 nodes x 64 instances = 4096 ciphertexts, t = 21): the
      key set and one host G1 multiply per ciphertext;
@@ -91,6 +99,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -101,7 +110,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from hydrabadger_tpu_torch.experiments._common import wall_ms  # noqa: E402
+from hydrabadger_tpu_torch.experiments._common import timed_ms, wall_ms  # noqa: E402
 from hydrabadger_tpu_torch.ops import roofline  # noqa: E402
 
 N_NODES, INSTANCES, SHARD_LEN, EPOCHS = 64, 1024, 12, 50
@@ -128,24 +137,42 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def timed_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
-    """Median device time of fn() in ms, CUDA events around each call;
-    `flush` (a buffer larger than L2) is rewritten before each call so
-    every call starts with a cold cache."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def ptxas_report(output: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    kernel in nvcc's -Xptxas -v output; a kernel template shows as its name
+    and its integer arguments."""
+    rows, entry, spill = [], "?", (0, 0)
+    for line in output.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            for i in range(len(entry)):  # <length><name>I<args>E
+                n = re.match(r"(\d{1,3})[A-Za-z_]", entry[i:])
+                if not n:
+                    continue
+                start = i + len(n.group(1))
+                end = start + int(n.group(1))
+                args = re.match(r"I((?:L[ib]\d+E)+)E", entry[end:])
+                if args:
+                    vals = ", ".join(re.findall(r"L[ib](\d+)E", args.group(1)))
+                    entry = f"{entry[start:end]}<{vals}>"
+                    break
+        elif "bytes spill stores" in line:
+            spill = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif re.search(r"Used \d+ registers", line):
+            rows.append((entry, int(re.search(r"Used (\d+) registers", line).group(1)), *spill))
+    return rows
+
+
+def sass_mma_counts(kernels) -> dict:
+    """Kernel B1's matrix instructions in its built library, by SASS opcode
+    (cuobjdump beside nvcc): IMMA (mma.sync), IGMMA / HGMMA (wgmma)."""
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(kernels.library_path("gf256_matmul"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts: dict = {}
+    for op in re.findall(r"\b((?:IMMA|IGMMA|HGMMA)\.\S+)", sass):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def ladder_scalars(m: int, seed: int) -> list[int]:
@@ -970,11 +997,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built) or 'none (cached)'}")
     for name, (seconds, output) in built.items():
         print(f"  {name}: nvcc {seconds:.2f} s")
-        for line in output.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"    {line.strip()}")
+        for entry, regs, stores, loads in ptxas_report(output):
+            print(f"    {entry}: {regs} registers, spill stores {stores} B, spill loads {loads} B")
     for name in _kernels.LIBRARIES:
         _kernels.load(name)
+    print(f"  gf256_matmul SASS, tensor-core instructions: {sass_mma_counts(_kernels)}")
 
     # -- 3. kernels against their plain versions -----------------------------
     cfg = ts.TensorSimConfig(n_nodes=N_NODES, instances=INSTANCES, shard_len=SHARD_LEN)
@@ -1017,6 +1044,16 @@ def main() -> int:
           "ragged kernel != numpy gf256.matmul")
     rag3 = torch.from_numpy(rng.integers(0, 256, (3, 5, 1013), dtype=np.uint8)).to(dev)
     hold(gf256_torch.operand(rag_mat, dev), rag3, "ragged (3,5) x [3,5,1013]")
+    # the 4-node engine shape, several launches over row chunks of A, and
+    # many K tiles per launch; each also against numpy on sampled rows
+    for m_, k_, b_, l_ in ((2, 2, 4096, 64), (233, 22, 64, 12), (32, 223, 64, 12)):
+        mat = rng.integers(0, 256, (m_, k_), dtype=np.uint8)
+        x = torch.from_numpy(rng.integers(0, 256, (b_, k_, l_), dtype=np.uint8)).to(dev)
+        got = hold(gf256_torch.operand(mat, dev), x, f"({m_},{k_}) x [{b_},{k_},{l_}], "
+                   f"{len(gf256_torch.chunks(m_, k_))} launch(es)")
+        for b in (0, b_ // 2, b_ - 1):
+            check(np.array_equal(got[b].cpu().numpy(), gf256.matmul(mat, x[b].cpu().numpy())),
+                  f"({m_},{k_}) kernel != numpy gf256.matmul at batch row {b}")
     sample = [0, 1, B // 2, B - 1]
     host_data = data[sample].cpu().numpy()
     host_par = parity[sample].cpu().numpy()
@@ -1070,6 +1107,9 @@ def main() -> int:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     cols = B * SHARD_LEN
     shapes = []
+    # the earlier SWAR form of B1 (logic ops on the integer units), H100 80GB
+    # HBM3 at 700 W, timed as here (PERF.md)
+    swar_ms = {"encode": 0.1517, "reconstruct": 0.0846}
     for label, op, x in (("encode", enc_op, data), ("reconstruct", dec_op, survivors)):
         m = op.shape[0]
         out = torch.empty((B, m, SHARD_LEN), dtype=torch.uint8, device=dev)
@@ -1079,23 +1119,24 @@ def main() -> int:
         x16 = torch.randint(0, 2, (8 * k, cols), device=dev).to(torch.bfloat16)
         yard_ms = timed_ms(lambda: torch.matmul(a16, x16), 10, flush)
         del x16
-        nbytes = cols * (k + m) + m * k * 8 * 4  # data + out once, the constant table
-        ops = 2 * (8 * m) * (8 * k) * cols  # bit-product form, one MAC = 2 ops
-        ops_ms, bytes_ms = roofline.ops_bytes_ms(ops, nbytes)
+        ops_ms, bytes_ms = roofline.gf_matmul_ms(m, k, cols)
+        bound = max(bytes_ms, ops_ms)
         shapes.append({
             "shape": label, "m": m, "k": k, "cols": cols, "ms": ms, "plain_ms": plain_ms,
-            "matmul_bf16_yardstick_ms": yard_ms, "bytes": nbytes, "int8_ops": ops,
-            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "matmul_bf16_yardstick_ms": yard_ms, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "bound_ms": bound, "ms_over_bound": ms / bound,
+            "swar_kernel_ms": swar_ms[label],
         })
-        print(f"gf256_matmul {label} ({m},{k}) x {cols} cols: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bf16 matmul yardstick {yard_ms:.4f} ms, bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, int8 ops {ops_ms:.4f}) {tag}")
+        print(f"gf256_matmul {label} ({m},{k}) x {cols} cols: kernel {ms:.4f} ms "
+              f"({ms / bound:.2f}x its bound; the SWAR kernel {swar_ms[label]:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bf16 matmul yardstick {yard_ms:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes {bytes_ms:.4f}, int8 ops {ops_ms:.4f}) {tag}")
     del flush
     epoch_ms = 1e3 / float(np.median(eps))
     kernel_ms = sum(s["ms"] for s in shapes)
     print(f"epoch {epoch_ms:.4f} ms, of which the two gf256_matmul launches "
-          f"{kernel_ms:.4f} ms ({100 * kernel_ms / epoch_ms:.1f}%) {tag}")
+          f"{kernel_ms:.4f} ms ({100 * kernel_ms / epoch_ms:.1f}%; the SWAR kernel "
+          f"{sum(swar_ms.values()):.4f} ms) {tag}")
     print(json.dumps({"shapes": shapes, "card": card}))
 
     ops_total = sum(s["ops_bound_ms"] for s in shapes)

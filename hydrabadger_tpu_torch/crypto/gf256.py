@@ -39,8 +39,7 @@ def _build_tables() -> tuple[np.ndarray, np.ndarray]:
 
 EXP_TABLE, LOG_TABLE = _build_tables()
 
-# Full 256x256 multiplication table — used by tests and by the CUDA
-# kernel's constant tables (ops/gf256_torch.kernel_consts).
+# Full 256x256 multiplication table — used by tests and by bit_matrix_of_const.
 _A = np.arange(256, dtype=np.int32)
 MUL_TABLE = np.where(
     (_A[:, None] == 0) | (_A[None, :] == 0),

@@ -56,6 +56,26 @@ def events_ms(fn, spin: bool = True) -> float:
     return start.elapsed_time(end)
 
 
+def timed_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
+    """Median device time of fn() in ms, CUDA events around each call;
+    `flush` (a buffer larger than L2) is rewritten before each call so
+    every call starts with a cold cache."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def diff_ms(run, lo: int, hi: int) -> float:
     """ms per unit of `run(k)` from two lengths: (t(hi) - t(lo)) / (hi - lo),
     each the least of 3 timings by CUDA events; the difference cancels what

@@ -12,7 +12,8 @@ Three implementations, all byte-equal to crypto/gf256.matmul:
   - `gf_matmul_bits_plain`: the kernel's plain version: a float32 0/1 bit
                             product (exact: sums <= 8k <= 2040 < 2^24),
                             mod 2, pack
-  - `gf_matmul`:            the CUDA kernel csrc/gf256_matmul.cu for a CUDA
+  - `gf_matmul`:            the CUDA kernel csrc/gf256_matmul.cu (the bit
+                            product on the int8 tensor cores) for a CUDA
                             tensor; the plain version for a CPU tensor
 
 Layouts follow the JAX package: bits are LSB-first with row order
@@ -21,9 +22,10 @@ last axis.  The kernel takes its own strides, so a batch may be a view.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import contextlib
+from dataclasses import dataclass, field
 from functools import lru_cache, reduce
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -39,8 +41,21 @@ launches = 0
 _EXP = torch.from_numpy(gf256.EXP_TABLE.astype(np.int64))  # [512]
 _LOG = torch.from_numpy(gf256.LOG_TABLE.astype(np.int64))  # [256]
 
-# Row tiles the kernel is instantiated for (csrc/gf256_matmul.cu's switch).
-TILE_M = (22, 16, 11, 8, 4)
+# The kernel's launch parameters: its form (0: mma.sync.m16n8k32 per warp;
+# 1, 2: wgmma m64nNk32 per warpgroup, passes of N = 32, 64), warps per
+# block, M tiles of 16 byte columns per warp, and data ring stages.
+# csrc/gf256_matmul.cu instantiates FORM_TILES; experiments/prof_gf_tiles.py
+# sweeps them at the epoch's two shapes, and these are its pick.
+FORM, WARPS, M_TILES, STAGES = 1, 4, 4, 3
+FORM_TILES = {0: (2, 4), 1: (2, 4), 2: (2,)}  # form -> M tiles instantiated
+STAGE_COUNTS = (2, 3)
+SMEM_MAX = 232_448  # dynamic shared memory one block may use on an H100
+# A launch keeps one chunk of A's bits in shared memory (`chunks`): up to
+# K_CHUNK_MAX data rows, and as many output rows (a multiple of 4) as fit
+# B_CHUNK_MAX bytes of operand.  Every RS shape (m + k <= 255) is one K
+# chunk; longer K runs as K chunks whose launches XOR into the output.
+B_CHUNK_MAX = 98_304
+K_CHUNK_MAX = 256
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +99,118 @@ def gf_matmul_gather(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The kernel's operand and launch plan
+# ---------------------------------------------------------------------------
+
+
+def _ceil4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def b_operand(matrix: np.ndarray) -> np.ndarray:
+    """A's bits as the kernel's B operand: [ceil4(k) / 4, ceil4(m), 2, 8, 16] uint8.
+
+    One 32 x 8 int8 tile B[K, n] per K tile kt (data bytes 4kt .. 4kt + 3,
+    K = 8 * byte + bit) and N tile nt = 4G + q: column n holds output byte
+    4G + n // 2, bit 2q + n % 2, scaled by 2^bit (bit 7: 0x80, i.e. -128 as
+    int8), so each int32 sum carries its parity at that bit.  Rows and
+    columns past m and k are zero.  Entry [kt, nt, kh, n, b] is B[16 kh + b,
+    n] of tile (kt, nt): wgmma's K-major layout without swizzle, 128-byte
+    core matrices of 8 columns x 16 K bytes, a tile's two K halves 128 B
+    apart and tiles (kt * NT + nt) * 256 B from the start.
+    """
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    m, k = matrix.shape
+    mp, kp = _ceil4(m), _ceil4(k)
+    bits = np.zeros((8 * mp, 8 * kp), dtype=np.int64)
+    bits[: 8 * m, : 8 * k] = gf256.expand_to_bit_matrix(matrix)
+    kt, nt, kh, n, b = np.ix_(np.arange(kp // 4), np.arange(mp), np.arange(2),
+                              np.arange(8), np.arange(16))
+    bit = 2 * (nt % 4) + n % 2
+    row = 8 * (4 * (nt // 4) + n // 2) + bit
+    return (bits[row, 32 * kt + 16 * kh + b] << bit).astype(np.uint8)
+
+
+class Chunk(NamedTuple):
+    """One launch's share of A: output rows m0:m1, data rows k0:k1."""
+
+    m0: int
+    m1: int
+    k0: int
+    k1: int
+
+
+def chunks(m: int, k: int) -> list[Chunk]:
+    """The launches of an [m, k] product, in order: K chunks of at most
+    K_CHUNK_MAX rows (the first stores, the rest XOR in), each split into
+    row chunks whose operand fits B_CHUNK_MAX bytes."""
+    out = []
+    for k0 in range(0, k, K_CHUNK_MAX):
+        k1 = min(k, k0 + K_CHUNK_MAX)
+        mc = max(4, B_CHUNK_MAX // (64 * _ceil4(k1 - k0)) // 4 * 4)
+        out += [Chunk(m0, min(m, m0 + mc), k0, k1) for m0 in range(0, m, mc)]
+    return out
+
+
+class LaunchShape(NamedTuple):
+    """A launch's block geometry: the kernel's form, warps, M tiles per
+    warp, ring stages, the ring's row stride and the block's dynamic shared
+    memory (bytes)."""
+
+    form: int
+    warps: int
+    m_tiles: int
+    stages: int
+    row: int
+    smem: int
+
+
+def launch_shape(m: int, k: int, form: Optional[int] = None, warps: Optional[int] = None,
+                 m_tiles: Optional[int] = None, stages: Optional[int] = None) -> LaunchShape:
+    """The block geometry of one launch over an [m, k] chunk.
+
+    Shared memory holds the operand (64 * ceil4(m) * ceil4(k) bytes) and
+    `stages` ring tiles of ceil4(k) rows x `row` bytes; a row is the
+    tile's 16 * m_tiles * warps columns plus one warp's 16 * m_tiles, so
+    the two data rows a warp reads at once fall on different banks.
+    Where the default stages do not fit, fewer are taken (at least 2).
+    """
+    form = FORM if form is None else form
+    warps = WARPS if warps is None else warps
+    m_tiles = M_TILES if m_tiles is None else m_tiles
+    want = STAGES if stages is None else stages
+    if m_tiles not in FORM_TILES.get(form, ()) or want not in STAGE_COUNTS or not (
+            0 < warps <= 8 and (form == 0 or warps % 4 == 0)):
+        raise ValueError(f"gf_matmul: no kernel instance for form {form}, {warps} warps, "
+                         f"{m_tiles} M tiles, {want} stages")
+    row = 16 * m_tiles * (warps + 1)
+    kp = _ceil4(k)
+    b_bytes = 64 * _ceil4(m) * kp
+    fit = (SMEM_MAX - b_bytes) // (kp * row)
+    stages = min(want, fit) if stages is None else want
+    if stages < 2 or stages > fit:
+        raise ValueError(f"gf_matmul: an [{m}, {k}] chunk with {warps} warps x {m_tiles} "
+                         f"M tiles does not fit {SMEM_MAX} B of shared memory at 2 stages")
+    return LaunchShape(form, warps, m_tiles, stages, row, b_bytes + stages * kp * row)
+
+
+_override: dict = {}
+
+
+@contextlib.contextmanager
+def tiles(**choices):
+    """Launch with another form or block geometry inside the block
+    (`launch_shape`'s keywords; the sweep in experiments/prof_gf_tiles.py)."""
+    saved = dict(_override)
+    _override.update({k: v for k, v in choices.items() if v is not None})
+    try:
+        yield
+    finally:
+        _override.clear()
+        _override.update(saved)
+
+
+# ---------------------------------------------------------------------------
 # Device-resident operands of one GF matrix
 # ---------------------------------------------------------------------------
 
@@ -93,53 +220,32 @@ class GfOperand:
     """A host-static [m, k] GF(2^8) matrix and its operands on one device.
 
     abits:  [8m, 8k] float32 0/1 bit matrix (the plain version's operand)
-    consts: the kernel's word table (see `kernel_consts`) as int32; only
-            on a CUDA device
+    The kernel's operand of each launch chunk (`chunks`) is built on first
+    use and kept (`kernel_operand`).
     """
 
     matrix: np.ndarray
     device: torch.device
     abits: torch.Tensor
-    consts: Optional[torch.Tensor]
-    tile_m: int
+    _bops: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def shape(self) -> tuple[int, int]:
         return self.matrix.shape
 
-
-def choose_tile_m(m: int) -> int:
-    """The kernel's row tile for m output rows: least padding, then largest."""
-    return min(TILE_M, key=lambda t: (-(-m // t) * t, -t))
-
-
-def kernel_consts(matrix: np.ndarray) -> tuple[np.ndarray, int]:
-    """The kernel's constant table for `matrix`, and its row tile.
-
-    Returns ([m_pad, k, 8] uint32, tile_m): word (i, j, b) holds the GF
-    product A[i, j] * 2^b in each of its four bytes, and rows m..m_pad-1
-    (padding to a whole number of row tiles) are zero.
-    """
-    matrix = np.asarray(matrix, dtype=np.uint8)
-    m, k = matrix.shape
-    tile_m = choose_tile_m(m)
-    m_pad = -(-m // tile_m) * tile_m
-    powers = (1 << np.arange(8)).astype(np.uint8)
-    prod = gf256.MUL_TABLE[matrix[:, :, None], powers[None, None, :]]  # [m, k, 8]
-    table = np.zeros((m_pad, k, 8), dtype=np.uint32)
-    table[:m] = prod.astype(np.uint32) * np.uint32(0x01010101)
-    return table, tile_m
+    def kernel_operand(self, chunk: "Chunk") -> torch.Tensor:
+        """`b_operand` of the chunk's rows and columns, on the device."""
+        if chunk not in self._bops:
+            part = self.matrix[chunk.m0:chunk.m1, chunk.k0:chunk.k1]
+            self._bops[chunk] = torch.from_numpy(b_operand(part)).to(self.device)
+        return self._bops[chunk]
 
 
 @lru_cache(maxsize=512)
 def _operand(matrix_bytes: bytes, m: int, k: int, device: torch.device) -> GfOperand:
     mat = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(m, k)
     abits = torch.from_numpy(gf256.expand_to_bit_matrix(mat).astype(np.float32))
-    table, tile_m = kernel_consts(mat)
-    consts = None
-    if device.type == "cuda":
-        consts = torch.from_numpy(table.view(np.int32)).to(device)
-    return GfOperand(mat, device, abits.to(device), consts, tile_m)
+    return GfOperand(mat, device, abits.to(device))
 
 
 def operand(matrix: np.ndarray, device) -> GfOperand:
@@ -235,13 +341,20 @@ def _launch(op: GfOperand, data: torch.Tensor, out: torch.Tensor) -> None:
         return
     lib = _kernels.load("gf256_matmul")
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    rc = lib.gf256_matmul_launch(
-        data.device.index,
-        op.consts.data_ptr(),
-        data.data_ptr(), *data.stride(),
-        out.data_ptr(), *out.stride(),
-        m, k, L, B, op.tile_m,
-        stream,
-    )
-    _kernels.check("gf256_matmul", lib, rc, "gf256_error_string")
-    launches += 1
+    for chunk in chunks(m, k):
+        mc, kc = chunk.m1 - chunk.m0, chunk.k1 - chunk.k0
+        shape = launch_shape(mc, kc, **_override)
+        bop = op.kernel_operand(chunk)
+        x, y = data[:, chunk.k0:chunk.k1], out[:, chunk.m0:chunk.m1]
+        rc = lib.gf256_matmul_launch(
+            data.device.index,
+            bop.data_ptr(), bop.numel(),
+            x.data_ptr(), *x.stride(),
+            y.data_ptr(), *y.stride(),
+            mc, kc, L, B,
+            shape.form, shape.warps, shape.m_tiles, shape.stages, shape.row, shape.smem,
+            int(chunk.k0 > 0),
+            stream,
+        )
+        _kernels.check("gf256_matmul", lib, rc, "gf256_error_string")
+        launches += 1

@@ -25,6 +25,13 @@ def ops_bytes_ms(ops: float, nbytes: float) -> tuple[float, float]:
     return ops / PEAK_INT8_OPS_PER_S * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
 
 
+def gf_matmul_ms(m: int, k: int, cols: int) -> tuple[float, float]:
+    """(operations ms, bytes ms) of an [m, k] GF(2^8) product over `cols`
+    byte columns (kernel B1): its bit-product form, 2 * (8m) * (8k) int8
+    operations per column, and the data and output once plus the matrix."""
+    return ops_bytes_ms(2 * (8 * m) * (8 * k) * cols, cols * (k + m) + m * k)
+
+
 def product_ms(products: int, elements: int) -> tuple[float, float]:
     """(operations ms, bytes ms) of `products` Fp products that move
     `elements` field elements."""

@@ -32,13 +32,16 @@ def rand(shape, seed):
     return np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)
 
 
-@pytest.mark.parametrize("m,k,B,L", [(42, 22, 4096, 12), (22, 22, 4096, 12), (3, 5, 3, 1013)])
+@pytest.mark.parametrize("m,k,B,L", [
+    (42, 22, 4096, 12), (22, 22, 4096, 12), (3, 5, 3, 1013), (2, 2, 4096, 64),
+    (233, 22, 64, 12), (32, 223, 64, 12), (16, 600, 8, 12),  # row chunks, K tiles, K chunks
+])
 def test_gf_kernel_matches_plain(card, m, k, B, L):
     a = rand((m, k), m)
     d = torch.from_numpy(rand((B, k, L), L)).to(card)
     before = gf256_torch.launches
     got = gf256_torch.gf_matmul(a, d)
-    assert gf256_torch.launches == before + 1
+    assert gf256_torch.launches == before + len(gf256_torch.chunks(m, k))
     assert torch.equal(got, gf256_torch.gf_matmul_bits_plain(a, d))
     assert np.array_equal(got[0].cpu().numpy(), gf256.matmul(a, d[0].cpu().numpy()))
 
