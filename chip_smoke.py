@@ -91,6 +91,23 @@ failure:
      all 64 plaintexts against the contributions encrypted; timings: device
      ms by events, wall ms, the bound from the round's digits.
 
+ 17. kernel B1 at the low-comm broadcast's sketch shapes, exact against its
+     plain version and crypto/homhash: m = 8, K in {1, 5, 97, 257, 300}
+     (one launch, row chunks, K chunks), 1, 4, 16 and 64 columns, from a
+     contiguous copy and a strided view; K = 0 gives zeros with no launch;
+ 18. the main path: the QueueingHoneyBadger simulator at config 2 (16
+     nodes, `rbc_variant="lowcomm"`) for 3 epochs on `GpuEngine` against
+     the host engine: every node's batches byte-identical, equal messages,
+     transactions and faults; every launch counter set to 0 just before
+     and read just after: B1's launches equal to those the sketch calls
+     imply, no other kernel; epochs/s of both engines in turns, B1 launches and
+     device ms (events) per epoch, host ms in operand builds, the bound;
+ 19. config 2 with the reference broadcast ("bracha"): the same checks,
+     and 0 launches (no device call on that path);
+ 20. the full crypto tier at 4 nodes x 2 epochs (threshold encryption,
+     the threshold coin, shares verified, lowcomm): batches byte-identical
+     across the engines.
+
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
 no result.
@@ -118,6 +135,9 @@ FC_NODES, FC_INSTANCES, FC_EPOCHS = 64, 64, 3
 COIN_NODES, COIN_INSTANCES, COIN_ROUNDS = 64, 64, 3
 DEC_NODES, DEC_ROUNDS = 64, 3
 RAGGED = 1013  # a lane count that is no multiple of a block
+SIM_NODES, SIM_EPOCHS = 16, 3  # config 2 (bench.py:468-488), 3 epochs
+FC_SIM_NODES, FC_SIM_EPOCHS = 4, 2  # the full crypto tier (pure-Python BLS on the host)
+SKETCH_K, SKETCH_COLS = (1, 5, 97, 257, 300), (1, 4, 16, 64)
 
 
 class SmokeFailure(RuntimeError):
@@ -967,6 +987,191 @@ def decrypt_plane(dev: torch.device, tag: str) -> dict:
     }
 
 
+def sim_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
+    """Phases 17-20: kernel B1 at the low-comm sketch shapes, and the
+    QueueingHoneyBadger simulator on the card against the host engine.
+    Returns the sim's record for kernel B1's entry of the `kernels` line
+    and the worst error of the phase-17 holds."""
+    from hydrabadger_tpu_torch.crypto import homhash
+    from hydrabadger_tpu_torch.crypto.engine import GpuEngine
+    from hydrabadger_tpu_torch.ops import circuit_torch, fp_probe_torch, fq2_torch, fq_torch
+    from hydrabadger_tpu_torch.ops import gf256_torch, homhash_torch
+    from hydrabadger_tpu_torch.sim import network
+
+    # -- 17. B1 exact at the sketch shapes ---------------------------------
+    # m = 8 sketch rows, K = the shard length, 1-64 shard columns: the
+    # contiguous [K, B] copy the engine uploads (the word path where
+    # B % 4 == 0) and the transposed view of [B, K] shards (the byte path)
+    worst = 0
+    for k in SKETCH_K:
+        mat = homhash.matrix_T(b"smoke-%d" % k, k)
+        for cols in SKETCH_COLS:
+            rows = np.random.default_rng(k * 131 + cols).integers(0, 256, (cols, k), dtype=np.uint8)
+            shards = torch.from_numpy(rows).to(dev)
+            for form, data in (("contiguous", shards.T.contiguous()), ("strided", shards.T)):
+                got = gf256_torch.gf_matmul(mat, data)
+                want = gf256_torch.gf_matmul_bits_plain(mat, data)
+                torch.cuda.synchronize()
+                worst = max(worst, max_abs_err(got, want))
+                check(torch.equal(got, want), f"gf256_matmul != plain at sketch (8,{k}) x {cols} {form}")
+                check(np.array_equal(got.cpu().numpy().T, homhash.sketch_batch_np(rows, b"smoke-%d" % k)),
+                      f"sketch (8,{k}) x {cols} {form} != crypto/homhash.sketch_batch_np")
+    print(f"kernel == plain == sketch_batch_np, exact: m = 8, K in {SKETCH_K} "
+          f"({[len(gf256_torch.chunks(8, k)) for k in SKETCH_K]} launches), columns in {SKETCH_COLS}, "
+          "contiguous and strided")
+    empty = torch.zeros((0, 5), dtype=torch.uint8, device=dev)
+    out = torch.full((8, 5), 0xAB, dtype=torch.uint8, device=dev)
+    before = gf256_torch.launches
+    gf256_torch.gf_matmul(np.zeros((8, 0), np.uint8), empty, out=out)
+    torch.cuda.synchronize()
+    check(not bool(out.any()) and gf256_torch.launches == before, "k = 0 did not give zeros without a launch")
+    print("k = 0: zeros, no launch")
+
+    def run(engine, nodes, epochs, variant, **kw):
+        sim = network.SimNetwork(network.SimConfig(
+            n_nodes=nodes, protocol="qhb", epochs=epochs, seed=0, rbc_variant=variant,
+            engine=engine, native_acs=False, **kw))
+        t0 = time.perf_counter()
+        m = sim.run()
+        return sim, m, time.perf_counter() - t0
+
+    def same(a, am, b, bm, epochs, what):
+        check(am.agreement_ok and bm.agreement_ok, f"{what}: agreement failed")
+        check(am.epochs_done == bm.epochs_done == epochs,
+              f"{what}: epochs_done {am.epochs_done} / {bm.epochs_done}, want {epochs}")
+        for nid in a.ids:
+            check(a.batch_bytes(nid) == b.batch_bytes(nid), f"{what}: node {nid}'s batches differ")
+        check((am.messages_delivered, am.txns_committed, am.faults)
+              == (bm.messages_delivered, bm.txns_committed, bm.faults),
+              f"{what}: messages / txns / faults {am.messages_delivered, am.txns_committed, am.faults}"
+              f" != {bm.messages_delivered, bm.txns_committed, bm.faults}")
+
+    def counts():
+        return {"gf256_matmul": gf256_torch.launches, "fq_point": fq_torch.launches,
+                "fq2_point": fq2_torch.launches, "circuit": circuit_torch.launches,
+                "fp_probe": fp_probe_torch.launches}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        gf256_torch.launches = fq_torch.launches = fq2_torch.launches = 0
+        circuit_torch.launches = fp_probe_torch.launches = 0
+
+    gpu = GpuEngine(device=dev)
+    run(gpu, 4, 1, "lowcomm")  # warm-up: the library's load and first launches
+
+    # -- 18. config 2 on the card: 16 nodes, low-comm broadcast ------------
+    # in turns (host, card, card, host) for epochs/s; the first card run is
+    # the counted one
+    host, host_m, host_s = run("cpu", SIM_NODES, SIM_EPOCHS, "lowcomm")
+    homhash_torch.calls.clear()
+    homhash_torch.operand_s = 0.0
+    zero_counts()
+    card, card_m, card_s = run(gpu, SIM_NODES, SIM_EPOCHS, "lowcomm")
+    launched = counts()
+    operand_ms = 1e3 * homhash_torch.operand_s
+    calls = dict(homhash_torch.calls)
+    same(card, card_m, host, host_m, SIM_EPOCHS, "lowcomm sim, gpu vs cpu")
+    turns = {"gpu": [card_m.epochs_done / card_s], "cpu": [host_m.epochs_done / host_s]}
+    for spec in (gpu, "cpu"):
+        again, again_m, again_s = run(spec, SIM_NODES, SIM_EPOCHS, "lowcomm")
+        same(again, again_m, host, host_m, SIM_EPOCHS, "lowcomm sim, again")
+        turns["cpu" if spec == "cpu" else "gpu"].append(again_m.epochs_done / again_s)
+    implied = sum(n * len(gf256_torch.chunks(8, L)) for (_b, L), n in calls.items())
+    check(launched["gf256_matmul"] > 0, "the lowcomm sim launched kernel B1 no time")
+    check(launched["gf256_matmul"] == implied,
+          f"B1 launches {launched['gf256_matmul']} != {implied} implied by the sketch calls")
+    check(sum(launched.values()) == launched["gf256_matmul"], f"other kernels launched: {launched}")
+    n_calls = sum(calls.values())
+    # the run's device work: each call shape's products back to back (CUDA
+    # events behind a spin kernel, so no host gap is timed) times its count;
+    # events around the calls in the run would time the host's enqueue,
+    # since the card waits on the host between calls
+    dev_ms = plain_ms = ops_ms = bytes_ms = 0.0
+    shapes = {}
+    for (B, L), n in sorted(calls.items()):
+        op = gf256_torch.operand(homhash.matrix_T(b"replay", L), dev)
+        x = torch.randint(0, 256, (L, B), dtype=torch.uint8, device=dev)
+        y = torch.empty((8, B), dtype=torch.uint8, device=dev)
+        k_ms = launch_ms(lambda: gf256_torch.gf_matmul(op, x, out=y), reps=20)
+        p_ms = launch_ms(lambda: gf256_torch.gf_matmul_bits_plain(op, x), reps=5)
+        o_ms, b_ms = roofline.gf_matmul_ms(8, L, B)
+        shapes[f"{B}x{L}"] = {"calls": n, "ms": k_ms, "plain_ms": p_ms}
+        dev_ms, plain_ms = dev_ms + n * k_ms, plain_ms + n * p_ms
+        ops_ms, bytes_ms = ops_ms + n * o_ms, bytes_ms + n * b_ms
+    rows16 = [bytes(range(i, i + 6)) for i in range(16)]  # 16 shards of config 2's 6 bytes
+    call_wall = {"gpu 16x6": wall_ms(lambda: gpu.homhash_batch(rows16, b"wall")),
+                 "gpu 1x6": wall_ms(lambda: gpu.homhash_batch(rows16[:1], b"wall")),
+                 "cpu 16x6": wall_ms(lambda: host.engine.homhash_batch(rows16, b"wall")),
+                 "cpu 1x6": wall_ms(lambda: host.engine.homhash_batch(rows16[:1], b"wall"))}
+    cols = sorted({B for B, _L in calls})
+    lens = sorted({L for _B, L in calls})
+    e = SIM_EPOCHS
+    epoch_ms = 1e3 * card_s / card_m.epochs_done
+    print(f"main path: config 2 ({SIM_NODES} nodes, qhb, lowcomm) x {e} epochs on the card == the host "
+          f"engine: every node's batches byte-identical, {card_m.messages_delivered} messages, "
+          f"{card_m.txns_committed} txns, {card_m.faults} faults; launches {launched} == "
+          f"{implied} implied by {n_calls} sketch calls (columns {cols}, shard lengths {lens})")
+    print(f"config 2 lowcomm, epochs/s in turns (cpu, gpu, gpu, cpu): gpu engine "
+          f"{[round(v, 3) for v in turns['gpu']]}, cpu engine {[round(v, 3) for v in turns['cpu']]}; B1 {launched['gf256_matmul'] / e:.1f} launches "
+          f"and {n_calls / e:.1f} sketch calls per epoch, {dev_ms / e:.4f} device ms per epoch in the "
+          f"sketches ({100 * dev_ms / e / epoch_ms:.2f}% of the {epoch_ms:.1f} ms epoch; by shape "
+          f"{ {k: round(v['ms'], 5) for k, v in shapes.items()} } ms per launch), "
+          f"{operand_ms / e:.3f} host ms per epoch in operand builds; one sketch call's wall "
+          f"{ {k: round(v, 4) for k, v in call_wall.items()} } ms; bound {max(ops_ms, bytes_ms) / e:.6f}"
+          f" ms per epoch ({'operations' if ops_ms >= bytes_ms else 'bytes'}); plain "
+          f"{plain_ms / e:.4f} ms per epoch {tag}")
+
+    # -- 19. config 2 as users run it: the reference broadcast -------------
+    bhost, bhost_m, bhost_s = run("cpu", SIM_NODES, SIM_EPOCHS, "bracha")
+    zero_counts()
+    bcard, bcard_m, bcard_s = run(gpu, SIM_NODES, SIM_EPOCHS, "bracha")
+    blaunched = counts()
+    same(bcard, bcard_m, bhost, bhost_m, SIM_EPOCHS, "bracha sim, gpu vs cpu")
+    check(sum(blaunched.values()) == 0, f"the bracha sim launched kernels: {blaunched}")
+    print(f"config 2 bracha: batches byte-identical, 0 kernel launches ({blaunched}), as the JAX "
+          f"TpuEngine makes no device call there; gpu engine {bcard_m.epochs_done / bcard_s:.3f} "
+          f"epochs/s, cpu engine {bhost_m.epochs_done / bhost_s:.3f} epochs/s {tag}")
+
+    # -- 20. the full crypto tier: 4 nodes, encryption, threshold coin -------
+    fc = dict(encrypt=True, coin_mode="threshold", verify_shares=True)
+    fhost, fhost_m, fhost_s = run("cpu", FC_SIM_NODES, FC_SIM_EPOCHS, "lowcomm", **fc)
+    zero_counts()
+    fcard, fcard_m, fcard_s = run(gpu, FC_SIM_NODES, FC_SIM_EPOCHS, "lowcomm", **fc)
+    flaunched = counts()
+    same(fcard, fcard_m, fhost, fhost_m, FC_SIM_EPOCHS, "full crypto sim, gpu vs cpu")
+    check(flaunched["gf256_matmul"] > 0, "the full crypto sim launched kernel B1 no time")
+    print(f"full crypto tier ({FC_SIM_NODES} nodes x {FC_SIM_EPOCHS} epochs, encryption, threshold "
+          f"coin, shares verified, lowcomm): batches byte-identical; launches {flaunched}; gpu engine "
+          f"{fcard_m.epochs_done / fcard_s:.3f} epochs/s, cpu engine "
+          f"{fhost_m.epochs_done / fhost_s:.3f} epochs/s {tag}")
+    print(json.dumps({"sim": {
+        "lowcomm": {"gpu_epochs_per_s": turns["gpu"], "cpu_epochs_per_s": turns["cpu"],
+                    "launches": launched,
+                    "sketch_calls": n_calls, "shapes": shapes, "call_wall_ms": call_wall,
+                    "device_ms": dev_ms, "operand_host_ms": operand_ms,
+                    "plain_ms": plain_ms, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+                    "messages": card_m.messages_delivered},
+        "bracha": {"gpu_epochs_per_s": bcard_m.epochs_done / bcard_s,
+                   "cpu_epochs_per_s": bhost_m.epochs_done / bhost_s, "launches": blaunched},
+        "full_crypto": {"gpu_epochs_per_s": fcard_m.epochs_done / fcard_s,
+                        "cpu_epochs_per_s": fhost_m.epochs_done / fhost_s, "launches": flaunched},
+        "card": tag}}))
+    return {
+        "per": f"config 2 ({SIM_NODES} nodes, qhb, lowcomm) x {SIM_EPOCHS} epochs: the shard "
+               f"sketches, each call shape's launches timed back to back, times its calls",
+        "launches": launched["gf256_matmul"],
+        "launches_per_epoch": launched["gf256_matmul"] / e,
+        "ms": dev_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+        "operand_host_ms": operand_ms,
+        "gpu_epochs_per_s": turns["gpu"],
+        "cpu_epochs_per_s": turns["cpu"],
+    }, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -1160,6 +1365,8 @@ def main() -> int:
     kernels.append(fp_probes(dev, tag))
     fq_entry = next(k for k in kernels if k["name"] == "fq_point")
     fq_entry["decrypt_round"] = decrypt_plane(dev, tag)
+    kernels[0]["sim"], sketch_err = sim_plane(dev, tag)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], sketch_err)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

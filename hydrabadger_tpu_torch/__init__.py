@@ -2,21 +2,34 @@
 
 A package of its own beside the JAX one, which stays the reference.  It
 imports torch and numpy and nothing of JAX or of hydrabadger_tpu: what it
-needs of the JAX-free host code it keeps as its own copy (crypto/).
+needs of the JAX-free host code it keeps as its own copy (crypto/,
+consensus/, obs/, utils/, the sim's router and network).
 
     device.py            resolve_device: the card unless the caller asks for cpu
+    utils/codec.py       the canonical message codec (pure Python)
+    utils/lru.py         the digest-keyed LRU of the crypto caches
+    utils/envflags.py    HYDRABADGER_RBC, resolved at the sim
+    obs/                 the sans-io recorder, counters and gauges, the
+                         per-transaction latency ledgers
     crypto/gf256.py      GF(2^8) tables and host matrix ops (numpy)
-    crypto/rs.py         encode/decode matrices, numpy ReedSolomon (the oracle)
-    crypto/bls12_381.py  G1 over Fp, G2 over Fp2, hash onto G2, pure Python
-                         (the host oracle)
-    crypto/threshold.py  Shamir key sets, Lagrange, threshold encryption and
-                         decryption shares, signature shares and their combine
-    crypto/futures.py    CryptoFuture: fetch once, warn when dropped
+    crypto/rs.py         encode/decode matrices, numpy ReedSolomon (the oracle),
+                         byte payloads in and out of shards
+    crypto/bls12_381.py  G1 over Fp, G2 over Fp2, Fp12 and the pairing checks,
+                         hash onto G2, encodings, pure Python (the host oracle)
+    crypto/threshold.py  keys, signatures, Shamir key sets, Lagrange, threshold
+                         encryption, decryption and signature shares, their
+                         verification and combines
+    crypto/homhash.py    the low-comm broadcast's shard sketches (host)
+    crypto/futures.py    CryptoFuture: fetch once, warn and remember when dropped
     crypto/engine.py     CpuEngine, GpuEngine and their registry
+    consensus/           the sans-io cores: Broadcast (bracha, lowcomm),
+                         BinaryAgreement, ThresholdSign, Subset,
+                         ThresholdDecrypt, HoneyBadger, QueueingHoneyBadger
     csrc/                hand-written CUDA sources for sm_90a (H100)
     ops/_kernels.py      nvcc build into build/torch_kernels/, ctypes binding
     ops/gf256_torch      GF(2^8) matmul: the kernel and its plain version
     ops/rs_torch         batched RS encode / reconstruct
+    ops/homhash_torch    the shard sketches on the GF(2^8) kernel
     ops/limbs.py         the Fp and G2 limb layouts and host conversions
     ops/fq_torch         Fp and Jacobian G1 ops: kernel B2 and its plain version
     ops/bls_torch        batched G1 ladders: decryption shares, Lagrange combines
@@ -32,6 +45,9 @@ needs of the JAX-free host code it keeps as its own copy (crypto/).
                          (CoinRound) through GpuEngine
     sim/decrypt.py       one epoch's threshold decryption (DecryptRound)
                          through GpuEngine
+    sim/router.py        the deterministic message router
+    sim/network.py       SimNetwork: QueueingHoneyBadger nodes over the router
+                         (python -m hydrabadger_tpu_torch.sim is its CLI)
     experiments/         the Fp probes E1-E4 (python -m ..., on a card)
 
 Importing builds nothing and touches no card; kernels build at their

@@ -1,19 +1,29 @@
-"""BLS12-381 G1 over Fp and G2 over Fp2 — the pure-Python host oracle.
+"""BLS12-381 over Fp, Fp2 and Fp12 — the pure-Python host oracle.
 
 Copy of what the port needs of hydrabadger_tpu/crypto/bls12_381.py: the
-fields FQ and FQ2 (Fp[u]/(u^2 + 1)), the generators G1 and G2 and the
-twist constant B2, projective add / double / multiply / normalize / eq
-for points over either field, the psi endomorphism, cofactor clearing,
-`hash_to_g2` (try-and-increment, then clearing) and the compressed G1
-and G2 encodings.  No native engine: `multiply` and `mul_sub` are the plain
-double-and-add ladder (the JAX package's pure-Python fallback), which
-gives the same group element as the native GLV/GLS ladders.
+fields FQ, FQ2 (Fp[u]/(u^2 + 1)) and FQ12, the generators G1 and G2, the
+curve constants B1 and B2, projective add / double / multiply / normalize /
+eq / is_on_curve for points over any of them, the ate pairing
+(`miller_loop`, `final_exponentiation`, `pairing_check_eq`,
+`pairing_product_check`), the psi endomorphism, cofactor clearing and the
+subgroup checks, `hash_to_fr`, `hash_to_g2` (try-and-increment, then
+clearing; cached by digest, since one costs ~28 ms) and the compressed G1
+and G2 encodings both ways.  No native engine: `multiply` is the plain
+double-and-add ladder (the JAX package's pure-Python fallback) and
+`mul_sub`, for subgroup points, the endomorphism split (GLV on G1, GLS on
+G2) the JAX package's native ladders use, in pure Python; every function
+here gives the value its `_py_*` counterpart there gives (points
+projectively, pairing checks by verdict).
 
-Points are projective (X, Y, Z) tuples of FQ or FQ2; Z == 0 at infinity.
+Points are projective (X, Y, Z) tuples of FQ, FQ2 or FQ12; Z == 0 at
+infinity.
 """
 from __future__ import annotations
 
 import hashlib
+from functools import lru_cache
+
+from ..utils.lru import DigestLRU
 
 P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
@@ -213,6 +223,15 @@ class FQ2(_FQP):
     degree = 2
     mc_tuples = ((0, 1),)
 
+    def __mul__(self, other):
+        if type(other) is FQ2:  # (a0 + a1 u)(b0 + b1 u), u^2 = -1
+            a0, a1 = self.coeffs
+            b0, b1 = other.coeffs
+            return FQ2([a0 * b0 - a1 * b1, a0 * b1 + a1 * b0])
+        return _FQP.__mul__(self, other)
+
+    __rmul__ = __mul__
+
     def conjugate(self):
         return FQ2([self.coeffs[0], -self.coeffs[1]])
 
@@ -243,10 +262,52 @@ class FQ2(_FQP):
         return cand if cand * cand == self else None
 
 
+class FQ12(_FQP):
+    """Fp12 = Fp[w]/(w^12 - 2 w^6 + 2); Fp2 embeds via u = w^6 - 1."""
+
+    degree = 12
+    mc_tuples = ((0, 2), (6, -2))
+
+    def __mul__(self, other):
+        """The generic product over the nonzero coefficients of both sides
+        (the Miller loop's twisted points and lines are sparse), then
+        w^12 = 2 w^6 - 2."""
+        if type(other) is not FQ12:
+            return _FQP.__mul__(self, other)
+        a = [(i, c) for i, c in enumerate(self.coeffs) if c]
+        b = [(j, c) for j, c in enumerate(other.coeffs) if c]
+        prod = [0] * 23
+        for i, ai in a:
+            for j, bj in b:
+                prod[i + j] += ai * bj
+        for e in range(22, 11, -1):
+            top = prod[e]
+            if top:
+                prod[e - 6] += 2 * top
+                prod[e - 12] -= 2 * top
+        return FQ12(prod[:12])
+
+    __rmul__ = __mul__
+
+    def conjugate(self):
+        """f^(p^6): w -> -w, i.e. negate odd coefficients."""
+        return FQ12([c if i % 2 == 0 else -c for i, c in enumerate(self.coeffs)])
+
+
+def fq2_to_fq12(el: FQ2) -> FQ12:
+    """Embed a0 + a1*u  ->  (a0 - a1) + a1*w^6."""
+    a0, a1 = el.coeffs
+    co = [0] * 12
+    co[0] = a0 - a1
+    co[6] = a1
+    return FQ12(co)
+
+
 # ---------------------------------------------------------------------------
 # Curve ops (projective: (X, Y, Z), point = (X/Z, Y/Z), infinity when Z == 0)
 # ---------------------------------------------------------------------------
 
+B1 = FQ(4)  # G1: y^2 = x^3 + 4
 B2 = FQ2([4, 4])  # the twist: y^2 = x^3 + 4(u + 1)
 
 G1 = (
@@ -340,10 +401,44 @@ def multiply(pt, n: int):
     return result
 
 
+def _straus(points, scalars):
+    """sum k_i P_i by one shared double-and-add over the scalars' bits, adding
+    a precomputed subset sum of the points at each bit (Straus-Shamir)."""
+    field = _field(points[0])
+    table = [infinity(field)]
+    for i in range(1, 1 << len(points)):
+        low = i & -i
+        table.append(add(table[i ^ low], points[low.bit_length() - 1]))
+    acc = None
+    for bit in range(max(k.bit_length() for k in scalars) - 1, -1, -1):
+        if acc is not None:
+            acc = double(acc)
+        idx = sum(((k >> bit) & 1) << i for i, k in enumerate(scalars))
+        if idx:
+            acc = table[idx] if acc is None else add(acc, table[idx])
+    return infinity(field) if acc is None else acc
+
+
 def mul_sub(pt, n: int):
     """Scalar multiplication of an r-order subgroup point (every protocol
-    point).  The same group element as the JAX package's GLV/GLS ladders."""
-    return multiply(pt, n)
+    point), by the endomorphisms as the JAX package's native GLV/GLS
+    ladders: on G1, x^2 P = phi(-P) splits n into two ~128-bit halves; on
+    G2, |x| P = -psi(P) splits it into four 64-bit digits.  The same group
+    element as `multiply`; not valid for points with a cofactor part."""
+    n %= R
+    if n == 0 or is_inf(pt):
+        return infinity(_field(pt))
+    if isinstance(pt[0], FQ):
+        k2, k1 = divmod(n, X_PARAM * X_PARAM)
+        x, y, z = pt
+        return _straus([pt, (FQ(BETA) * x, -y, z)], [k1, k2])
+    digits, q = [], [pt]
+    while n:
+        n, d = divmod(n, -X_PARAM)
+        digits.append(d)
+    while len(q) < len(digits):
+        q.append(neg(psi(q[-1])))
+    return _straus(q, digits)
 
 
 def normalize(pt):
@@ -368,6 +463,145 @@ def eq(p1, p2) -> bool:
     return x1 * z2 == x2 * z1 and y1 * z2 == y2 * z1
 
 
+def is_on_curve(pt, b) -> bool:
+    if is_inf(pt):
+        return True
+    x, y, z = pt
+    return y * y * z == x * x * x + b * z * z * z  # y^2 z = x^3 + b z^3
+
+
+# ---------------------------------------------------------------------------
+# Pairing
+# ---------------------------------------------------------------------------
+
+_W = FQ12([0, 1] + [0] * 10)
+_W2_INV = (_W * _W).inv()
+_W3_INV = (_W * _W * _W).inv()
+
+
+def twist(pt):
+    """Map a G2 point (over Fp2, curve b = 4(u+1)) into E(Fp12) (b = 4)."""
+    x, y, z = pt
+    return (fq2_to_fq12(x) * _W2_INV, fq2_to_fq12(y) * _W3_INV, fq2_to_fq12(z))
+
+
+def cast_g1_to_fq12(pt):
+    x, y, z = pt
+    return tuple(FQ12([c.n] + [0] * 11) for c in (x, y, z))
+
+
+def _linefunc(p1, p2, t):
+    """Line through p1, p2 evaluated at t; returns (numerator, denominator)."""
+    x1, y1, z1 = p1
+    x2, y2, z2 = p2
+    xt, yt, zt = t
+    m_num = y2 * z1 - y1 * z2
+    m_den = x2 * z1 - x1 * z2
+    if not m_den.is_zero():
+        return (m_num * (xt * z1 - x1 * zt) - m_den * (yt * z1 - y1 * zt), m_den * zt * z1)
+    if m_num.is_zero():
+        m_num = 3 * x1 * x1
+        m_den = 2 * y1 * z1
+        return (m_num * (xt * z1 - x1 * zt) - m_den * (yt * z1 - y1 * zt), m_den * zt * z1)
+    return (xt * z1 - x1 * zt, z1 * zt)
+
+
+ATE_LOOP_COUNT = -X_PARAM  # 0xd201000000010000
+_HARD_EXP = (P**4 - P**2 + 1) // R
+
+
+@lru_cache(maxsize=3)
+def _frob_basis(k: int):
+    """w^(i*p^k) for i in 0..11: the basis images under the p^k Frobenius."""
+    wpk = _W ** (P**k)
+    basis = [FQ12.one()]
+    for _ in range(11):
+        basis.append(basis[-1] * wpk)
+    return basis
+
+
+def _frobenius(f: FQ12, k: int) -> FQ12:
+    """f^(p^k): the coefficients are in Fp (fixed); w^i -> w^(i p^k)."""
+    basis = _frob_basis(k)
+    acc = FQ12.zero()
+    for i, c in enumerate(f.coeffs):
+        if c:
+            acc = acc + basis[i] * c
+    return acc
+
+
+def _easy_part(f: FQ12) -> FQ12:
+    """f^((p^6 - 1)(p^2 + 1)): lands in the cyclotomic subgroup, where the
+    inverse is the conjugate."""
+    f2 = f.conjugate() * f.inv()  # f^(p^6 - 1)
+    return _frobenius(f2, 2) * f2
+
+
+def final_exponentiation(f: FQ12) -> FQ12:
+    return _easy_part(f) ** _HARD_EXP
+
+
+def _pow_x(f: FQ12) -> FQ12:
+    """f^x for f in the cyclotomic subgroup (x < 0: the conjugate of f^|x|)."""
+    return (f ** -X_PARAM).conjugate()
+
+
+def _final_exp_cubed(f: FQ12) -> FQ12:
+    """final_exponentiation(f) ** 3, the cheap way: 3 * (p^4 - p^2 + 1) / r
+    = l0 + l1 p + l2 p^2 + l3 p^3 with l3 = (x - 1)^2, l2 = l3 x,
+    l1 = l2 x - l3, l0 = l1 x + 3 (five powers of |x|, 64 bits each, in
+    place of one ~1270-bit power).  3 is prime to r, so it is one exactly
+    where final_exponentiation(f) is: the pairing checks use it."""
+    f = _easy_part(f)
+    b = _pow_x(f) * f.conjugate()  # f^(x - 1)
+    c3 = _pow_x(b) * b.conjugate()  # f^l3
+    c2 = _pow_x(c3)  # f^l2
+    c1 = _pow_x(c2) * c3.conjugate()  # f^l1
+    c0 = _pow_x(c1) * f * f * f  # f^l0
+    return c0 * _frobenius(c1, 1) * _frobenius(c2, 2) * _frobenius(c3, 3)
+
+
+def miller_loop(q_twisted, p_casted) -> FQ12:
+    """Ate Miller loop; inputs are E(Fp12) projective points."""
+    if is_inf(q_twisted) or is_inf(p_casted):
+        return FQ12.one()
+    r_pt = q_twisted
+    f_num, f_den = FQ12.one(), FQ12.one()
+    for b in bin(ATE_LOOP_COUNT)[3:]:  # skip the MSB
+        n_, d_ = _linefunc(r_pt, r_pt, p_casted)
+        f_num = f_num * f_num * n_
+        f_den = f_den * f_den * d_
+        r_pt = double(r_pt)
+        if b == "1":
+            n_, d_ = _linefunc(r_pt, q_twisted, p_casted)
+            f_num = f_num * n_
+            f_den = f_den * d_
+            r_pt = add(r_pt, q_twisted)
+    return f_num / f_den
+
+
+def pairing(q, p, final: bool = True) -> FQ12:
+    """e(p in G1, q in G2) (hbbft's argument order, G2 first)."""
+    f = miller_loop(twist(q), cast_g1_to_fq12(p))
+    return final_exponentiation(f) if final else f
+
+
+def pairing_check_eq(p1, q1, p2, q2) -> bool:
+    """e(p1, q1) == e(p2, q2), as e(p1, q1) * e(-p2, q2) == 1 with one
+    final exponentiation."""
+    f = miller_loop(twist(q1), cast_g1_to_fq12(p1)) * miller_loop(
+        twist(q2), cast_g1_to_fq12(neg(p2)))
+    return _final_exp_cubed(f) == FQ12.one()
+
+
+def pairing_product_check(pairs) -> bool:
+    """prod e(p_i in G1, q_i in G2) == 1 with one final exponentiation."""
+    f = FQ12.one()
+    for p, q in pairs:
+        f = f * miller_loop(twist(q), cast_g1_to_fq12(p))
+    return _final_exp_cubed(f) == FQ12.one()
+
+
 # ---------------------------------------------------------------------------
 # Hashing onto G2, serialization
 # ---------------------------------------------------------------------------
@@ -382,7 +616,27 @@ def _expand_message(msg: bytes, domain: bytes, n_bytes: int) -> bytes:
     return out[:n_bytes]
 
 
+def hash_to_fr(msg: bytes, domain: bytes = b"HBTPU-FR") -> int:
+    return int.from_bytes(_expand_message(msg, domain, 40), "big") % R
+
+
+# Digest-keyed LRU of hash_to_g2: a coin round hashes one document per node
+# and the verify paths hash it again.  Keys are digests of (domain, msg),
+# never the message bodies.
+_H_CACHE: DigestLRU = DigestLRU(4096)
+
+
 def hash_to_g2(msg: bytes, domain: bytes = b"HBTPU-G2") -> tuple:
+    """`_hash_to_g2` through the digest cache."""
+    key = hashlib.sha256(len(domain).to_bytes(4, "big") + domain + msg).digest()
+    pt = _H_CACHE.get(key)
+    if pt is None:
+        pt = _hash_to_g2(msg, domain)
+        _H_CACHE.put(key, pt)
+    return pt
+
+
+def _hash_to_g2(msg: bytes, domain: bytes = b"HBTPU-G2") -> tuple:
     """Deterministic hash onto the r-torsion of E'(Fp2): try-and-increment
     on x, then cofactor clearing.  The same group element as the JAX
     package's (and its native engine's) hash_to_g2."""
@@ -400,17 +654,35 @@ def hash_to_g2(msg: bytes, domain: bytes = b"HBTPU-G2") -> tuple:
         ctr += 1
 
 
-# psi = untwist-Frobenius-twist on E'(Fp2).  Cofactor clearing is
-# Budroni-Pintore eta = (x^2-x-1) + (x-1) psi + 2 psi^2, which maps all of
-# E'(Fp2) into G2.
+# psi = untwist-Frobenius-twist on E'(Fp2): eigenvalue x on G2; phi(x, y) =
+# (beta x, y) on E(Fp): eigenvalue -x^2 on G1.  A point passing either test
+# has order dividing r.  Cofactor clearing is Budroni-Pintore
+# eta = (x^2-x-1) + (x-1) psi + 2 psi^2, which maps all of E'(Fp2) into G2.
 _PSI_CX = (FQ2([1, 1]) ** ((P - 1) // 3)).inv()
 _PSI_CY = (FQ2([1, 1]) ** ((P - 1) // 2)).inv()
+_SQRT_M3 = pow(P - 3, (P + 1) // 4, P)
+BETA = (-1 + _SQRT_M3) * pow(2, -1, P) % P  # a cube root of unity for phi
 
 
 def psi(pt):
     """The p-power endomorphism on E'(Fp2) (projective-safe)."""
     x, y, z = pt
     return (x.conjugate() * _PSI_CX, y.conjugate() * _PSI_CY, z.conjugate())
+
+
+def in_g1_subgroup(pt) -> bool:
+    """phi(P) == [-x^2]P."""
+    if is_inf(pt):
+        return True
+    x, y, z = pt
+    return eq((FQ(BETA) * x, y, z), neg(multiply(pt, X_PARAM * X_PARAM)))
+
+
+def in_g2_subgroup(pt) -> bool:
+    """psi(P) == [x]P."""
+    if is_inf(pt):
+        return True
+    return eq(psi(pt), neg(multiply(pt, -X_PARAM)))
 
 
 def clear_cofactor_g2(pt):
@@ -438,6 +710,27 @@ def g1_to_bytes(pt) -> bytes:
     return bytes(out)
 
 
+def g1_from_bytes(raw: bytes):
+    if len(raw) != 48:
+        raise ValueError("G1 encoding must be 48 bytes")
+    if raw[0] & 0x40:
+        return infinity(FQ)
+    sign = (raw[0] >> 5) & 1
+    x = FQ(int.from_bytes(bytes([raw[0] & 0x1F]) + raw[1:], "big"))
+    y = (x * x * x + B1).sqrt()
+    if y is None:
+        raise ValueError("invalid G1 x coordinate")
+    if _fq_sign(y.n) != sign:
+        y = -y
+    pt = (x, y, FQ(1))
+    if not is_on_curve(pt, B1):
+        raise ValueError("point not on curve")
+    if not in_g1_subgroup(pt):
+        # a cofactor component would defeat batch verification's soundness
+        raise ValueError("G1 point not in the r-order subgroup")
+    return pt
+
+
 def g2_to_bytes(pt) -> bytes:
     """96-byte compressed encoding (c1 || c0, flags in first byte)."""
     aff = normalize(pt)
@@ -450,3 +743,28 @@ def g2_to_bytes(pt) -> bytes:
     if sign:
         out[0] |= 0x20
     return bytes(out)
+
+
+def g2_from_bytes(raw: bytes):
+    if len(raw) != 96:
+        raise ValueError("G2 encoding must be 96 bytes")
+    if raw[0] & 0x40:
+        return infinity(FQ2)
+    sign = (raw[0] >> 5) & 1
+    c1 = int.from_bytes(bytes([raw[0] & 0x1F]) + raw[1:48], "big")
+    c0 = int.from_bytes(raw[48:96], "big")
+    x = FQ2([c0, c1])
+    y = (x * x * x + B2).sqrt()
+    if y is None:
+        raise ValueError("invalid G2 x coordinate")
+    ysign = _fq_sign(y.coeffs[1]) if y.coeffs[1] != 0 else _fq_sign(y.coeffs[0])
+    if ysign != sign:
+        y = -y
+    pt = (x, y, FQ2.one())
+    if not is_on_curve(pt, B2):
+        raise ValueError("point not on curve")
+    if not in_g2_subgroup(pt):
+        # E'(Fp2)'s cofactor has small factors (13^2, 23^2, ...): a mauled
+        # signature sig + T would pass a batch check with probability ~1/13
+        raise ValueError("G2 point not in the r-order subgroup")
+    return pt

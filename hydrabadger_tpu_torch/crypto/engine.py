@@ -1,36 +1,40 @@
 """The port's CryptoEngine: a host engine, a GPU engine, and their registry.
 
-Counterpart of hydrabadger_tpu/crypto/engine.py for the entry points the
-port has kernels for.  Every piece of crypto-heavy batch work a consensus
-core performs goes through one engine, so the host reference path and
-the batched device path are interchangeable without touching protocol
-logic.  Two engines:
+Counterpart of hydrabadger_tpu/crypto/engine.py.  Every piece of
+crypto-heavy work a consensus core performs goes through one engine, so
+the host reference path and the device path are interchangeable without
+touching protocol logic.  Two engines:
 
 * `CpuEngine` ("cpu"): the host versions, copied from the JAX package's
-  CpuEngine, of exactly the entries GpuEngine overrides: per-instance
-  numpy Reed-Solomon (crypto/rs.py) and the pure-Python BLS12-381 oracle
-  (crypto/threshold.py).
-* `GpuEngine` ("gpu", `device="cuda"`): `rs_encode_batch` /
+  CpuEngine: per-instance numpy Reed-Solomon (crypto/rs.py), the host
+  shard sketches (crypto/homhash.py) and the pure-Python BLS12-381 oracle
+  (crypto/threshold.py).  It holds the per-item entries the consensus
+  cores call (`rs_encode_bytes`, `rs_reconstruct_data`, `homhash_batch`,
+  `encrypt`, the decryption and signature shares with their verification
+  and combines, per-frame `sign` / `verify` with a process-wide verdict
+  cache) and the batch entries.
+* `GpuEngine` ("gpu", `device="cuda"`) overrides, as the JAX TpuEngine
+  does, only batch entries: `homhash_batch` on kernel B1
+  (ops/homhash_torch, the low-comm broadcast's shard sketches, the one
+  device call the consensus cores make), `rs_encode_batch` /
   `rs_reconstruct_batch` on kernel B1 (ops/rs_torch), `sign_share_batch`
   and `combine_signature_shares_batch` on kernel B4 (ops/bls_g2_torch),
-  `decrypt_share_batch` and `combine_decryption_shares_batch` on kernel
-  B2 (ops/bls_torch), each batch one device dispatch.  Its `submit_*`
-  twins dispatch at once and defer only the device-to-host copy and the
-  affine conversion (crypto/futures).  `device="cpu"` runs the kernels'
-  plain versions on the host; `use_kernel=False` runs them on the card.
+  `decrypt_share_batch` and `combine_decryption_shares_batch` on kernel B2
+  (ops/bls_torch), each batch one device dispatch.  Every per-item entry
+  stays the host code it inherits.  Its `submit_*` twins dispatch at once
+  and defer only the device-to-host copy and the host conversion
+  (crypto/futures).  `device="cpu"` runs the kernels' plain versions on
+  the host; `use_kernel=False` runs them on the card.
 
-Both engines hash each distinct document onto G2 once and keep the point
-in a bounded per-engine cache (`hash_to_g2` is pure Python, ~28 ms).
 The registry (`get_engine`, `register_engine`) is the port's own; nothing
 is registered into the JAX package.  Its default is "gpu", which raises
 without a card; the host engine, the oracle, is had only by its name.
-Signature-share and decryption-share verification (pairings) are not
+The TCP tier's `verify_batch` and the pairing batches (`*_pairs`) are not
 ported yet.
 """
 from __future__ import annotations
 
 import hashlib
-from collections import OrderedDict
 from functools import lru_cache
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -38,18 +42,26 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import bls_g2_torch, bls_torch, limbs, rs_torch
-from . import futures
+from ..ops import bls_g2_torch, bls_torch, homhash_torch, limbs, rs_torch
+from ..utils.lru import DigestLRU
+from . import bls12_381 as bls
+from . import futures, homhash
 from . import threshold as th
-from .bls12_381 import hash_to_g2, mul_sub
 from .rs import ReedSolomon
-
-HASH_CACHE_SIZE = 4096
 
 
 @lru_cache(maxsize=256)
 def _rs(data_shards: int, parity_shards: int) -> ReedSolomon:
     return ReedSolomon(data_shards, parity_shards)
+
+
+# Verified-frame verdicts shared by every engine and node of a process: a
+# frame reaches every in-process node with the same (pk, sig, body).
+_VERIFIED_FRAMES: "DigestLRU[bool]" = DigestLRU(8192)
+
+
+def _frame_key(pk: th.PublicKey, sig: th.Signature, msg: bytes) -> bytes:
+    return hashlib.sha256(pk.to_bytes() + sig.to_bytes() + hashlib.sha256(msg).digest()).digest()
 
 
 def quorum_prep(jobs_shares):
@@ -74,23 +86,21 @@ class CpuEngine:
 
     name = "cpu"
 
-    def __init__(self):
-        self._h_cache: "OrderedDict[bytes, tuple]" = OrderedDict()
-
     def hash_to_g2(self, msg: bytes) -> tuple:
-        """H(msg) on G2, cached by the message's digest (LRU, 4096 points)."""
-        key = hashlib.sha256(msg).digest()
-        pt = self._h_cache.get(key)
-        if pt is None:
-            pt = hash_to_g2(msg)
-            self._h_cache[key] = pt
-            if len(self._h_cache) > HASH_CACHE_SIZE:
-                self._h_cache.popitem(last=False)
-        else:
-            self._h_cache.move_to_end(key)
-        return pt
+        """H(msg) on G2 (crypto/bls12_381's digest cache)."""
+        return bls.hash_to_g2(msg)
 
     # -- Reed-Solomon erasure coding (hbbft::broadcast's inner loop) --------
+
+    def rs_encode_bytes(self, payload: bytes, data_shards: int, parity_shards: int
+                        ) -> List[bytes]:
+        """Shard one payload into data + parity shards (systematic)."""
+        return _rs(data_shards, parity_shards).encode_bytes(payload)
+
+    def rs_reconstruct_data(self, slots: Sequence[Optional[bytes]], data_shards: int,
+                            parity_shards: int) -> bytes:
+        """Recover the payload from any `data_shards` surviving shards."""
+        return _rs(data_shards, parity_shards).reconstruct_data(slots)
 
     def rs_encode_batch(self, data, data_shards: int, parity_shards: int) -> np.ndarray:
         """[B, k, L] -> [B, k+p, L]; the host baseline loops per instance."""
@@ -123,13 +133,118 @@ class CpuEngine:
             "rs_reconstruct_batch",
         )
 
+    # -- homomorphic shard sketches (the low-comm broadcast's verify fold) ---
+
+    def homhash_batch(self, shards: Sequence[bytes], seed: bytes) -> List[bytes]:
+        """Sketch equal-length shards: one GF(2^8) product over all of a
+        broadcast instance's shards at hand (crypto/homhash)."""
+        return homhash.sketch_shards(list(shards), bytes(seed))
+
+    def submit_homhash_batch(self, shards: Sequence[bytes], seed: bytes) -> futures.CryptoFuture:
+        return futures.immediate(self.homhash_batch(shards, seed), "homhash_batch")
+
+    # -- per-frame BLS signatures -------------------------------------------
+
+    def sign(self, sk: th.SecretKey, msg: bytes) -> th.Signature:
+        return sk.sign(msg)
+
+    def verify(self, pk: th.PublicKey, sig: th.Signature, msg: bytes) -> bool:
+        key = _frame_key(pk, sig, msg)
+        ok = _VERIFIED_FRAMES.get(key)
+        if ok is None:
+            ok = pk.verify(sig, msg)
+            _VERIFIED_FRAMES.put(key, ok)
+        return ok
+
+    # -- threshold encryption (hbbft::threshold_decrypt) --------------------
+
+    def encrypt(self, pk: th.PublicKey, msg: bytes, rng) -> th.Ciphertext:
+        return pk.encrypt(msg, rng)
+
+    def decrypt_share(self, sk_share: th.SecretKeyShare, ct: th.Ciphertext) -> th.DecryptionShare:
+        return sk_share.decrypt_share(ct)
+
+    def verify_decryption_share(self, pk_share: th.PublicKeyShare, share: th.DecryptionShare,
+                                ct: th.Ciphertext) -> bool:
+        return pk_share.verify_decryption_share(share, ct)
+
+    def combine_decryption_shares(self, pk_set: th.PublicKeySet,
+                                  shares: Mapping[int, th.DecryptionShare],
+                                  ct: th.Ciphertext) -> bytes:
+        return pk_set.decrypt(shares, ct)
+
+    @staticmethod
+    def _rlc_coeffs(parts: Sequence[bytes], n: int) -> List[int]:
+        """Fiat-Shamir random-linear-combination coefficients over a batch:
+        every element binds into the seed, so a forged element survives
+        aggregation with probability ~2^-127."""
+        h = hashlib.sha256()
+        for p in parts:
+            h.update(hashlib.sha256(p).digest())
+        seed = h.digest()
+        return [int.from_bytes(hashlib.sha256(seed + i.to_bytes(4, "big")).digest()[:16], "big") | 1
+                for i in range(n)]
+
+    def verify_decryption_shares_batch(self, pk_shares: Sequence[th.PublicKeyShare],
+                                       shares: Sequence[th.DecryptionShare],
+                                       ct: th.Ciphertext) -> List[bool]:
+        """n same-ciphertext decryption shares with TWO pairings:
+        e(sum r_i S_i, H) == e(sum r_i pk_i, W); on failure, share by share
+        to attribute faults."""
+        n = len(shares)
+        if n == 0:
+            return []
+        if n == 1:
+            return [pk_shares[0].verify_decryption_share(shares[0], ct)]
+        rs = self._rlc_coeffs([p.to_bytes() for p in pk_shares] + [s.to_bytes() for s in shares]
+                              + [ct.to_bytes()], n)
+        agg_s = agg_pk = bls.infinity(bls.FQ)
+        for pk, s, r in zip(pk_shares, shares, rs):
+            agg_s = bls.add(agg_s, bls.mul_sub(s.point, r))
+            agg_pk = bls.add(agg_pk, bls.mul_sub(pk.point, r))
+        if bls.pairing_check_eq(agg_s, th._te_hash(ct), agg_pk, ct.w):
+            return [True] * n
+        return [pk.verify_decryption_share(s, ct) for pk, s in zip(pk_shares, shares)]
+
     # -- threshold signatures (hbbft::threshold_sign; the common coin) ------
+
+    def sign_share(self, sk_share: th.SecretKeyShare, msg: bytes) -> th.SignatureShare:
+        return sk_share.sign_share(msg)
+
+    def verify_signature_share(self, pk_set: th.PublicKeySet, idx: int,
+                               share: th.SignatureShare, msg: bytes) -> bool:
+        return pk_set.verify_signature_share(idx, share, msg)
+
+    def verify_signature_shares_batch(self, pk_set: th.PublicKeySet, idxs: Sequence[int],
+                                      shares: Sequence[th.SignatureShare],
+                                      msg: bytes) -> List[bool]:
+        """n same-message signature shares with TWO pairings:
+        e(G1, sum r_i sigma_i) == e(sum r_i pk_i, H(msg))."""
+        n = len(shares)
+        if n == 0:
+            return []
+        if n == 1:
+            return [pk_set.verify_signature_share(idxs[0], shares[0], msg)]
+        pk_shares = [pk_set.public_key_share(i) for i in idxs]
+        rs = self._rlc_coeffs([p.to_bytes() for p in pk_shares] + [s.to_bytes() for s in shares]
+                              + [hashlib.sha256(msg).digest()], n)
+        agg_sig, agg_pk = bls.infinity(bls.FQ2), bls.infinity(bls.FQ)
+        for pk, s, r in zip(pk_shares, shares, rs):
+            agg_sig = bls.add(agg_sig, bls.mul_sub(s.point, r))
+            agg_pk = bls.add(agg_pk, bls.mul_sub(pk.point, r))
+        if bls.pairing_check_eq(bls.G1, agg_sig, agg_pk, bls.hash_to_g2(msg)):
+            return [True] * n
+        return [pk_set.verify_signature_share(i, s, msg) for i, s in zip(idxs, shares)]
+
+    def combine_signature_shares(self, pk_set: th.PublicKeySet,
+                                 shares: Mapping[int, th.SignatureShare]) -> th.Signature:
+        return pk_set.combine_signatures(shares)
 
     def sign_share_batch(self, items: Sequence[Tuple[th.SecretKeyShare, bytes]]
                          ) -> List[th.SignatureShare]:
         """sk_i * H(m) across (node, instance) coin rounds, one host ladder
         each; one hash per distinct message."""
-        return [th.SignatureShare(mul_sub(self.hash_to_g2(msg), sk.scalar)) for sk, msg in items]
+        return [th.SignatureShare(bls.mul_sub(self.hash_to_g2(msg), sk.scalar)) for sk, msg in items]
 
     def submit_sign_share_batch(self, items) -> futures.CryptoFuture:
         return futures.immediate(self.sign_share_batch(items), "sign_share_batch")
@@ -177,6 +292,19 @@ class GpuEngine(CpuEngine):
 
     def __repr__(self) -> str:
         return f"<GpuEngine {self.device}{'' if self.use_kernel else ' plain'}>"
+
+    # -- shard sketches on kernel B1 ----------------------------------------
+
+    def submit_homhash_batch(self, shards: Sequence[bytes], seed: bytes) -> futures.CryptoFuture:
+        """All shards' sketches as one product (ops/homhash_torch)."""
+        if not shards:
+            return futures.immediate([], "homhash_batch")
+        arr = np.stack([np.frombuffer(s, dtype=np.uint8) for s in shards])
+        finish = homhash_torch.sketch_batch_submit(arr, bytes(seed), self.device, self.use_kernel)
+        return futures.submit(lambda: [row.tobytes() for row in finish()], "homhash_batch")
+
+    def homhash_batch(self, shards: Sequence[bytes], seed: bytes) -> List[bytes]:
+        return self.submit_homhash_batch(shards, seed).result()
 
     # -- Reed-Solomon on kernel B1 ------------------------------------------
 

@@ -3,12 +3,14 @@
 The port's own copy of the matrix route of `hydrabadger_tpu/crypto/rs.py`:
 a proposal is split into `data_shards` pieces, extended with
 `parity_shards` parity pieces, and any `data_shards` of the
-`data_shards + parity_shards` total reconstruct the original.
+`data_shards + parity_shards` total reconstruct the original;
+`encode_bytes` / `reconstruct_data` do it for a byte payload, as the
+consensus cores' Broadcast calls them.
 
 Encoding matrix: Vandermonde V[n, k] normalised so the top k x k block is
 the identity (systematic), so every k x k submatrix is invertible.
 
-Left out on purpose, since the fast-path epoch never reaches them: the
+Left out on purpose, since no path of the port reaches them: the
 ctypes C++ library (`crypto/_native`) and the additive-FFT routing
 (`ops/rs_fft`).  Every product here is `gf256.matmul`, which both of those
 equal byte for byte.  This module builds the encode and decode matrices
@@ -74,6 +76,17 @@ class ReedSolomon:
             )
         return np.concatenate([data, self._parity_of(data)], axis=0)
 
+    def encode_bytes(self, payload: bytes) -> list[bytes]:
+        """Pad and split a byte string into n shards (shards 0..k-1 carry
+        data): a 4-byte big-endian length prefix, the payload, zeros to a
+        multiple of data_shards (hbbft broadcast's layout)."""
+        prefixed = len(payload).to_bytes(4, "big") + payload
+        shard_len = -(-len(prefixed) // self.data_shards)
+        padded = prefixed + b"\0" * (shard_len * self.data_shards - len(prefixed))
+        data = np.frombuffer(padded, dtype=np.uint8).reshape(self.data_shards, shard_len)
+        full = self.encode(data)
+        return [full[i].tobytes() for i in range(self.total_shards)]
+
     def reconstruct(
         self, shards: Sequence[Optional[np.ndarray]], data_only: bool = False
     ) -> list[np.ndarray]:
@@ -120,6 +133,16 @@ class ReedSolomon:
                 for row, i in enumerate(missing_parity):
                     out[i] = recovered[row]
         return [o for o in out if o is not None] if data_only else out  # type: ignore
+
+    def reconstruct_data(self, shards: Sequence[Optional[bytes]]) -> bytes:
+        """Recover the payload of `encode_bytes` from >= k shards (bytes or None)."""
+        arrays = [np.frombuffer(s, dtype=np.uint8) if s is not None else None for s in shards]
+        full = self.reconstruct(arrays, data_only=True)
+        joined = b"".join(full[i].tobytes() for i in range(self.data_shards))
+        length = int.from_bytes(joined[:4], "big")
+        if length > len(joined) - 4:
+            raise ReedSolomonError("corrupt length prefix")
+        return joined[4 : 4 + length]
 
     def verify(self, shards: Sequence[np.ndarray]) -> bool:
         """Check parity rows match the data rows."""

@@ -1,41 +1,56 @@
-"""Shamir key sets, threshold decryption and signature shares — the host oracle.
+"""Threshold BLS signatures and threshold encryption — the host oracle.
 
-Copy of what the port's epochs need of hydrabadger_tpu/crypto/threshold.py:
-the Fr helpers, `SecretKeySet` (dealer-side master polynomial; share i is
-poly(i+1)), the Lagrange coefficients at zero, interpolation in the
-exponent, the G2 `Signature` / `SignatureShare` (the common coin is a
-signature's parity), `SecretKeyShare.sign_share` and
-`PublicKeySet.combine_signatures`, and the label-free hybrid threshold
-encryption (U, V, W):
+Copy of hydrabadger_tpu/crypto/threshold.py without its native engine:
 
-    U = g1*r,  V = m xor KDF(pk*r),  W = H_G2(U, V)*r
+  - plain BLS signatures: pk in G1, sig = H_G2(msg) * sk in G2
+    (`SecretKey.sign`, `PublicKey.verify`);
+  - Shamir secret sharing of sk over Fr (share i is poly(i+1)),
+    `poly_interpolate_at_zero`, Lagrange coefficients at zero and
+    interpolation in the exponent;
+  - signature shares and their combine (the common coin is a
+    signature's parity), `PublicKeySet.verify_signature_share`;
+  - the label-free hybrid threshold encryption (U, V, W):
 
-with `PublicKey.encrypt`, `SecretKeyShare.decrypt_share` (U*sk_i, a
-`DecryptionShare`), `PublicKeySet.decrypt` (combine in the exponent,
-then the KDF unwrap) and `unwrap_ciphertext`.  Every function draws from
-the caller's `random.Random` in the same order as the original, so a seed
-gives the same keys and ciphertexts in both packages.  Pairing
-verification (of ciphertexts and of shares) is not copied yet.
+        U = g1*r,  V = m xor KDF(pk*r),  W = H_G2(U, V)*r
+
+    with `Ciphertext.verify` (the CCA pairing check), decryption shares
+    U*sk_i verified by pairing (`PublicKeyShare.verify_decryption_share`),
+    their combine in the exponent and the KDF unwrap.
+
+Every type has `to_bytes` / `from_bytes`, byte-equal to the JAX package's,
+so keys, ciphertexts and shares cross between the packages.  Every
+function draws from the caller's `random.Random` in the same order as the
+original, so a seed gives the same keys and ciphertexts in both packages.
 """
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import Mapping, Sequence
+from typing import Mapping, Optional, Sequence
 
+from ..utils.lru import DigestLRU
 from . import bls12_381 as bls
 from .bls12_381 import (
+    FQ,
     G1,
     R,
     add,
     eq,
+    g1_from_bytes,
     g1_to_bytes,
+    g2_from_bytes,
     g2_to_bytes,
     hash_to_g2,
     infinity,
     mul_sub,
-    multiply,
+    pairing_check_eq,
 )
+
+_CT_VERDICTS: "DigestLRU[bool]" = DigestLRU(4096)
+
+# ---------------------------------------------------------------------------
+# Fr helpers
+# ---------------------------------------------------------------------------
 
 
 def fr_random(rng) -> int:
@@ -71,13 +86,19 @@ def lagrange_coeffs_at_zero(xs: Sequence[int]) -> list[int]:
     return out
 
 
+def poly_interpolate_at_zero(points: Mapping[int, int]) -> int:
+    """Interpolate the polynomial through {x: y} (distinct x in Fr) at 0."""
+    xs = list(points)
+    return sum(points[x] * lam for x, lam in zip(xs, lagrange_coeffs_at_zero(xs))) % R
+
+
 def interpolate_g_at_zero(points: Mapping[int, tuple]) -> tuple:
-    """Lagrange interpolation *in the exponent*: sum of lambda_i * P_i at x=0."""
+    """Lagrange interpolation *in the exponent*: sum of lambda_i * P_i at x=0
+    (shares are subgroup points: computed, or decoded with the check)."""
     xs = list(points.keys())
-    first = points[xs[0]]
-    acc = infinity(type(first[0]))
+    acc = infinity(bls._field(points[xs[0]]))
     for xi, li in zip(xs, lagrange_coeffs_at_zero(xs)):
-        acc = add(acc, multiply(points[xi], li))
+        acc = add(acc, mul_sub(points[xi], li))
     return acc
 
 
@@ -91,6 +112,16 @@ def unwrap_ciphertext(g, ct: "Ciphertext") -> bytes:
     return bytes(a ^ b for a, b in zip(ct.v, _kdf(g, len(ct.v))))
 
 
+def _te_hash(ct: "Ciphertext") -> tuple:
+    """H_G2(U, V), the point W is a multiple of."""
+    return hash_to_g2(g1_to_bytes(ct.u) + ct.v, b"HBTPU-TE")
+
+
+# ---------------------------------------------------------------------------
+# Keys and signatures
+# ---------------------------------------------------------------------------
+
+
 @dataclass(frozen=True)
 class Signature:
     """BLS signature: a G2 point."""
@@ -99,6 +130,10 @@ class Signature:
 
     def to_bytes(self) -> bytes:
         return g2_to_bytes(self.point)
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "Signature":
+        return cls(g2_from_bytes(raw))
 
     def parity(self) -> bool:
         """Deterministic bit of the signature — the common-coin value."""
@@ -121,12 +156,33 @@ class PublicKey:
 
     point: tuple
 
+    def to_bytes(self) -> bytes:
+        return g1_to_bytes(self.point)
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "PublicKey":
+        return cls(g1_from_bytes(raw))
+
+    def verify(self, sig: Signature, msg: bytes) -> bool:
+        return pairing_check_eq(G1, sig.point, self.point, hash_to_g2(msg))  # e(g1, sig) == e(pk, H)
+
     def encrypt(self, msg: bytes, rng) -> "Ciphertext":
         r = fr_random(rng)
         u = mul_sub(G1, r)
         v = bytes(a ^ b for a, b in zip(msg, _kdf(mul_sub(self.point, r), len(msg))))
         w = mul_sub(hash_to_g2(g1_to_bytes(u) + v, b"HBTPU-TE"), r)
         return Ciphertext(u, v, w)
+
+    def __eq__(self, other):
+        return isinstance(other, PublicKey) and eq(self.point, other.point)
+
+    def __hash__(self):
+        return hash(self.to_bytes())
+
+
+class PublicKeyShare(PublicKey):
+    def verify_decryption_share(self, share: "DecryptionShare", ct: "Ciphertext") -> bool:
+        return pairing_check_eq(share.point, _te_hash(ct), self.point, ct.w)  # e(S_i, H) == e(pk_i, W)
 
 
 @dataclass(frozen=True)
@@ -135,9 +191,33 @@ class SecretKey:
 
     scalar: int
 
+    @classmethod
+    def random(cls, rng) -> "SecretKey":
+        return cls(fr_random(rng))
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "SecretKey":
+        return cls(int.from_bytes(raw, "big") % R)
+
+    def to_bytes(self) -> bytes:
+        return self.scalar.to_bytes(32, "big")
+
     def __repr__(self) -> str:
         # never the scalar
         return f"<{type(self).__name__} [redacted]>"
+
+    def public_key(self) -> PublicKey:
+        return PublicKey(mul_sub(G1, self.scalar))
+
+    def sign(self, msg: bytes) -> Signature:
+        return Signature(mul_sub(hash_to_g2(msg), self.scalar))
+
+    def decrypt(self, ct: "Ciphertext", verify: bool = True) -> Optional[bytes]:
+        """Non-threshold decryption by the whole key's owner; `verify=False`
+        skips the CCA pairing check."""
+        if verify and not ct.verify():
+            return None
+        return unwrap_ciphertext(mul_sub(ct.u, self.scalar), ct)
 
 
 class SecretKeyShare(SecretKey):
@@ -147,6 +227,14 @@ class SecretKeyShare(SecretKey):
     def decrypt_share(self, ct: "Ciphertext") -> "DecryptionShare":
         return DecryptionShare(mul_sub(ct.u, self.scalar))
 
+    def public_key_share(self) -> PublicKeyShare:
+        return PublicKeyShare(mul_sub(G1, self.scalar))
+
+
+# ---------------------------------------------------------------------------
+# Threshold encryption
+# ---------------------------------------------------------------------------
+
 
 @dataclass(frozen=True)
 class Ciphertext:
@@ -154,8 +242,22 @@ class Ciphertext:
     v: bytes
     w: tuple  # G2
 
+    def verify(self) -> bool:
+        """CCA check: e(g1, W) == e(U, H(U, V)).  Verdicts are cached by the
+        ciphertext's digest: every in-process node checks the same one."""
+        key = hashlib.sha256(self.to_bytes()).digest()
+        ok = _CT_VERDICTS.get(key)
+        if ok is None:
+            ok = pairing_check_eq(G1, self.w, self.u, _te_hash(self))
+            _CT_VERDICTS.put(key, ok)
+        return ok
+
     def to_bytes(self) -> bytes:
         return g1_to_bytes(self.u) + g2_to_bytes(self.w) + self.v
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "Ciphertext":
+        return cls(g1_from_bytes(raw[:48]), raw[144:], g2_from_bytes(raw[48:144]))
 
     def __eq__(self, other):
         return (isinstance(other, Ciphertext) and eq(self.u, other.u) and self.v == other.v
@@ -168,6 +270,18 @@ class Ciphertext:
 @dataclass(frozen=True)
 class DecryptionShare:
     point: tuple  # G1: U * sk_i
+
+    def to_bytes(self) -> bytes:
+        return g1_to_bytes(self.point)
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "DecryptionShare":
+        return cls(g1_from_bytes(raw))
+
+
+# ---------------------------------------------------------------------------
+# Key sets (Shamir)
+# ---------------------------------------------------------------------------
 
 
 class SecretKeySet:
@@ -203,6 +317,8 @@ class PublicKeySet:
 
     def __init__(self, commitment: Sequence[tuple]):
         self.commitment = list(commitment)
+        # share keys are pure in i and asked for every epoch: one per index
+        self._share_cache: dict = {}
 
     @property
     def threshold(self) -> int:
@@ -210,6 +326,19 @@ class PublicKeySet:
 
     def public_key(self) -> PublicKey:
         return PublicKey(self.commitment[0])
+
+    def public_key_share(self, i: int) -> PublicKeyShare:
+        share = self._share_cache.get(i)
+        if share is None:
+            x, acc, xk = i + 1, infinity(FQ), 1
+            for c in self.commitment:
+                acc = add(acc, mul_sub(c, xk))
+                xk = xk * x % R
+            share = self._share_cache[i] = PublicKeyShare(acc)
+        return share
+
+    def verify_signature_share(self, i: int, share: SignatureShare, msg: bytes) -> bool:
+        return self.public_key_share(i).verify(share, msg)
 
     def combine_signatures(self, shares: Mapping[int, SignatureShare]) -> Signature:
         """Lagrange-combine >= t+1 verified shares (indexed by node i)."""
@@ -224,3 +353,19 @@ class PublicKeySet:
             raise ValueError(f"need {self.threshold + 1} shares, got {len(shares)}")
         pts = {i + 1: s.point for i, s in shares.items()}
         return unwrap_ciphertext(interpolate_g_at_zero(pts), ct)
+
+    def to_bytes(self) -> bytes:
+        return b"".join(g1_to_bytes(c) for c in self.commitment)
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "PublicKeySet":
+        if len(raw) % 48:
+            raise ValueError("bad PublicKeySet encoding")
+        return cls([g1_from_bytes(raw[i : i + 48]) for i in range(0, len(raw), 48)])
+
+    def __eq__(self, other):
+        return (isinstance(other, PublicKeySet) and len(self.commitment) == len(other.commitment)
+                and all(eq(a, b) for a, b in zip(self.commitment, other.commitment)))
+
+    def __hash__(self):
+        return hash(self.to_bytes())

@@ -1,0 +1,107 @@
+"""Process-local counters and gauges with high-water marks: the port's copy
+of the parts of hydrabadger_tpu/obs/metrics.py that the sim, the futures
+and the sketch plane use.  `snapshot()` returns one JSON-able dict."""
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+# the futures' overlap gauges (crypto/futures.stamp_gauges)
+DEVICE_OVERLAP_RATIO = "device_overlap_ratio"
+DEVICE_IDLE_S = "device_idle_s"
+DEVICE_OVERLAP_HAS_DEVICE = "device_overlap_has_device"
+
+# the router's byte meter, mirrored by SimNetwork.run
+BYTES_TX_TOTAL = "bytes_tx_total"
+BYTES_RX_TOTAL = "bytes_rx_total"
+BYTES_PER_EPOCH = "bytes_per_epoch"
+
+# the sim's queue and adversary counters
+ROUTER_QUEUE_DEPTH = "router_queue_depth"
+ROUTER_ADV_ABSORBED = "router_adv_absorbed"
+ROUTER_ADV_EMITTED = "router_adv_emitted"
+BYZ_DUP_SUPPRESSED = "byz_dup_suppressed"
+
+# the sketch plane's lanes per dispatch (ops/homhash_torch)
+HOMHASH_REAL_LANES = "homhash_real_lanes"
+HOMHASH_PAD_LANES = "homhash_pad_lanes"
+HOMHASH_LANE_OCCUPANCY = "homhash_lane_occupancy"
+
+# transaction latency (obs/latency.py)
+TXN_LATENCY_P50_S = "txn_latency_p50_s"
+TXN_LATENCY_P90_S = "txn_latency_p90_s"
+TXN_LATENCY_P99_S = "txn_latency_p99_s"
+TXN_LATENCY_P999_S = "txn_latency_p999_s"
+TXN_SUBMITTED = "txn_submitted"
+TXN_RESUBMITTED = "txn_resubmitted"
+TXN_COMMITTED = "txn_committed"
+
+
+class Counter:
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def inc(self, n: int = 1) -> None:
+        self.value += n
+
+
+class Gauge:
+    """Last-set value plus the high-water mark since creation."""
+
+    __slots__ = ("value", "high_water")
+
+    def __init__(self):
+        self.value = 0
+        self.high_water = 0
+
+    def set(self, v) -> None:
+        self.value = v
+        if v > self.high_water:
+            self.high_water = v
+
+    track = set
+
+
+class MetricsRegistry:
+    """Name -> metric; get-or-create accessors, one-shot snapshot."""
+
+    def __init__(self):
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+        self._lock = threading.Lock()
+
+    def counter(self, name: str) -> Counter:
+        c = self._counters.get(name)
+        if c is None:
+            with self._lock:
+                c = self._counters.setdefault(name, Counter())
+        return c
+
+    def gauge(self, name: str) -> Gauge:
+        g = self._gauges.get(name)
+        if g is None:
+            with self._lock:
+                g = self._gauges.setdefault(name, Gauge())
+        return g
+
+    def snapshot(self) -> dict:
+        return {
+            "counters": {k: c.value for k, c in sorted(self._counters.items())},
+            "gauges": {k: {"value": g.value, "high_water": g.high_water}
+                       for k, g in sorted(self._gauges.items())},
+        }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+
+
+_DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry (the sketch plane's lane counters)."""
+    return _DEFAULT

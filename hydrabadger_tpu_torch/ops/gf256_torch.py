@@ -323,7 +323,10 @@ def gf_matmul(
             raise ValueError(f"out on {out.device}, data on {data.device}")
         out3 = out if out.ndim == 3 else out.unsqueeze(0)
     if data.device.type == "cuda":
-        _launch(op, data3, out3)
+        if k == 0:
+            out3.zero_()  # an empty sum: no launch (`chunks(m, 0)` is empty)
+        else:
+            _launch(op, data3, out3)
     else:
         out3.copy_(gf_matmul_bits_plain(op, data3))
     return out3 if data.ndim == 3 else out3[0]

@@ -1,0 +1,91 @@
+"""CLI for the port's in-process simulator.
+
+    python -m hydrabadger_tpu_torch.sim --nodes 16 --epochs 3 --rbc lowcomm
+    python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 3 --json
+    python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 1 \
+        --encrypt --coin threshold --verify --json
+
+The JAX CLI's flags for what is ported, plus `--engine {gpu,cpu}` (default
+gpu, which raises without a card) and `--device` (the GPU engine's card).
+Exits 0 if and only if agreement held.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from ..crypto.engine import GpuEngine
+from .network import (
+    SimConfig,
+    SimNetwork,
+    delay_adversary,
+    drop_adversary,
+    duplicate_adversary,
+)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="hydrabadger_tpu_torch in-process simulator")
+    p.add_argument("--nodes", type=int, default=16)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--txns", type=int, default=5, help="txns per node per epoch")
+    p.add_argument("--txn-bytes", type=int, default=2)
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--encrypt", action="store_true", help="threshold-encrypt contributions")
+    p.add_argument("--coin", choices=["hash", "threshold"], default="hash")
+    p.add_argument("--verify", action="store_true", help="verify crypto shares")
+    p.add_argument("--engine", choices=["gpu", "cpu"], default="gpu",
+                   help="CryptoEngine of the consensus cores (gpu raises without a card)")
+    p.add_argument("--device", default="cuda", help="the gpu engine's torch device")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--drop", type=float, default=0.0, help="message drop rate")
+    p.add_argument("--dup", type=float, default=0.0, help="message duplication rate")
+    p.add_argument("--delay", type=float, default=0.0, help="message delay rate")
+    p.add_argument("--rbc", choices=["bracha", "lowcomm"], default=None,
+                   help="reliable-broadcast variant (default: HYDRABADGER_RBC or bracha)")
+    p.add_argument("--json", action="store_true", help="emit metrics as JSON")
+    args = p.parse_args(argv)
+    if args.nodes < 1:
+        p.error("--nodes must be >= 1")
+    if args.epochs < 1:
+        p.error("--epochs must be >= 1")
+    for name in ("drop", "dup", "delay"):
+        if not 0.0 <= getattr(args, name) <= 1.0:
+            p.error(f"--{name} must be in [0, 1]")
+    faults = [f"--{n}" for n in ("drop", "dup", "delay") if getattr(args, n) > 0]
+    if len(faults) > 1:
+        p.error(f"{' and '.join(faults)} are mutually exclusive (one adversary schedule per run)")
+    adversary = None
+    if args.drop > 0:
+        adversary = drop_adversary(args.drop, args.seed)
+    elif args.dup > 0:
+        adversary = duplicate_adversary(args.dup, args.seed)
+    elif args.delay > 0:
+        adversary = delay_adversary(args.delay, seed=args.seed)
+    engine = GpuEngine(device=args.device) if args.engine == "gpu" else "cpu"
+    cfg = SimConfig(
+        n_nodes=args.nodes,
+        epochs=args.epochs,
+        txns_per_node_per_epoch=args.txns,
+        txn_bytes=args.txn_bytes,
+        batch_size=args.batch_size,
+        encrypt=args.encrypt,
+        coin_mode=args.coin,
+        verify_shares=args.verify,
+        engine=engine,
+        seed=args.seed,
+        adversary=adversary,
+        rbc_variant=args.rbc,
+    )
+    metrics = SimNetwork(cfg).run(args.epochs)
+    if args.json:
+        print(json.dumps(metrics.as_dict()))
+    else:
+        for k, v in metrics.as_dict().items():
+            print(f"{k:>20}: {v}")
+    return 0 if metrics.agreement_ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,481 @@
+"""In-process multi-node QueueingHoneyBadger simulator on the port.
+
+The port's copy of hydrabadger_tpu/sim/network.py for `protocol="qhb"`: N
+QueueingHoneyBadger nodes over the deterministic router, a seeded
+transaction workload, and first-class metrics (epochs/s, messages/epoch,
+committed transactions, agreement).  The same `SimConfig` gives, on the
+host engine, the same batches, message counts and faults as the JAX
+package's `SimNetwork(engine="cpu", native_acs=False)`: the same
+`trusted_setup` keys, the same draws from every `random.Random`, the same
+delivery order.
+
+The crypto engine is `SimConfig.engine`: "gpu" (the default; raises
+without a card), "cpu" (the host engine, asked for by name) or an engine
+instance.  As in the JAX package, every per-item crypto call of the cores
+runs on the host; the one device call is the low-comm broadcast's shard
+sketches (`rbc_variant="lowcomm"`: `engine.homhash_batch`, kernel B1 on
+the GPU engine).  Crypto tiers: pure protocol (`encrypt=False,
+coin_mode="hash"`), threshold encryption and the threshold coin, and
+share verification (`verify_shares=True`), all in pure-Python BLS.
+
+Not ported yet, and refused loudly: `protocol="dhb"` (DynamicHoneyBadger
+and its DKG), `scenario` (the Byzantine scenario plane), `native_acs=True`
+(the C++ ACS core) and `slo` (SLO tracking).  `tpu_dkg`, `async_dispatch`
+and `coalesce` act only on the DHB path in the JAX package too, so under
+"qhb" they change nothing.  The per-epoch state census and the trace
+timeline report are left out.
+"""
+from __future__ import annotations
+
+import random
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+from ..consensus.queueing import QueueingHoneyBadger
+from ..consensus.types import NetworkInfo
+from ..crypto import futures
+from ..crypto import threshold as th
+from ..crypto.engine import get_engine
+from ..obs import metrics as M
+from ..obs.latency import LatencySketch, TxnLifecycle, txn_id
+from ..obs.metrics import MetricsRegistry
+from ..obs.recorder import DOMAIN_PERF, NULL_RECORDER, Recorder
+from ..utils.envflags import resolve_rbc_variant
+from .router import Router
+
+
+@dataclass
+class SimConfig:
+    n_nodes: int = 16
+    protocol: str = "qhb"  # "dhb" waits for a later slice
+    epochs: int = 10
+    # workload (the reference's defaults: 5 txns x 2 bytes per interval)
+    txns_per_node_per_epoch: int = 5
+    txn_bytes: int = 2
+    batch_size: int = 100
+    # crypto tier
+    encrypt: bool = False
+    coin_mode: str = "hash"  # "hash" | "threshold"
+    verify_shares: bool = False
+    engine: object = "gpu"  # "gpu" | "cpu" | an engine instance
+    # scheduling
+    seed: int = 0
+    shuffle: bool = True
+    adversary: Optional[Callable] = None
+    scenario: Optional[object] = None  # waits for a later slice
+    # router quiescence budget per epoch; None = auto (an epoch's message
+    # complexity is O(N^3))
+    max_messages_per_epoch: Optional[int] = None
+    # None or False: the Python cores; True (the C++ ACS core) waits
+    native_acs: Optional[bool] = None
+    # DHB-only knobs of the JAX package: no effect under "qhb"
+    tpu_dkg: Optional[bool] = None
+    async_dispatch: Optional[bool] = None
+    coalesce: Optional[bool] = None
+    # record consensus spans into SimNetwork.recorder; the router stamps
+    # them at each delivery, plus a wire_tx/wire_rx event for every
+    # `trace_wire_sample`-th enqueue when `trace_wire` is on
+    trace: bool = False
+    trace_wire: bool = True
+    trace_wire_sample: int = 32
+    # reliable-broadcast variant: None = HYDRABADGER_RBC or "bracha"
+    rbc_variant: Optional[str] = None
+    # price every router send and delivery at its codec size
+    meter_bytes: bool = False
+    # per-txn submit -> committed ledgers on every node (obs/latency.py)
+    txn_latency: bool = True
+    slo: Optional[object] = None  # waits for a later slice
+
+
+@dataclass
+class SimMetrics:
+    epochs_done: int = 0
+    wall_s: float = 0.0
+    messages_delivered: int = 0
+    txns_committed: int = 0
+    bytes_committed: int = 0
+    agreement_ok: bool = True
+    faults: int = 0
+    bytes_tx_total: int = 0
+    bytes_rx_total: int = 0
+    bytes_rx_by_kind: Dict[str, int] = field(default_factory=dict)
+    latency_p50_ms: float = 0.0
+    latency_p90_ms: float = 0.0
+    latency_p99_ms: float = 0.0
+    txn_latency: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def epochs_per_sec(self) -> float:
+        return self.epochs_done / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def msgs_per_epoch(self) -> float:
+        return self.messages_delivered / self.epochs_done if self.epochs_done else 0.0
+
+    @property
+    def txns_per_sec(self) -> float:
+        return self.txns_committed / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def bytes_per_epoch(self) -> float:
+        return self.bytes_tx_total / self.epochs_done if self.epochs_done else 0.0
+
+    def as_dict(self) -> dict:
+        return {
+            "epochs_done": self.epochs_done,
+            "wall_s": round(self.wall_s, 4),
+            "epochs_per_sec": round(self.epochs_per_sec, 3),
+            "messages_delivered": self.messages_delivered,
+            "msgs_per_epoch": round(self.msgs_per_epoch, 1),
+            "txns_committed": self.txns_committed,
+            "txns_per_sec": round(self.txns_per_sec, 1),
+            "bytes_committed": self.bytes_committed,
+            "agreement_ok": self.agreement_ok,
+            "faults": self.faults,
+            "bytes_tx_total": self.bytes_tx_total,
+            "bytes_rx_total": self.bytes_rx_total,
+            "bytes_rx_by_kind": dict(sorted(self.bytes_rx_by_kind.items())),
+            "bytes_per_epoch": round(self.bytes_per_epoch, 1),
+            "latency_p50_ms": round(self.latency_p50_ms, 3),
+            "latency_p90_ms": round(self.latency_p90_ms, 3),
+            "latency_p99_ms": round(self.latency_p99_ms, 3),
+            "txn_latency": dict(self.txn_latency),
+        }
+
+
+def trusted_setup(n: int, seed: int):
+    """Dealer-based keys for simulation, draw for draw the JAX package's."""
+    rng = random.Random(seed)
+    ids = [f"n{i:03d}" for i in range(n)]
+    t = (n - 1) // 3
+    sks = th.SecretKeySet.random(t, rng)
+    pk_set = sks.public_keys()
+    netinfos = {nid: NetworkInfo(nid, ids, pk_set, sks.secret_key_share(i))
+                for i, nid in enumerate(ids)}
+    id_sks = {nid: th.SecretKey.random(rng) for nid in ids}
+    return ids, netinfos, id_sks
+
+
+def _unported(cfg: SimConfig) -> Optional[str]:
+    if cfg.protocol != "qhb":
+        if cfg.protocol == "dhb":
+            return "protocol='dhb' (DynamicHoneyBadger with the host DKG)"
+        raise ValueError(f"unknown protocol {cfg.protocol!r}")
+    if cfg.scenario is not None:
+        return "scenario (the Byzantine scenario plane)"
+    if cfg.native_acs is True:
+        return "native_acs=True (the native host bindings: the C++ ACS core)"
+    if cfg.slo is not None:
+        return "slo (SLO tracking)"
+    return None
+
+
+class SimNetwork:
+    # per-(receiver, sender) duplicate-frame LRU depth
+    DUP_LRU_PER_SENDER = 128
+
+    def __init__(self, cfg: SimConfig):
+        missing = _unported(cfg)
+        if missing is not None:
+            raise NotImplementedError(f"{missing} is not ported yet: a later slice of the port")
+        self.cfg = cfg
+        self.ids, self.netinfos, self.id_sks = trusted_setup(cfg.n_nodes, cfg.seed)
+        self.rng = random.Random(cfg.seed + 1)
+        self.engine = get_engine(cfg.engine)
+        self.rbc_variant = resolve_rbc_variant(cfg.rbc_variant)
+        self.recorder = (Recorder(clock=time.perf_counter, clock_domain=DOMAIN_PERF)
+                         if cfg.trace else NULL_RECORDER)
+        self.metrics = MetricsRegistry()
+        self.lifecycles: Dict = ({nid: TxnLifecycle() for nid in self.ids}
+                                 if cfg.txn_latency else {})
+        self.nodes: Dict = {
+            nid: QueueingHoneyBadger(
+                self.netinfos[nid],
+                batch_size=cfg.batch_size,
+                encrypt=cfg.encrypt,
+                coin_mode=cfg.coin_mode,
+                verify_shares=cfg.verify_shares,
+                engine=self.engine,
+                recorder=self.recorder.bind(node=nid),
+                rbc_variant=self.rbc_variant,
+                lifecycle=self.lifecycles.get(nid),
+            )
+            for nid in self.ids
+        }
+        self.router = Router(
+            self.ids,
+            self._handle,
+            adversary=cfg.adversary,
+            seed=cfg.seed + 3,
+            shuffle=cfg.shuffle,
+            recorder=self.recorder,
+            metrics=self.metrics,
+            meter_bytes=cfg.meter_bytes,
+            wire_events=cfg.trace_wire,
+            wire_sample=cfg.trace_wire_sample,
+        )
+        # the tick boundary: the router settles in-flight device work at
+        # each quiescence
+        self.router.drain_hook = self._drain_async
+        self.router.lifecycles = self.lifecycles
+        self._txn_counter = 0
+        self.total_wall_s = 0.0  # cumulative across run() calls
+        self.epoch_durations: List[float] = []
+        # per-sender duplicate-frame LRU: every handler is duplicate-
+        # tolerant, so an identical (sender, message) re-delivery is
+        # absorbed before the core re-verifies it; only roster senders
+        # are tracked, so adversary-minted ids cannot grow it
+        self._dup_seen: Dict = {}
+        self._dup_ids = frozenset(self.ids)
+
+    def _handle(self, me, sender, message):
+        if sender in self._dup_ids:
+            per = self._dup_seen.setdefault(me, {}).setdefault(sender, OrderedDict())
+            try:
+                if message in per:
+                    per.move_to_end(message)
+                    self.metrics.counter(M.BYZ_DUP_SUPPRESSED).inc()
+                    return None
+                per[message] = None
+                if len(per) > self.DUP_LRU_PER_SENDER:
+                    per.popitem(last=False)
+            except TypeError:
+                pass  # unhashable message shape: deliver without dedup
+        return self.nodes[me].handle_message(sender, message)
+
+    def _gen_txn(self) -> bytes:
+        self._txn_counter += 1
+        prefix = self._txn_counter.to_bytes(4, "big")
+        pad = max(0, self.cfg.txn_bytes - 4)
+        return prefix + bytes(self.rng.getrandbits(8) for _ in range(pad))
+
+    def run_epoch(self) -> None:
+        """Generate the workload, propose everywhere, run to quiescence."""
+        self._run_epoch_inner()
+        self._drain_async()
+        # events emitted outside a delivery (the proposals) are stamped at
+        # the epoch boundary, the sim's other I/O boundary
+        if self.recorder.enabled:
+            self.recorder.stamp(time.perf_counter())
+        if self.lifecycles:
+            now = time.perf_counter()
+            for lc in self.lifecycles.values():
+                lc.stamp(now)
+            self._note_txn_latency()
+
+    def _note_txn_latency(self) -> None:
+        """Mirror the cross-node e2e sketch merge and the lifecycle counts
+        into the registry."""
+        merged = LatencySketch()
+        submitted = committed = 0
+        for lc in self.lifecycles.values():
+            merged.merge(lc.sketches["e2e"])
+            submitted += lc.submitted
+            committed += lc.committed_count
+        self.metrics.counter(M.TXN_SUBMITTED).value = submitted
+        self.metrics.counter(M.TXN_COMMITTED).value = committed
+        if merged.count:
+            pcts = merged.percentiles()
+            for name, key in ((M.TXN_LATENCY_P50_S, "p50"), (M.TXN_LATENCY_P90_S, "p90"),
+                              (M.TXN_LATENCY_P99_S, "p99"), (M.TXN_LATENCY_P999_S, "p999")):
+                self.metrics.gauge(name).track(round(pcts[key], 6))
+
+    def span_sketches(self) -> Dict[str, LatencySketch]:
+        """Cross-node merge of every lifecycle span sketch, fresh objects."""
+        merged: Dict[str, LatencySketch] = {}
+        for lc in self.lifecycles.values():
+            for name, sp in lc.sketches.items():
+                merged.setdefault(name, LatencySketch(sp.rel_err)).merge(sp)
+        return merged
+
+    def txn_latency_snapshot(self) -> dict:
+        """Merged e2e percentiles (seconds) and the lifecycle counts."""
+        merged = self.span_sketches().get("e2e")
+        if merged is None or not merged.count:
+            return {}
+        out = {k: round(v, 6) for k, v in merged.percentiles().items() if v is not None}
+        out["count"] = merged.count
+        out["submitted"] = sum(lc.submitted for lc in self.lifecycles.values())
+        out["resubmitted"] = sum(lc.resubmitted for lc in self.lifecycles.values())
+        return out
+
+    def _drain_async(self) -> None:
+        """The tick boundary: surface the futures' overlap gauges in this
+        sim's registry, and fail the run here if any CryptoFuture was
+        dropped unmaterialized (device work and its protocol effect
+        silently discarded)."""
+        futures.stamp_gauges(self.metrics)
+        futures.check_dropped()
+
+    def _run_epoch_inner(self) -> None:
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        for nid in self.ids:
+            lc = self.lifecycles.get(nid)
+            for _ in range(cfg.txns_per_node_per_epoch):
+                txn = self._gen_txn()
+                # submission is stamped per txn at enqueue; a deduplicated
+                # resubmission keeps the original's stamp
+                if lc is not None and not lc.submit(txn_id(txn), time.perf_counter()):
+                    self.metrics.counter(M.TXN_RESUBMITTED).inc()
+                self.nodes[nid].push_transaction(txn)
+            if lc is not None:
+                lc.stamp(time.perf_counter())  # admitted notes
+        for nid in self.ids:
+            self.router.dispatch_step(nid, self.nodes[nid].force_propose(self.rng))
+            lc = self.lifecycles.get(nid)
+            if lc is not None:
+                lc.stamp(time.perf_counter())  # proposed notes
+        self.router.run(cfg.max_messages_per_epoch or max(1_000_000, 60 * cfg.n_nodes**3))
+        self.epoch_durations.append(time.perf_counter() - t0)
+
+    def run(self, epochs: Optional[int] = None) -> SimMetrics:
+        """Run `epochs` more epochs; the metrics are lifetime-cumulative."""
+        epochs = self.cfg.epochs if epochs is None else epochs
+        m = SimMetrics()
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            self.run_epoch()
+        self.total_wall_s += time.perf_counter() - t0
+        m.wall_s = self.total_wall_s
+        m.messages_delivered = self.router.delivered
+        m.faults = len(self.router.faults)
+        m.bytes_tx_total = self.router.bytes_tx
+        m.bytes_rx_total = self.router.bytes_rx
+        m.bytes_rx_by_kind = dict(self.router.bytes_rx_by_kind)
+        m.epochs_done = min(len(self._batches(nid)) for nid in self.ids)
+        m.agreement_ok = self._check_agreement()
+        if self.cfg.meter_bytes:
+            self.metrics.counter(M.BYTES_TX_TOTAL).value = m.bytes_tx_total
+            self.metrics.counter(M.BYTES_RX_TOTAL).value = m.bytes_rx_total
+            self.metrics.gauge(M.BYTES_PER_EPOCH).track(round(m.bytes_per_epoch, 1))
+        if self.epoch_durations:
+            ordered = sorted(self.epoch_durations)
+
+            def pct(q: float) -> float:
+                return ordered[min(len(ordered) - 1, int(q * len(ordered)))] * 1000.0
+
+            m.latency_p50_ms, m.latency_p90_ms, m.latency_p99_ms = pct(0.50), pct(0.90), pct(0.99)
+        m.txn_latency = self.txn_latency_snapshot()
+        for batch in self._batches(self.ids[0]):
+            for _, txns in sorted(batch.contributions.items()):
+                m.txns_committed += len(txns)
+                m.bytes_committed += sum(len(t) for t in txns)
+        return m
+
+    def shutdown(self) -> None:
+        """Teardown: fail loudly if any CryptoFuture was dropped."""
+        self._drain_async()
+
+    def _batches(self, nid) -> List:
+        return self.nodes[nid].batches
+
+    def batch_bytes(self, nid) -> List[tuple]:
+        """A node's committed batches as (epoch, ((proposer, txns), ...))."""
+        return [(b.epoch, tuple((p, tuple(bytes(t) for t in v))
+                                for p, v in sorted(b.contributions.items())))
+                for b in self._batches(nid)]
+
+    def _check_agreement(self) -> bool:
+        seqs = {nid: [items for _e, items in self.batch_bytes(nid)] for nid in self.ids}
+        shortest = min(len(s) for s in seqs.values())
+        first = seqs[self.ids[0]][:shortest]
+        return all(s[:shortest] == first for s in seqs.values())
+
+
+# -- canned adversaries -----------------------------------------------------
+
+
+def drop_adversary(rate: float, seed: int = 0) -> Callable:
+    """Drop a uniform fraction of messages (a lossy channel: liveness, not
+    safety, may suffer)."""
+    rng = random.Random(seed)
+
+    def adv(sender, recipient, message):
+        if rng.random() < rate:
+            return []
+        return None
+
+    return adv
+
+
+def duplicate_adversary(rate: float, seed: int = 0) -> Callable:
+    rng = random.Random(seed)
+
+    def adv(sender, recipient, message):
+        if rng.random() < rate:
+            return [(sender, recipient, message), (sender, recipient, message)]
+        return None
+
+    return adv
+
+
+def delay_adversary(rate: float, max_delay: int = 64, seed: int = 0) -> Callable:
+    """Hold a fraction of messages back, releasing each after 1..max_delay
+    later deliveries pass it (reordering; agreement must survive it)."""
+    rng = random.Random(seed)
+    held: List[tuple] = []  # (release_countdown, sender, recipient, message)
+
+    def adv(sender, recipient, message):
+        out = []  # releases as explicit triples, so the sender survives
+        for i in range(len(held) - 1, -1, -1):
+            cnt, s, r, m = held[i]
+            if cnt <= 1:
+                out.append((s, r, m))
+                held.pop(i)
+            else:
+                held[i] = (cnt - 1, s, r, m)
+        if rng.random() < rate:
+            held.append((rng.randint(1, max_delay), sender, recipient, message))
+            return out
+        return out + [(sender, recipient, message)]
+
+    def flush():
+        """Release everything still held (the router calls it at
+        quiescence, so delays model reordering, not loss)."""
+        released = [(s, r, m) for _cnt, s, r, m in held]
+        held.clear()
+        return released
+
+    adv.flush = flush
+    return adv
+
+
+def crash_adversary(crashed, after_deliveries: int = 0) -> Callable:
+    """Fail-stop: silence all traffic from `crashed` nodes after their first
+    `after_deliveries` point-to-point deliveries."""
+    crashed = set(crashed)
+    sent: Dict = {}
+
+    def adv(sender, recipient, message):
+        if sender in crashed:
+            n = sent.get(sender, 0) + 1
+            sent[sender] = n
+            if n > after_deliveries:
+                return []
+        return None
+
+    return adv
+
+
+def byzantine_adversary(corrupt, seed: int = 0) -> Callable:
+    """Corrupt nodes replay earlier messages to random victims on top of
+    their real traffic; honest nodes must still agree."""
+    corrupt = set(corrupt)
+    rng = random.Random(seed)
+    history: List[tuple] = []
+
+    def adv(sender, recipient, message):
+        if sender not in corrupt:
+            return None
+        out = [(sender, recipient, message)]
+        if history and rng.random() < 0.5:
+            _, old = history[rng.randrange(len(history))]
+            out.append((sender, recipient, old))
+        if len(history) < 10_000:
+            history.append((sender, message))
+        return out
+
+    return adv

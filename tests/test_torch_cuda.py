@@ -376,3 +376,48 @@ def test_doubling_arm_matches_plain(card, entry):
             got = fq2_torch.g2_window_step(b, table, digits)
             want = fq2_torch.g2_window_step_plain(b, table, digits)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cols", [1, 4, 16, 64])
+@pytest.mark.parametrize("k", [1, 5, 97, 257, 300])
+def test_gf_kernel_at_the_sketch_shapes(card, k, cols):
+    """m = 8 rows of a sketch matrix over K shard bytes and 1-64 shard
+    columns, from a contiguous [K, cols] copy (the word path where
+    cols % 4 == 0) and from the transposed view of [cols, K] shards (the
+    byte path)."""
+    from hydrabadger_tpu_torch.crypto import homhash
+
+    mat = homhash.matrix_T(b"sketch-%d" % k, k)
+    shards = torch.from_numpy(rand((cols, k), k + cols)).to(card)
+    for data in (shards.T.contiguous(), shards.T):
+        before = gf256_torch.launches
+        got = gf256_torch.gf_matmul(mat, data)
+        assert gf256_torch.launches == before + len(gf256_torch.chunks(8, k))
+        assert torch.equal(got, gf256_torch.gf_matmul_bits_plain(mat, data))
+        assert np.array_equal(got.cpu().numpy().T, homhash.sketch_batch_np(shards.cpu().numpy(), b"sketch-%d" % k))
+
+
+def test_gf_kernel_with_k_zero_writes_zeros(card):
+    out = torch.full((8, 5), 0xAB, dtype=torch.uint8, device=card)
+    before = gf256_torch.launches
+    got = gf256_torch.gf_matmul(np.zeros((8, 0), np.uint8), torch.zeros((0, 5), dtype=torch.uint8, device=card), out=out)
+    assert gf256_torch.launches == before
+    assert got.data_ptr() == out.data_ptr() and not bool(out.any())
+    assert torch.equal(got, gf256_torch.gf_matmul_bits_plain(np.zeros((8, 0), np.uint8), torch.zeros((0, 5), dtype=torch.uint8, device=card)))
+
+
+def test_lowcomm_sim_on_the_card_equals_the_cpu(card):
+    from hydrabadger_tpu_torch.crypto import engine
+    from hydrabadger_tpu_torch.sim import network
+
+    kw = dict(n_nodes=4, epochs=3, seed=0, rbc_variant="lowcomm")
+    host = network.SimNetwork(network.SimConfig(engine="cpu", **kw))
+    host.run()
+    before = gf256_torch.launches
+    gpu = network.SimNetwork(network.SimConfig(engine=engine.GpuEngine(device=card), **kw))
+    m = gpu.run()
+    assert m.agreement_ok and m.epochs_done == 3
+    assert gf256_torch.launches > before
+    for nid in gpu.ids:
+        assert gpu.batch_bytes(nid) == host.batch_bytes(nid)
+    assert gpu.router.delivered == host.router.delivered

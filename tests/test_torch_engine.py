@@ -130,6 +130,10 @@ def test_futures_fetch_once_cache_failures_and_warn_on_drop():
     with pytest.warns(futures.DroppedFutureWarning, match="rs_encode_batch"):
         eng.submit_rs_encode_batch(np.zeros((1, 2, 4), np.uint8), 2, 1)
         gc.collect()
+    # the drops are remembered for the sim's tick boundary, which raises once
+    with pytest.raises(RuntimeError, match="dropped-one.*rs_encode_batch"):
+        futures.check_dropped()
+    futures.check_dropped()
 
 
 def test_registry_and_no_card(monkeypatch):
