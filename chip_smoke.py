@@ -137,7 +137,7 @@ DEC_NODES, DEC_ROUNDS = 64, 3
 RAGGED = 1013  # a lane count that is no multiple of a block
 SIM_NODES, SIM_EPOCHS = 16, 3  # config 2 (bench.py:468-488), 3 epochs
 FC_SIM_NODES, FC_SIM_EPOCHS = 4, 2  # the full crypto tier (pure-Python BLS on the host)
-SKETCH_K, SKETCH_COLS = (1, 5, 97, 257, 300), (1, 4, 16, 64)
+SKETCH_K, SKETCH_COLS = (1, 5, 6, 97, 257, 300), (1, 4, 9, 13, 16, 64)
 
 
 class SmokeFailure(RuntimeError):
@@ -1064,11 +1064,11 @@ def sim_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
     # the counted one
     host, host_m, host_s = run("cpu", SIM_NODES, SIM_EPOCHS, "lowcomm")
     homhash_torch.calls.clear()
-    homhash_torch.operand_s = 0.0
+    gf256_torch.operand_s = 0.0
     zero_counts()
     card, card_m, card_s = run(gpu, SIM_NODES, SIM_EPOCHS, "lowcomm")
     launched = counts()
-    operand_ms = 1e3 * homhash_torch.operand_s
+    operand_ms = 1e3 * gf256_torch.operand_s
     calls = dict(homhash_torch.calls)
     same(card, card_m, host, host_m, SIM_EPOCHS, "lowcomm sim, gpu vs cpu")
     turns = {"gpu": [card_m.epochs_done / card_s], "cpu": [host_m.epochs_done / host_s]}
@@ -1082,16 +1082,25 @@ def sim_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
           f"B1 launches {launched['gf256_matmul']} != {implied} implied by the sketch calls")
     check(sum(launched.values()) == launched["gf256_matmul"], f"other kernels launched: {launched}")
     n_calls = sum(calls.values())
-    # the run's device work: each call shape's products back to back (CUDA
-    # events behind a spin kernel, so no host gap is timed) times its count;
-    # events around the calls in the run would time the host's enqueue,
-    # since the card waits on the host between calls
+    # every call shape of the run, replayed: the kernel exact against its
+    # plain version from the contiguous [L, B] copy the engine uploads and
+    # from the transposed view of [B, L] shards; then the device work, each
+    # shape's products back to back (CUDA events behind a spin kernel, so no
+    # host gap is timed) times its count -- events around the calls in the
+    # run would time the host's enqueue, since the card waits on the host
     dev_ms = plain_ms = ops_ms = bytes_ms = 0.0
     shapes = {}
     for (B, L), n in sorted(calls.items()):
         op = gf256_torch.operand(homhash.matrix_T(b"replay", L), dev)
-        x = torch.randint(0, 256, (L, B), dtype=torch.uint8, device=dev)
+        rows = torch.randint(0, 256, (B, L), dtype=torch.uint8, device=dev)
+        x = rows.T.contiguous()
         y = torch.empty((8, B), dtype=torch.uint8, device=dev)
+        for form, data in (("contiguous", x), ("strided", rows.T)):
+            gf256_torch.gf_matmul(op, data, out=y)
+            want = gf256_torch.gf_matmul_bits_plain(op, data)
+            torch.cuda.synchronize()
+            worst = max(worst, max_abs_err(y, want))
+            check(torch.equal(y, want), f"gf256_matmul != plain at the run's sketch (8,{L}) x {B} {form}")
         k_ms = launch_ms(lambda: gf256_torch.gf_matmul(op, x, out=y), reps=20)
         p_ms = launch_ms(lambda: gf256_torch.gf_matmul_bits_plain(op, x), reps=5)
         o_ms, b_ms = roofline.gf_matmul_ms(8, L, B)

@@ -8,12 +8,10 @@ eq / is_on_curve for points over any of them, the ate pairing
 `pairing_product_check`), the psi endomorphism, cofactor clearing and the
 subgroup checks, `hash_to_fr`, `hash_to_g2` (try-and-increment, then
 clearing; cached by digest, since one costs ~28 ms) and the compressed G1
-and G2 encodings both ways.  No native engine: `multiply` is the plain
-double-and-add ladder (the JAX package's pure-Python fallback) and
-`mul_sub`, for subgroup points, the endomorphism split (GLV on G1, GLS on
-G2) the JAX package's native ladders use, in pure Python; every function
-here gives the value its `_py_*` counterpart there gives (points
-projectively, pairing checks by verdict).
+and G2 encodings both ways.  No native engine: `multiply` and `mul_sub` are
+the plain double-and-add ladder and the pairing checks the plain final
+exponentiation (the JAX package's pure-Python `_py_*` fallbacks), which
+give the same group elements and verdicts as its native engine.
 
 Points are projective (X, Y, Z) tuples of FQ, FQ2 or FQ12; Z == 0 at
 infinity.
@@ -142,7 +140,25 @@ class _FQP:
     __rmul__ = __mul__
 
     def square(self):
-        return self * self
+        """self * self with each cross term taken once (d(d+1)/2 products
+        for d^2): the same value, a quarter off the final exponentiation."""
+        d = self.degree
+        a = self.coeffs
+        b = [0] * (d * 2 - 1)
+        for i in range(d):
+            ai = a[i]
+            if ai:
+                b[2 * i] += ai * ai
+                twice = 2 * ai
+                for j in range(i + 1, d):
+                    b[i + j] += twice * a[j]
+        for exp in range(d * 2 - 2, d - 1, -1):
+            top = b[exp]
+            if top:
+                b[exp] = 0
+                for i, c in self.mc_tuples:
+                    b[exp - d + i] -= top * c
+        return type(self)(b[:d])
 
     def __pow__(self, e: int):
         result = type(self).one()
@@ -153,8 +169,9 @@ class _FQP:
         while e:
             if e & 1:
                 result = result * base
-            base = base * base
             e >>= 1
+            if e:
+                base = base.square()
         return result
 
     def inv(self):
@@ -223,15 +240,6 @@ class FQ2(_FQP):
     degree = 2
     mc_tuples = ((0, 1),)
 
-    def __mul__(self, other):
-        if type(other) is FQ2:  # (a0 + a1 u)(b0 + b1 u), u^2 = -1
-            a0, a1 = self.coeffs
-            b0, b1 = other.coeffs
-            return FQ2([a0 * b0 - a1 * b1, a0 * b1 + a1 * b0])
-        return _FQP.__mul__(self, other)
-
-    __rmul__ = __mul__
-
     def conjugate(self):
         return FQ2([self.coeffs[0], -self.coeffs[1]])
 
@@ -267,27 +275,6 @@ class FQ12(_FQP):
 
     degree = 12
     mc_tuples = ((0, 2), (6, -2))
-
-    def __mul__(self, other):
-        """The generic product over the nonzero coefficients of both sides
-        (the Miller loop's twisted points and lines are sparse), then
-        w^12 = 2 w^6 - 2."""
-        if type(other) is not FQ12:
-            return _FQP.__mul__(self, other)
-        a = [(i, c) for i, c in enumerate(self.coeffs) if c]
-        b = [(j, c) for j, c in enumerate(other.coeffs) if c]
-        prod = [0] * 23
-        for i, ai in a:
-            for j, bj in b:
-                prod[i + j] += ai * bj
-        for e in range(22, 11, -1):
-            top = prod[e]
-            if top:
-                prod[e - 6] += 2 * top
-                prod[e - 12] -= 2 * top
-        return FQ12(prod[:12])
-
-    __rmul__ = __mul__
 
     def conjugate(self):
         """f^(p^6): w -> -w, i.e. negate odd coefficients."""
@@ -401,44 +388,10 @@ def multiply(pt, n: int):
     return result
 
 
-def _straus(points, scalars):
-    """sum k_i P_i by one shared double-and-add over the scalars' bits, adding
-    a precomputed subset sum of the points at each bit (Straus-Shamir)."""
-    field = _field(points[0])
-    table = [infinity(field)]
-    for i in range(1, 1 << len(points)):
-        low = i & -i
-        table.append(add(table[i ^ low], points[low.bit_length() - 1]))
-    acc = None
-    for bit in range(max(k.bit_length() for k in scalars) - 1, -1, -1):
-        if acc is not None:
-            acc = double(acc)
-        idx = sum(((k >> bit) & 1) << i for i, k in enumerate(scalars))
-        if idx:
-            acc = table[idx] if acc is None else add(acc, table[idx])
-    return infinity(field) if acc is None else acc
-
-
 def mul_sub(pt, n: int):
     """Scalar multiplication of an r-order subgroup point (every protocol
-    point), by the endomorphisms as the JAX package's native GLV/GLS
-    ladders: on G1, x^2 P = phi(-P) splits n into two ~128-bit halves; on
-    G2, |x| P = -psi(P) splits it into four 64-bit digits.  The same group
-    element as `multiply`; not valid for points with a cofactor part."""
-    n %= R
-    if n == 0 or is_inf(pt):
-        return infinity(_field(pt))
-    if isinstance(pt[0], FQ):
-        k2, k1 = divmod(n, X_PARAM * X_PARAM)
-        x, y, z = pt
-        return _straus([pt, (FQ(BETA) * x, -y, z)], [k1, k2])
-    digits, q = [], [pt]
-    while n:
-        n, d = divmod(n, -X_PARAM)
-        digits.append(d)
-    while len(q) < len(digits):
-        q.append(neg(psi(q[-1])))
-    return _straus(q, digits)
+    point).  The same group element as the JAX package's GLV/GLS ladders."""
+    return multiply(pt, n)
 
 
 def normalize(pt):
@@ -510,19 +463,19 @@ ATE_LOOP_COUNT = -X_PARAM  # 0xd201000000010000
 _HARD_EXP = (P**4 - P**2 + 1) // R
 
 
-@lru_cache(maxsize=3)
-def _frob_basis(k: int):
-    """w^(i*p^k) for i in 0..11: the basis images under the p^k Frobenius."""
-    wpk = _W ** (P**k)
+@lru_cache(maxsize=1)
+def _frob2_basis():
+    """w^(i*p^2) for i in 0..11: the basis images under the p^2 Frobenius."""
+    wp2 = _W ** (P * P)
     basis = [FQ12.one()]
     for _ in range(11):
-        basis.append(basis[-1] * wpk)
+        basis.append(basis[-1] * wp2)
     return basis
 
 
-def _frobenius(f: FQ12, k: int) -> FQ12:
-    """f^(p^k): the coefficients are in Fp (fixed); w^i -> w^(i p^k)."""
-    basis = _frob_basis(k)
+def _frobenius_p2(f: FQ12) -> FQ12:
+    """f^(p^2): the coefficients are in Fp (fixed); w^i -> w^(i p^2)."""
+    basis = _frob2_basis()
     acc = FQ12.zero()
     for i, c in enumerate(f.coeffs):
         if c:
@@ -530,35 +483,11 @@ def _frobenius(f: FQ12, k: int) -> FQ12:
     return acc
 
 
-def _easy_part(f: FQ12) -> FQ12:
-    """f^((p^6 - 1)(p^2 + 1)): lands in the cyclotomic subgroup, where the
-    inverse is the conjugate."""
-    f2 = f.conjugate() * f.inv()  # f^(p^6 - 1)
-    return _frobenius(f2, 2) * f2
-
-
 def final_exponentiation(f: FQ12) -> FQ12:
-    return _easy_part(f) ** _HARD_EXP
-
-
-def _pow_x(f: FQ12) -> FQ12:
-    """f^x for f in the cyclotomic subgroup (x < 0: the conjugate of f^|x|)."""
-    return (f ** -X_PARAM).conjugate()
-
-
-def _final_exp_cubed(f: FQ12) -> FQ12:
-    """final_exponentiation(f) ** 3, the cheap way: 3 * (p^4 - p^2 + 1) / r
-    = l0 + l1 p + l2 p^2 + l3 p^3 with l3 = (x - 1)^2, l2 = l3 x,
-    l1 = l2 x - l3, l0 = l1 x + 3 (five powers of |x|, 64 bits each, in
-    place of one ~1270-bit power).  3 is prime to r, so it is one exactly
-    where final_exponentiation(f) is: the pairing checks use it."""
-    f = _easy_part(f)
-    b = _pow_x(f) * f.conjugate()  # f^(x - 1)
-    c3 = _pow_x(b) * b.conjugate()  # f^l3
-    c2 = _pow_x(c3)  # f^l2
-    c1 = _pow_x(c2) * c3.conjugate()  # f^l1
-    c0 = _pow_x(c1) * f * f * f  # f^l0
-    return c0 * _frobenius(c1, 1) * _frobenius(c2, 2) * _frobenius(c3, 3)
+    f1 = f.conjugate()  # f^(p^6)
+    f2 = f1 * f.inv()  # f^(p^6 - 1)
+    f3 = _frobenius_p2(f2) * f2  # f^((p^6 - 1)(p^2 + 1))
+    return f3**_HARD_EXP
 
 
 def miller_loop(q_twisted, p_casted) -> FQ12:
@@ -591,7 +520,7 @@ def pairing_check_eq(p1, q1, p2, q2) -> bool:
     final exponentiation."""
     f = miller_loop(twist(q1), cast_g1_to_fq12(p1)) * miller_loop(
         twist(q2), cast_g1_to_fq12(neg(p2)))
-    return _final_exp_cubed(f) == FQ12.one()
+    return final_exponentiation(f) == FQ12.one()
 
 
 def pairing_product_check(pairs) -> bool:
@@ -599,7 +528,7 @@ def pairing_product_check(pairs) -> bool:
     f = FQ12.one()
     for p, q in pairs:
         f = f * miller_loop(twist(q), cast_g1_to_fq12(p))
-    return _final_exp_cubed(f) == FQ12.one()
+    return final_exponentiation(f) == FQ12.one()
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,6 @@ import hashlib
 from dataclasses import dataclass
 from typing import Mapping, Optional, Sequence
 
-from ..utils.lru import DigestLRU
 from . import bls12_381 as bls
 from .bls12_381 import (
     FQ,
@@ -43,10 +42,9 @@ from .bls12_381 import (
     hash_to_g2,
     infinity,
     mul_sub,
+    multiply,
     pairing_check_eq,
 )
-
-_CT_VERDICTS: "DigestLRU[bool]" = DigestLRU(4096)
 
 # ---------------------------------------------------------------------------
 # Fr helpers
@@ -93,12 +91,11 @@ def poly_interpolate_at_zero(points: Mapping[int, int]) -> int:
 
 
 def interpolate_g_at_zero(points: Mapping[int, tuple]) -> tuple:
-    """Lagrange interpolation *in the exponent*: sum of lambda_i * P_i at x=0
-    (shares are subgroup points: computed, or decoded with the check)."""
+    """Lagrange interpolation *in the exponent*: sum of lambda_i * P_i at x=0."""
     xs = list(points.keys())
     acc = infinity(bls._field(points[xs[0]]))
     for xi, li in zip(xs, lagrange_coeffs_at_zero(xs)):
-        acc = add(acc, mul_sub(points[xi], li))
+        acc = add(acc, multiply(points[xi], li))
     return acc
 
 
@@ -243,14 +240,8 @@ class Ciphertext:
     w: tuple  # G2
 
     def verify(self) -> bool:
-        """CCA check: e(g1, W) == e(U, H(U, V)).  Verdicts are cached by the
-        ciphertext's digest: every in-process node checks the same one."""
-        key = hashlib.sha256(self.to_bytes()).digest()
-        ok = _CT_VERDICTS.get(key)
-        if ok is None:
-            ok = pairing_check_eq(G1, self.w, self.u, _te_hash(self))
-            _CT_VERDICTS.put(key, ok)
-        return ok
+        """CCA check: e(g1, W) == e(U, H(U, V))."""
+        return pairing_check_eq(G1, self.w, self.u, _te_hash(self))
 
     def to_bytes(self) -> bytes:
         return g1_to_bytes(self.u) + g2_to_bytes(self.w) + self.v

@@ -23,6 +23,7 @@ last axis.  The kernel takes its own strides, so a batch may be a view.
 from __future__ import annotations
 
 import contextlib
+import time
 from dataclasses import dataclass, field
 from functools import lru_cache, reduce
 from typing import NamedTuple, Optional, Union
@@ -37,6 +38,9 @@ from . import _kernels
 # tensors).  chip_smoke.py sets it to 0 before the main path and reads it
 # after, to show that the path went through the kernel.
 launches = 0
+# Host seconds spent building operands (`operand` and `kernel_operand` on
+# a cache miss); chip_smoke.py reads it around the simulator's run.
+operand_s = 0.0
 
 _EXP = torch.from_numpy(gf256.EXP_TABLE.astype(np.int64))  # [512]
 _LOG = torch.from_numpy(gf256.LOG_TABLE.astype(np.int64))  # [256]
@@ -235,17 +239,24 @@ class GfOperand:
 
     def kernel_operand(self, chunk: "Chunk") -> torch.Tensor:
         """`b_operand` of the chunk's rows and columns, on the device."""
+        global operand_s
         if chunk not in self._bops:
+            t0 = time.perf_counter()
             part = self.matrix[chunk.m0:chunk.m1, chunk.k0:chunk.k1]
             self._bops[chunk] = torch.from_numpy(b_operand(part)).to(self.device)
+            operand_s += time.perf_counter() - t0
         return self._bops[chunk]
 
 
 @lru_cache(maxsize=512)
 def _operand(matrix_bytes: bytes, m: int, k: int, device: torch.device) -> GfOperand:
+    global operand_s
+    t0 = time.perf_counter()
     mat = np.frombuffer(matrix_bytes, dtype=np.uint8).reshape(m, k)
     abits = torch.from_numpy(gf256.expand_to_bit_matrix(mat).astype(np.float32))
-    return GfOperand(mat, device, abits.to(device))
+    op = GfOperand(mat, device, abits.to(device))
+    operand_s += time.perf_counter() - t0
+    return op
 
 
 def operand(matrix: np.ndarray, device) -> GfOperand:

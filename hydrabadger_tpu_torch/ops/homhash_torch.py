@@ -14,14 +14,12 @@ up as one contiguous [L, B] copy transposed on the host: the kernel reads
 it by 4-byte words when B % 4 == 0 and byte by byte otherwise.  B = 0 or
 L = 0 returns zeros without a launch, as the host twin does.
 
-`calls` counts the products by (B, L) and `operand_s` the host seconds spent
-building a sketch matrix's operands (the plain version's float32 bits and,
-on a card, the kernel's); chip_smoke reads both.  Lane counters go to the
-default registry, as the JAX twin's do.
+`calls` counts the products by (B, L); chip_smoke reads it to replay the
+simulator's call shapes.  Lane counters go to the default registry, as the
+JAX twin's do.
 """
 from __future__ import annotations
 
-import time
 from collections import Counter
 from typing import Callable, Optional
 
@@ -35,7 +33,6 @@ from ..obs.metrics import default_registry
 from . import gf256_torch
 
 calls: Counter = Counter()
-operand_s = 0.0
 
 
 def _note_lanes(real: int) -> None:
@@ -48,7 +45,6 @@ def _note_lanes(real: int) -> None:
 def _dispatch(shards, seed: bytes, device, use_kernel: bool) -> Optional[torch.Tensor]:
     """Launch the product; the [8, B] sketches on `device`, or None when
     B * L == 0 (nothing launched)."""
-    global operand_s
     shards = np.asarray(shards, dtype=np.uint8)
     if shards.ndim != 2:
         raise ValueError(f"expected [B, L] shards, got {shards.shape}")
@@ -57,12 +53,7 @@ def _dispatch(shards, seed: bytes, device, use_kernel: bool) -> Optional[torch.T
         return None
     dev = resolve_device(device)
     _note_lanes(b)
-    t0 = time.perf_counter()
     op = gf256_torch.operand(homhash.matrix_T(seed, length), dev)
-    if dev.type == "cuda" and use_kernel:
-        for chunk in gf256_torch.chunks(homhash.SKETCH_BYTES, length):
-            op.kernel_operand(chunk)
-    operand_s += time.perf_counter() - t0
     data = torch.from_numpy(np.ascontiguousarray(shards.T)).to(dev)
     calls[(b, length)] += 1
     if not use_kernel:

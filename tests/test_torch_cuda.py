@@ -378,11 +378,11 @@ def test_doubling_arm_matches_plain(card, entry):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("cols", [1, 4, 16, 64])
-@pytest.mark.parametrize("k", [1, 5, 97, 257, 300])
+@pytest.mark.parametrize("cols", [1, 4, 9, 13, 16, 64])
+@pytest.mark.parametrize("k", [1, 5, 6, 97, 257, 300])
 def test_gf_kernel_at_the_sketch_shapes(card, k, cols):
     """m = 8 rows of a sketch matrix over K shard bytes and 1-64 shard
-    columns, from a contiguous [K, cols] copy (the word path where
+    columns (config 2's sketches: K = 6, 1 or 9-16 columns), from a contiguous [K, cols] copy (the word path where
     cols % 4 == 0) and from the transposed view of [cols, K] shards (the
     byte path)."""
     from hydrabadger_tpu_torch.crypto import homhash
