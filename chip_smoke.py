@@ -106,7 +106,32 @@ failure:
      and 0 launches (no device call on that path);
  20. the full crypto tier at 4 nodes x 2 epochs (threshold encryption,
      the threshold coin, shares verified, lowcomm): batches byte-identical
-     across the engines.
+     across the engines;
+ 21. the DKG's MSM plane (ops/msm_torch on kernel B2) against its plain
+     version, exact, and sampled jobs against the host sum: identity lanes
+     (infinity points, zero scalars, an empty job), a batch of one, the GLV
+     tier, and row checks of the 16-node set (15 and 225 jobs of t + 1 = 6
+     terms, 64-bit scalars);
+ 22. the commitment folds (ops/vandermonde_torch on B2) against their plain
+     version, exact, and against the host fold: (J, K, M, nbits) =
+     (6, 6, 16, 5) and the switch's (5, 5, 15, 4) with infinity entries,
+     and the chain's collision x * acc == C[j];
+ 23. the main path: config 5's Python-core leg, the DynamicHoneyBadger era
+     switch at 16 nodes (seed 7, 4 x 2-byte txns per node, a removal vote
+     for the last node, a DKG among the 15 survivors, two steady epochs),
+     on `GpuEngine` with the DKG's device plane forced against the host
+     engine, in turns, the process-wide DKG caches cleared before each run:
+     every node's batches, eras, key sets, validators, messages and faults
+     byte-identical; every launch counter set to 0 just before the counted
+     card run and read just after: B2's launches by entry (windowed and GLV
+     ladders, add, dbl, ladd) all > 0 and equal to the MSMs', folds' and
+     channel keys' own counts, no other kernel; the MSM jobs, real and
+     padding lanes, the coalescer's flushes and width, host ms in
+     limbs_to_points, wall s per epoch of both engines; every recorded
+     shape held exact against its plain version (the channel-key batches
+     side by side in one launch, each batch's own launch against its
+     lanes of it) and replayed back to back for its device ms, beside its
+     bound.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
@@ -138,6 +163,8 @@ RAGGED = 1013  # a lane count that is no multiple of a block
 SIM_NODES, SIM_EPOCHS = 16, 3  # config 2 (bench.py:468-488), 3 epochs
 FC_SIM_NODES, FC_SIM_EPOCHS = 4, 2  # the full crypto tier (pure-Python BLS on the host)
 SKETCH_K, SKETCH_COLS = (1, 5, 6, 97, 257, 300), (1, 4, 9, 13, 16, 64)
+# config 5's Python-core leg (bench.py:539-541): the DHB era switch
+DKG_NODES, DKG_SEED, DKG_TXNS = 16, 7, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -1181,6 +1208,343 @@ def sim_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
     }, worst
 
 
+def era_switch(engine, nodes: int, **kw):
+    """Config 5's Python-core leg at `nodes`: a bootstrap epoch, a removal
+    vote for the last node from every other, epochs until every survivor
+    is in the new era, then two steady epochs.  The process-wide DKG caches
+    are cleared first, so every run derives its folds and keys itself.
+    Returns (sim, metrics, wall s)."""
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.sim import network
+
+    dkg.clear_caches()
+    sim = network.SimNetwork(network.SimConfig(
+        n_nodes=nodes, protocol="dhb", txns_per_node_per_epoch=DKG_TXNS, txn_bytes=2,
+        seed=DKG_SEED, native_acs=False, engine=engine, **kw))
+    t0 = time.perf_counter()
+    sim.run(1)
+    victim = sim.ids[-1]
+    for nid in sim.ids[:-1]:
+        sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(victim))
+    for _ in range(8):
+        sim.run(1)
+        if all(sim.nodes[nid].era > 0 for nid in sim.ids[:-1]):
+            break
+    check(all(sim.nodes[nid].era > 0 for nid in sim.ids), "the era switch did not complete")
+    m = sim.run(2)
+    return sim, m, time.perf_counter() - t0
+
+
+def dhb_record(sim, m) -> dict:
+    """What two runs must share: every node's batches (epoch, era, change
+    report, contributions' bytes, join plan), eras, public key sets,
+    validator sets, counts and faults."""
+    def batches(nid):
+        return [(b.epoch, b.era, b.change, tuple((p, bytes(v)) for p, v in sorted(b.contributions.items())),
+                 None if b.join_plan is None else b.join_plan.wire())
+                for b in sim.nodes[nid].batches]
+
+    return {"batches": {nid: batches(nid) for nid in sim.ids},
+            "eras": {nid: sim.nodes[nid].era for nid in sim.ids},
+            "pk_set": {nid: sim.nodes[nid].netinfo.pk_set.to_bytes() for nid in sim.ids},
+            "validators": {nid: tuple(sim.nodes[nid].netinfo.node_ids) for nid in sim.ids},
+            "counts": (m.epochs_done, m.messages_delivered, m.bytes_committed, m.faults,
+                       m.agreement_ok),
+            "faults": [(s, f.node_id, f.kind) for s, f in sim.router.faults]}
+
+
+def g1_pool(n: int, seed: int) -> list:
+    """n distinct host G1 points from a seed."""
+    from hydrabadger_tpu_torch.crypto import bls12_381 as bls
+
+    rng = np.random.default_rng(seed)
+    return [bls.mul_sub(bls.G1, int.from_bytes(rng.bytes(16), "little") | 1) for _ in range(n)]
+
+
+def fold_plan(J: int, K: int, xs) -> list:
+    """The B2 launches of one fold (ops/vandermonde_torch) and the products
+    its points need: a doubling after a lane's first set bit, a ladder add
+    where a bit is set after it, a general chain add per lane and row."""
+    from hydrabadger_tpu_torch.ops import bls_torch
+    from hydrabadger_tpu_torch.ops.roofline import Launch
+
+    nbits = max(int(x).bit_length() for x in xs)
+    lanes = len(xs) * K
+    rows = []
+    for _j in range(J - 1):
+        for b in range(nbits):
+            started = sum(K for x in xs if x >> (nbits - b) > 0)
+            setbit = sum(K for x in xs if (x >> (nbits - 1 - b)) & 1 and x >> (nbits - b) > 0)
+            rows.append(Launch("dbl", lanes, started * bls_torch.DBL_PRODUCTS, 6, "fold"))
+            rows.append(Launch("ladd", lanes, setbit * bls_torch.GENERAL_ADD_PRODUCTS, 9, "fold"))
+        rows.append(Launch("add", lanes, lanes * bls_torch.GENERAL_ADD_PRODUCTS, 9, "fold"))
+    return rows
+
+
+def plan_bound(rows) -> tuple[float, float]:
+    """(operations ms, bytes ms) summed over a plan's launches."""
+    bounds = [r.bound() for r in rows]
+    return sum(b[0] for b in bounds), sum(b[1] for b in bounds)
+
+
+def dkg_plane(dev: torch.device, tag: str, nodes: int = DKG_NODES) -> dict:
+    """Phases 21-23: the era switch's B2 work (ops/msm_torch,
+    ops/vandermonde_torch, the channel keys on ops/bls_torch) against the
+    plain versions, and the DynamicHoneyBadger era switch on the card
+    against the host engine.  Returns the switch's record for kernel B2's
+    entry of the `kernels` line."""
+    from hydrabadger_tpu_torch.crypto import bls12_381 as bls
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.crypto.engine import GpuEngine
+    from hydrabadger_tpu_torch.obs import metrics as M
+    from hydrabadger_tpu_torch.ops import bls_torch, circuit_torch, fp_probe_torch, fq2_torch
+    from hydrabadger_tpu_torch.ops import fq_torch, gf256_torch, limbs, msm_torch
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+
+    worst = 0
+    R = bls.R
+
+    def hold(label, got_fn, want_fn):
+        """Kernel against plain on the card, exact; returns (got, the plain
+        call's host ms)."""
+        nonlocal worst
+        got = got_fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = want_fn()
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"fq_point != plain at {label} (max err {err})")
+        print(f"kernel == plain, exact: {label}")
+        return got, p_ms
+
+    def msm_hold(label, jobs, oracle: bool):
+        pts, digits, b, s = msm_torch.operands(jobs, dev)
+        got, p_ms = hold(f"msm {label}: B = {b}, S = {s}, digits {list(digits.shape)}",
+                         lambda: msm_torch.msm(pts, digits, b, s),
+                         lambda: msm_torch.msm(pts, digits, b, s, use_kernel=False))
+        if oracle:
+            host = limbs.limbs_to_points(got.cpu().numpy())
+            check(all(bls.eq(h, dkg.g1_msm_or_fallback(p, k)) for h, (p, k) in zip(host, jobs)),
+                  f"msm {label} != the host sum")
+        return pts, digits, b, s, p_ms
+
+    def fold_hold(label, C, xs, oracle_rows=None):
+        got, p_ms = hold(f"fold {label}: [3, 12, {C.shape[2]}, {C.shape[3]}] at {len(xs)} points "
+                         f"(nbits {max(xs).bit_length()})",
+                         lambda: vt.fold_points_batch(C, xs),
+                         lambda: vt.fold_points_batch(C, xs, use_kernel=False))
+        if oracle_rows is not None:
+            host = limbs.limbs_to_points(got.cpu().numpy())
+            commit = dkg.BivarCommitment(oracle_rows)
+            K = C.shape[3]
+            for i in (0, len(xs) - 1):
+                want = commit.row_commitment(xs[i])
+                check(all(bls.eq(a, b) for a, b in zip(host[i * K:(i + 1) * K], want)),
+                      f"fold {label} != the host row fold at x = {xs[i]}")
+        return p_ms
+
+    # -- 21. the MSM plane on B2 against its plain version ------------------
+    t_new = (nodes - 2) // 3  # the survivors' threshold
+    pool = g1_pool(64, 21)
+    inf = bls.infinity(bls.FQ)
+    rng = np.random.default_rng(21)
+
+    def r64(n):
+        return [int.from_bytes(rng.bytes(8), "little") | 1 for _ in range(n)]
+
+    def rfull(n):
+        return [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+
+    top64 = (1 << 63) | 0x5DEECE66D
+    msm_hold("identity lanes (infinity points, zero scalars, an empty job)",
+             [([inf, pool[1], inf, pool[2]], [top64, 5, 3, 0]), ([inf], [top64]),
+              ([pool[3], pool[4]], [0, 0]), ([], [])], oracle=True)
+    msm_hold("a batch of one", [(pool[5:11], [top64] + r64(5))], oracle=True)
+    msm_hold("identity lanes, GLV tier", [([inf, pool[6]], [R - 1, 0]), ([], []),
+                                          (pool[7:10], rfull(3))], oracle=True)
+    # row checks at t + 1 = 6 terms, the 16-node set's (phase 23 replays the
+    # shapes the switch among the 15 survivors records)
+    s = (nodes - 1) // 3 + 1
+    for b in (nodes - 1, (nodes - 1) ** 2):
+        jobs = [([pool[(i * s + k) % 64] for k in range(s)], r64(s)) for i in range(b)]
+        msm_hold(f"row checks ({b} jobs x {s}, 64-bit)", jobs, oracle=b == nodes - 1)
+
+    # -- 22. the commitment folds on B2 against their plain version ----------
+    def matrix(J, K, seed, inf_at=()):
+        g = np.random.default_rng(seed)
+        m = [[bls.mul_sub(bls.G1, int.from_bytes(g.bytes(16), "little") | 1) for _ in range(K)]
+             for _ in range(J)]
+        for j, k in inf_at:
+            if j < J and k < K:
+                m[j][k] = inf
+        C = torch.from_numpy(limbs.points_to_limbs([p for row in m for p in row])).to(dev)
+        return m, C.reshape(3, limbs.N_LIMBS, J, K)
+
+    for J, M_, label in ((6, 16, "(6, 6, 16, 5)"), (t_new + 1, nodes - 1, "the switch's")):
+        m, C = matrix(J, J, J, inf_at=[(0, 0), (J - 1, 1)])
+        fold_hold(f"{label} with infinity entries", C, list(range(1, M_ + 1)), oracle_rows=m)
+    # the chain's collision: row 0 = x * row 1 meets acc == C[j] at x
+    x = 5
+    top = [bls.mul_sub(bls.G1, k) for k in (0x1234567, 0x7654321)]
+    coll = [[bls.mul_sub(p, x) for p in top], top]
+    Cc = torch.from_numpy(limbs.points_to_limbs([p for row in coll for p in row])).to(dev)
+    fold_hold("collision x * acc == C[j]", Cc.reshape(3, limbs.N_LIMBS, 2, 2), [x, 3, 7],
+              oracle_rows=coll)
+
+    # -- 23. the era switch on the card against the host engine --------------
+    gpu = GpuEngine(device=dev)
+    era_switch(gpu, 4, tpu_dkg=True)  # warm-up: the library's first launches at 4 nodes
+    reg = M.default_registry()
+    names = (M.MSM_REAL_LANES, M.MSM_PAD_LANES, M.MSM_COALESCE_FLUSHES,
+             M.MSM_COALESCE_SUBMISSIONS)
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        gf256_torch.launches = fq_torch.launches = fq2_torch.launches = 0
+        circuit_torch.launches = fp_probe_torch.launches = 0
+        fq_torch.launches_by_kind.clear()
+        msm_torch.calls.clear()
+        vt.calls.clear()
+        dkg.channel_key_calls.clear()
+        limbs.to_points_s = 0.0
+        return {k: reg.counter(k).value for k in names}
+
+    host, host_m, host_s = era_switch("cpu", nodes, tpu_dkg=False)
+    want = dhb_record(host, host_m)
+    before = zero_counts()
+    card, card_m, card_s = era_switch(gpu, nodes, tpu_dkg=True)
+    torch.cuda.synchronize()
+    by_kind = dict(fq_torch.launches_by_kind)
+    others = {"gf256_matmul": gf256_torch.launches, "fq2_point": fq2_torch.launches,
+              "circuit": circuit_torch.launches, "fp_probe": fp_probe_torch.launches}
+    msm_calls, fold_calls = dict(msm_torch.calls), dict(vt.calls)
+    key_calls = dict(dkg.channel_key_calls)
+    to_points_ms = 1e3 * limbs.to_points_s
+    lanes = {k: reg.counter(k).value - before[k] for k in names}
+    width = reg.gauge(M.MSM_COALESCE_WIDTH).high_water
+    got = dhb_record(card, card_m)
+    check(got == want, "the era switch on the card != the host engine's run (batches, eras, "
+                       "key sets, validators, counts or faults differ)")
+    survivors = card.ids[:-1]
+    check(all(got["validators"][nid] == tuple(survivors) for nid in card.ids),
+          "the new validator set is not the survivors")
+    check(card_m.agreement_ok, "era switch: agreement failed")
+    for entry in ("windowed_ladder", "glv_ladder", "add", "dbl", "ladd"):
+        check(by_kind.get(entry, 0) > 0, f"the era switch launched B2's {entry} no time: {by_kind}")
+    check(msm_calls and fold_calls and key_calls,
+          f"the era switch ran no MSM ({msm_calls}), fold ({fold_calls}) or channel-key "
+          f"({key_calls}) batch on the device")
+    check(sum(others.values()) == 0, f"the era switch launched other kernels: {others}")
+    msm_launches = sum(n * msm_torch.launches(b, s) for (b, s, _w), n in msm_calls.items())
+    fold_launches = sum(n * vt.launches(J, xs) for (J, _K, xs), n in fold_calls.items())
+    key_launches = sum(key_calls.values())
+    check(msm_launches + fold_launches + key_launches == sum(by_kind.values()),
+          f"B2 launches {sum(by_kind.values())} != msm {msm_launches} + folds {fold_launches} + "
+          f"channel keys {key_launches}")
+    print(f"main path: the DHB era switch ({nodes} nodes, seed {DKG_SEED}, {DKG_TXNS} x 2-byte "
+          f"txns, removal of {card.ids[-1]}) on the card == the host engine: every node's batches "
+          f"byte-identical, eras {sorted(set(got['eras'].values()))}, equal key sets, "
+          f"{card_m.messages_delivered} messages, {card_m.faults} faults; B2 launches by entry "
+          f"{by_kind} (MSMs {msm_launches}, folds {fold_launches}, channel keys {key_launches})")
+    jobs = sum(b * n for (b, _s, _w), n in msm_calls.items())
+    print(f"MSM plane: {sum(msm_calls.values())} batches, {jobs} jobs, lanes real "
+          f"{lanes[M.MSM_REAL_LANES]} / padding {lanes[M.MSM_PAD_LANES]}; coalescer "
+          f"{lanes[M.MSM_COALESCE_SUBMISSIONS]} submissions in {lanes[M.MSM_COALESCE_FLUSHES]} "
+          f"flushes, widest {width}; by shape (B, S, digit rows) {msm_calls}; folds {len(fold_calls)} "
+          f"shapes x {sum(fold_calls.values())}; channel-key batches by lanes {key_calls}; host "
+          f"{to_points_ms:.1f} ms in limbs_to_points")
+
+    # in turns: host, card (counted, above), card, host
+    walls = {"gpu": [card.epoch_durations], "cpu": [host.epoch_durations]}
+    for spec, flag in ((gpu, True), ("cpu", False)):
+        again, again_m, _s = era_switch(spec, nodes, tpu_dkg=flag)
+        check(dhb_record(again, again_m) == want, "the era switch again != the host engine's run")
+        walls["gpu" if flag else "cpu"].append(again.epoch_durations)
+    print(f"era switch, wall s per epoch in turns (cpu, gpu, gpu, cpu): "
+          f"gpu {[[round(d, 3) for d in w] for w in walls['gpu']]}, "
+          f"cpu {[[round(d, 3) for d in w] for w in walls['cpu']]}; whole runs gpu {card_s:.2f} s, "
+          f"cpu {host_s:.2f} s {tag}")
+
+    # every recorded shape, exact against the plain version, then its device
+    # time back to back behind a spin kernel times its count
+    shapes = []
+    dev_ms = plain_ms = ops_ms = bytes_ms = 0.0
+    for (b, s, w), n in sorted(msm_calls.items()):
+        scal = r64 if w < 33 else rfull
+        jobs = [([pool[(i * s + k) % 64] for k in range(s)], scal(s)) for i in range(b)]
+        pts, digits, b_, s_, p_ms = msm_hold(f"the run's ({b}, {s}, {w})", jobs, oracle=False)
+        ms = launch_ms(lambda: msm_torch.msm(pts, digits, b_, s_), reps=3)
+        d = digits.cpu().numpy()
+        plan = (bls_torch.glv_plan(d) + [row for row in bls_torch.weighted_sum_plan(
+            np.zeros((1, b * s), np.int32), s) if row.part == "tree"]) if w == 33 else \
+            bls_torch.weighted_sum_plan(d, s)
+        o, by = plan_bound(plan)
+        shapes.append({"what": "msm", "shape": [b, s, w], "count": n, "ms": ms, "plain_ms": p_ms,
+                       "launches": msm_torch.launches(b, s), "bound_ms": max(o, by)})
+        dev_ms, plain_ms, ops_ms, bytes_ms = (dev_ms + n * ms, plain_ms + n * p_ms,
+                                              ops_ms + n * o, bytes_ms + n * by)
+    for (J, K, xs), n in sorted(fold_calls.items()):
+        m, C = matrix(J, K, J * 7 + K)
+        p_ms = fold_hold(f"the run's ({J}, {K}, {len(xs)})", C, list(xs))
+        ms = launch_ms(lambda: vt.fold_points_batch(C, list(xs)), reps=3)
+        o, by = plan_bound(fold_plan(J, K, xs))
+        shapes.append({"what": "fold", "shape": [J, K, len(xs)], "count": n, "ms": ms,
+                       "plain_ms": p_ms, "launches": vt.launches(J, xs), "bound_ms": max(o, by)})
+        dev_ms, plain_ms, ops_ms, bytes_ms = (dev_ms + n * ms, plain_ms + n * p_ms,
+                                              ops_ms + n * o, bytes_ms + n * by)
+    # the channel-key batches: one exact hold of every recorded batch side by
+    # side (lanes are independent, so each batch's own launch must equal its
+    # slice), each batch's launch timed at its own lane count
+    key_ops = [(lanes_n, n, *bls_torch.scalar_mul_operands(pool[:lanes_n], rfull(lanes_n), dev))
+               for lanes_n, n in sorted(key_calls.items())]
+    cat_pts = torch.cat([p for _l, n, p, _d in key_ops for _ in range(n)], -1)
+    cat_digits = torch.cat([d for _l, n, _p, d in key_ops for _ in range(n)], -1)
+    whole, p_ms = hold(f"channel keys: glv_ladder x {cat_pts.shape[-1]} (every recorded batch "
+                       f"side by side)", lambda: bls_torch.g1_scalar_mul_glv(cat_pts, cat_digits),
+                       lambda: bls_torch.g1_scalar_mul_glv(cat_pts, cat_digits, use_kernel=False))
+    plain_ms += p_ms
+    off = 0
+    for lanes_n, n, pts_k, digits_k in key_ops:
+        got = bls_torch.g1_scalar_mul_glv(pts_k, digits_k)
+        check(torch.equal(got, whole[..., off:off + lanes_n]),
+              f"glv_ladder x {lanes_n} != its lanes of the side-by-side launch")
+        off += n * lanes_n
+        ms = launch_ms(lambda: bls_torch.g1_scalar_mul_glv(pts_k, digits_k), reps=3)
+        o, by = plan_bound(bls_torch.glv_plan(digits_k.cpu().numpy()))
+        shapes.append({"what": "channel keys", "shape": [lanes_n], "count": n, "ms": ms,
+                       "plain_ms": None, "launches": 1, "bound_ms": max(o, by)})
+        dev_ms, ops_ms, bytes_ms = dev_ms + n * ms, ops_ms + n * o, bytes_ms + n * by
+    print(f"kernel == its side-by-side launch, exact: channel keys at {sorted(key_calls)} lanes "
+          f"(plain: one call over all {cat_pts.shape[-1]} lanes, {p_ms:.0f} ms)")
+    bound, bound_by = roofline.bound_ms(ops_ms, bytes_ms)
+    switch_wall = sum(card.epoch_durations[1:-2])
+    print(f"the switch's B2 work replayed at its {len(shapes)} recorded shapes: {dev_ms:.3f} device "
+          f"ms ({100 * dev_ms / 1e3 / switch_wall:.2f}% of the {switch_wall:.2f} s of switch epochs on "
+          f"the card), plain {plain_ms:.1f} ms, bound {bound:.5f} ms ({bound_by}), "
+          f"{dev_ms / bound:.0f}x {tag}")
+    print(json.dumps({"dhb": {"shapes": shapes, "launches_by_entry": by_kind, "lanes": lanes,
+                              "coalesce_width": width, "walls": walls, "to_points_ms": to_points_ms,
+                              "card": tag}}))
+    return {
+        "per": f"the DHB era switch ({nodes} nodes, config 5's Python-core leg): every recorded "
+               f"MSM, fold and channel-key shape timed back to back, times its count",
+        "launches": sum(by_kind.values()),
+        "launches_by_entry": by_kind,
+        "ms": dev_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "max_abs_err": worst,
+        "host_to_points_ms": to_points_ms,
+        "gpu_epoch_s": walls["gpu"],
+        "cpu_epoch_s": walls["cpu"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -1376,6 +1740,8 @@ def main() -> int:
     fq_entry["decrypt_round"] = decrypt_plane(dev, tag)
     kernels[0]["sim"], sketch_err = sim_plane(dev, tag)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], sketch_err)
+    fq_entry["dhb_era_switch"] = dkg_plane(dev, tag)
+    fq_entry["max_abs_err"] = max(fq_entry["max_abs_err"], fq_entry["dhb_era_switch"]["max_abs_err"])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,7 @@ touching protocol logic.  Two engines:
   cores call (`rs_encode_bytes`, `rs_reconstruct_data`, `homhash_batch`,
   `encrypt`, the decryption and signature shares with their verification
   and combines, per-frame `sign` / `verify` with a process-wide verdict
-  cache) and the batch entries.
+  cache) and the batch entries (`g1_msm_batch`: the host sum per job).
 * `GpuEngine` ("gpu", `device="cuda"`) overrides, as the JAX TpuEngine
   does, only batch entries: `homhash_batch` on kernel B1
   (ops/homhash_torch, the low-comm broadcast's shard sketches, the one
@@ -20,7 +20,8 @@ touching protocol logic.  Two engines:
   `rs_reconstruct_batch` on kernel B1 (ops/rs_torch), `sign_share_batch`
   and `combine_signature_shares_batch` on kernel B4 (ops/bls_g2_torch),
   `decrypt_share_batch` and `combine_decryption_shares_batch` on kernel B2
-  (ops/bls_torch), each batch one device dispatch.  Every per-item entry
+  (ops/bls_torch), `g1_msm_batch` (the DKG's batched MSMs) on kernel B2
+  (ops/msm_torch), each batch one device dispatch.  Every per-item entry
   stays the host code it inherits.  Its `submit_*` twins dispatch at once
   and defer only the device-to-host copy and the host conversion
   (crypto/futures).  `device="cpu"` runs the kernels' plain versions on
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import bls_g2_torch, bls_torch, homhash_torch, limbs, rs_torch
+from ..ops import bls_g2_torch, bls_torch, homhash_torch, limbs, msm_torch, rs_torch
 from ..utils.lru import DigestLRU
 from . import bls12_381 as bls
 from . import futures, homhash
@@ -271,6 +272,18 @@ class CpuEngine:
         """Lagrange combine in the exponent over G1 and the KDF unwrap, job by job."""
         return [pk_set.decrypt(shares, ct) for pk_set, shares, ct in jobs]
 
+    # -- batched multi-scalar multiplication (the DKG's RLC checks) ---------
+
+    def g1_msm_batch(self, jobs: Sequence[Tuple[Sequence, Sequence[int]]]) -> List:
+        """Many independent G1 MSMs, (points, scalars) -> one point per job:
+        the host sum per job (crypto/dkg.g1_msm_or_fallback)."""
+        from .dkg import g1_msm_or_fallback
+
+        return [g1_msm_or_fallback(pts, ks) for pts, ks in jobs]
+
+    def submit_g1_msm_batch(self, jobs) -> futures.CryptoFuture:
+        return futures.immediate(self.g1_msm_batch(jobs), "g1_msm_batch")
+
     def __repr__(self) -> str:
         return f"<{type(self).__name__}>"
 
@@ -292,6 +305,20 @@ class GpuEngine(CpuEngine):
 
     def __repr__(self) -> str:
         return f"<GpuEngine {self.device}{'' if self.use_kernel else ' plain'}>"
+
+    # -- the DKG's MSMs on kernel B2 ----------------------------------------
+
+    def submit_g1_msm_batch(self, jobs) -> futures.CryptoFuture:
+        """All jobs' MSMs as one batch on the device (ops/msm_torch: a
+        ladder per (job, term) lane, a tree of complete adds per job),
+        launched now, the host conversion deferred."""
+        if not jobs:
+            return futures.immediate([], "g1_msm_batch")
+        return futures.submit(
+            msm_torch.g1_msm_batch_submit(jobs, self.device, self.use_kernel), "g1_msm_batch")
+
+    def g1_msm_batch(self, jobs) -> List:
+        return self.submit_g1_msm_batch(jobs).result()
 
     # -- shard sketches on kernel B1 ----------------------------------------
 

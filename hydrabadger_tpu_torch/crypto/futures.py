@@ -20,13 +20,21 @@ Copy of the contract of hydrabadger_tpu/crypto/futures.py:
   (`device_idle_s`).
 * `enabled()` reads `HYDRABADGER_ASYNC` ("0": consumers settle at the
   submission site).
+* Completion order on the device is not protocol order: consumers apply
+  effects in submission order, and `settle_in_order` is the one drain
+  loop that does.
+* `MsmCoalescer` (scoped on by `HYDRABADGER_COALESCE=1`, as the DHB sim
+  does): within one router tick every node's DKG MSM batch only queues,
+  and the first `result()` flushes the whole queue as one batched MSM
+  (ops/msm_torch) on the device.  A failure of that launch raises in
+  every queued submission; nothing falls back to the host.
 """
 from __future__ import annotations
 
 import os
 import time
 import warnings
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
@@ -50,6 +58,12 @@ def enabled() -> bool:
     return os.environ.get("HYDRABADGER_ASYNC", "1") != "0"
 
 
+def device_backend() -> str:
+    """Provenance of the overlap gauges: "gpu" once this process holds a
+    CUDA context, else "none" (never initialises the card)."""
+    return "gpu" if torch.cuda.is_initialized() else "none"
+
+
 def _leave(now: float) -> None:
     global _inflight, _idle_since
     _inflight = max(0, _inflight - 1)
@@ -63,7 +77,35 @@ def stamp_gauges(reg) -> None:
     total = _overlap_s + _block_s
     reg.gauge(M.DEVICE_OVERLAP_RATIO).set(round(_overlap_s / total, 4) if total else 0.0)
     reg.gauge(M.DEVICE_IDLE_S).set(round(_idle_s, 4))
-    reg.gauge(M.DEVICE_OVERLAP_HAS_DEVICE).set(1 if torch.cuda.is_initialized() else 0)
+    reg.gauge(M.DEVICE_OVERLAP_HAS_DEVICE).set(1 if device_backend() == "gpu" else 0)
+
+
+def overlap_snapshot() -> dict:
+    """The cumulative accounting as one JSON-able dict; the ratio reads
+    "n/a (no device)" where no card was used (the raw value stays in
+    `device_overlap_ratio_raw`)."""
+    total = _overlap_s + _block_s
+    ratio = round(_overlap_s / total, 4) if total else 0.0
+    backend = device_backend()
+    return {
+        "device_overlap_ratio": ratio if backend == "gpu" else "n/a (no device)",
+        "device_overlap_ratio_raw": ratio,
+        "device_backend": backend,
+        "device_overlap_s": round(_overlap_s, 4),
+        "device_block_s": round(_block_s, 4),
+        "device_idle_s": round(_idle_s, 4),
+        "futures_dropped": len(_dropped),
+    }
+
+
+def reset_accounting() -> None:
+    """Zero the cumulative accounting and the in-flight count (callers
+    scope it at run boundaries, where nothing is in flight)."""
+    global _overlap_s, _block_s, _idle_s, _idle_since, _inflight
+    _overlap_s = _block_s = _idle_s = 0.0
+    _idle_since = None
+    _inflight = 0
+    _dropped.clear()
 
 
 def check_dropped() -> None:
@@ -151,3 +193,88 @@ def immediate(value: Any, label: str = "immediate") -> CryptoFuture:
 def submit(fn: Callable[[], Any], label: str = "crypto") -> CryptoFuture:
     """Wrap a deferred materializer of an already dispatched computation."""
     return CryptoFuture(fn, label)
+
+
+def settle_in_order(futures: Sequence[CryptoFuture], apply: Callable[[int, Any], None]) -> None:
+    """Drain `futures`, applying effects in submission order:
+    `apply(i, value)` runs strictly at ascending i, whatever order the
+    device finished them in."""
+    for i, fut in enumerate(futures):
+        apply(i, fut.result())
+
+
+# -- cross-node tick coalescing ---------------------------------------------
+
+
+class MsmCoalescer:
+    """Per-tick MSM coalescing for in-process multi-node runtimes.
+
+    With coalescing scoped on, a submission only queues its jobs; the
+    first `result()` of any queued future (in practice the tick-boundary
+    drain) flushes the whole queue as one batched MSM and hands each
+    submission its slice.  Jobs are independent lanes and the
+    padding lanes are ladder identities, so this changes the launch count,
+    never a value.  A submission whose points and scalars differ in length
+    gets the structural ValueError at its own `result()`; the others still
+    run.  A failure of the device launch itself raises in every submission
+    of that flush: nothing falls back to the host."""
+
+    def __init__(self):
+        self._pending: List[tuple] = []  # (jobs, device, slot)
+
+    def submit(self, jobs: Sequence, device, label: str = "msm-coalesced") -> CryptoFuture:
+        slot: dict = {}
+        self._pending.append((list(jobs), device, slot))
+        M.default_registry().counter(M.MSM_COALESCE_SUBMISSIONS).inc()
+
+        def _materialize():
+            if "value" not in slot and "error" not in slot:
+                self._flush()
+            if "error" in slot:
+                raise slot["error"]
+            return slot["value"]
+
+        return CryptoFuture(_materialize, label)
+
+    def _flush(self) -> None:
+        """One batched MSM over every well-formed queued submission, on the
+        first one's device (the jobs are host points either way)."""
+        from ..ops import msm_torch
+
+        batch, self._pending = self._pending, []
+        if not batch:
+            return
+        reg = M.default_registry()
+        reg.counter(M.MSM_COALESCE_FLUSHES).inc()
+        reg.gauge(M.MSM_COALESCE_WIDTH).track(len(batch))
+        valid = []
+        for jobs, device, slot in batch:
+            if any(len(pts) != len(ks) for pts, ks in jobs):
+                slot["error"] = ValueError("points/scalars length mismatch")
+            else:
+                valid.append((jobs, device, slot))
+        if not valid:
+            return
+        try:
+            results = msm_torch.g1_msm_batch_submit(
+                [j for jobs, _d, _s in valid for j in jobs], valid[0][1])()
+        except Exception as e:
+            for _jobs, _d, slot in valid:
+                slot["error"] = e
+            raise
+        i = 0
+        for jobs, _d, slot in valid:
+            slot["value"] = results[i : i + len(jobs)]
+            i += len(jobs)
+
+
+_MSM_COALESCER = MsmCoalescer()
+
+
+def msm_coalescer() -> Optional[MsmCoalescer]:
+    """The process coalescer while `HYDRABADGER_COALESCE=1`, else None (a
+    future queued while the scope was on still flushes after it ends: its
+    closure holds the coalescer)."""
+    if os.environ.get("HYDRABADGER_COALESCE", "0") == "1":
+        return _MSM_COALESCER
+    return None

@@ -1,6 +1,7 @@
 """Process-local counters and gauges with high-water marks: the port's copy
-of the parts of hydrabadger_tpu/obs/metrics.py that the sim, the futures
-and the sketch plane use.  `snapshot()` returns one JSON-able dict."""
+of the parts of hydrabadger_tpu/obs/metrics.py that the sim, the futures,
+the sketch plane and the DKG's planes use.  `snapshot()` returns one
+JSON-able dict."""
 from __future__ import annotations
 
 import threading
@@ -26,6 +27,25 @@ BYZ_DUP_SUPPRESSED = "byz_dup_suppressed"
 HOMHASH_REAL_LANES = "homhash_real_lanes"
 HOMHASH_PAD_LANES = "homhash_pad_lanes"
 HOMHASH_LANE_OCCUPANCY = "homhash_lane_occupancy"
+
+# the DKG's MSM plane (ops/msm_torch): lanes per dispatch, padding and real
+MSM_BATCH_LANES = "msm_batch_lanes"
+MSM_PAD_LANES = "msm_pad_lanes"
+MSM_REAL_LANES = "msm_real_lanes"
+# the per-tick MSM coalescer (crypto/futures.MsmCoalescer)
+MSM_COALESCE_SUBMISSIONS = "msm_coalesce_submissions"
+MSM_COALESCE_FLUSHES = "msm_coalesce_flushes"
+MSM_COALESCE_WIDTH = "msm_coalesce_width"
+# the Fr multipoint plane (ops/fr_poly): NTT lanes per call
+FR_NTT_BATCH_LANES = "fr_ntt_batch_lanes"
+FR_NTT_PAD_LANES = "fr_ntt_pad_lanes"
+FR_NTT_REAL_LANES = "fr_ntt_real_lanes"
+
+# the shadow-DKG era cutover (sim/network.py): the high-water wall between
+# committed batches across an era-switch window, and the epochs since a
+# live shadow DKG last advanced
+ERA_COMMIT_GAP_S = "era_commit_gap_s"
+SHADOW_DKG_STALL_EPOCHS = "shadow_dkg_stall_epochs"
 
 # transaction latency (obs/latency.py)
 TXN_LATENCY_P50_S = "txn_latency_p50_s"

@@ -26,6 +26,7 @@ into it with `g2_limbs_from_jax` / `g2_limbs_to_jax`.
 """
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
@@ -119,9 +120,15 @@ def points_to_limbs(pts: Sequence) -> np.ndarray:
     return np.ascontiguousarray(words.transpose(0, 2, 1))
 
 
+# host seconds spent in limbs_to_points (chip_smoke reads and resets it)
+to_points_s = 0.0
+
+
 def limbs_to_points(arr) -> list:
     """[3, 12, ...] Montgomery Jacobian words -> flat list of host points
     (affine representatives, Z = 1; infinity as bls.infinity())."""
+    global to_points_s
+    t0 = time.perf_counter()
     arr = np.asarray(arr)
     flat = arr.reshape(3, N_LIMBS, -1)
     xs, ys, zs = (
@@ -136,6 +143,7 @@ def limbs_to_points(arr) -> list:
         zi = next(invs)
         zi2 = zi * zi % P
         out.append((FQ(x * zi2 % P), FQ(y * zi2 % P * zi % P), FQ(1)))
+    to_points_s += time.perf_counter() - t0
     return out
 
 

@@ -4,9 +4,13 @@
     python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 3 --json
     python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 1 \
         --encrypt --coin threshold --verify --json
+    python -m hydrabadger_tpu_torch.sim --protocol dhb --engine cpu --nodes 4 --epochs 2
+    python -m hydrabadger_tpu_torch.sim --protocol dhb --gpu-dkg --nodes 16 --epochs 2
 
 The JAX CLI's flags for what is ported, plus `--engine {gpu,cpu}` (default
-gpu, which raises without a card) and `--device` (the GPU engine's card).
+gpu, which raises without a card), `--device` (the GPU engine's card) and
+`--gpu-dkg` / `--no-gpu-dkg` (force the DKG's device plane on or off for
+a dhb run; by default the environment's HYDRABADGER_GPU_DKG decides).
 Exits 0 if and only if agreement held.
 """
 from __future__ import annotations
@@ -29,6 +33,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="hydrabadger_tpu_torch in-process simulator")
     p.add_argument("--nodes", type=int, default=16)
     p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--protocol", choices=["qhb", "dhb"], default="qhb")
     p.add_argument("--txns", type=int, default=5, help="txns per node per epoch")
     p.add_argument("--txn-bytes", type=int, default=2)
     p.add_argument("--batch-size", type=int, default=100)
@@ -44,6 +49,8 @@ def main(argv=None) -> int:
     p.add_argument("--delay", type=float, default=0.0, help="message delay rate")
     p.add_argument("--rbc", choices=["bracha", "lowcomm"], default=None,
                    help="reliable-broadcast variant (default: HYDRABADGER_RBC or bracha)")
+    p.add_argument("--gpu-dkg", action=argparse.BooleanOptionalAction, default=None,
+                   help="force the DKG's device plane (kernel B2) on or off for each epoch")
     p.add_argument("--json", action="store_true", help="emit metrics as JSON")
     args = p.parse_args(argv)
     if args.nodes < 1:
@@ -66,6 +73,7 @@ def main(argv=None) -> int:
     engine = GpuEngine(device=args.device) if args.engine == "gpu" else "cpu"
     cfg = SimConfig(
         n_nodes=args.nodes,
+        protocol=args.protocol,
         epochs=args.epochs,
         txns_per_node_per_epoch=args.txns,
         txn_bytes=args.txn_bytes,
@@ -77,6 +85,7 @@ def main(argv=None) -> int:
         seed=args.seed,
         adversary=adversary,
         rbc_variant=args.rbc,
+        tpu_dkg=args.gpu_dkg,
     )
     metrics = SimNetwork(cfg).run(args.epochs)
     if args.json:

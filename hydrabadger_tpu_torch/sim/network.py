@@ -1,41 +1,53 @@
-"""In-process multi-node QueueingHoneyBadger simulator on the port.
+"""In-process multi-node HoneyBadger simulator on the port.
 
-The port's copy of hydrabadger_tpu/sim/network.py for `protocol="qhb"`: N
-QueueingHoneyBadger nodes over the deterministic router, a seeded
-transaction workload, and first-class metrics (epochs/s, messages/epoch,
-committed transactions, agreement).  The same `SimConfig` gives, on the
-host engine, the same batches, message counts and faults as the JAX
-package's `SimNetwork(engine="cpu", native_acs=False)`: the same
-`trusted_setup` keys, the same draws from every `random.Random`, the same
-delivery order.
+The port's copy of hydrabadger_tpu/sim/network.py: N QueueingHoneyBadger
+(`protocol="qhb"`) or DynamicHoneyBadger (`protocol="dhb"`) nodes over the
+deterministic router, a seeded transaction workload, and first-class
+metrics (epochs/s, messages/epoch, committed transactions, agreement).
+The same `SimConfig` gives, on the host engine, the same batches, message
+counts and faults as the JAX package's `SimNetwork(engine="cpu",
+native_acs=False)`: the same `trusted_setup` keys, the same draws from
+every `random.Random` (a DHB node's DKG draws from its own
+`random.Random(seed * 1_000_003 + 2 + index)`), the same delivery order.
 
 The crypto engine is `SimConfig.engine`: "gpu" (the default; raises
 without a card), "cpu" (the host engine, asked for by name) or an engine
 instance.  As in the JAX package, every per-item crypto call of the cores
-runs on the host; the one device call is the low-comm broadcast's shard
+runs on the host.  The device calls are the low-comm broadcast's shard
 sketches (`rbc_variant="lowcomm"`: `engine.homhash_batch`, kernel B1 on
-the GPU engine).  Crypto tiers: pure protocol (`encrypt=False,
-coin_mode="hash"`), threshold encryption and the threshold coin, and
-share verification (`verify_shares=True`), all in pure-Python BLS.
+the GPU engine) and, under "dhb" with the DKG's device plane on
+(`tpu_dkg=True`, crypto/dkg), an era switch's batched MSMs, commitment
+folds and channel keys on kernel B2, on the engine's device.  Crypto
+tiers: pure protocol (`encrypt=False, coin_mode="hash"`), threshold
+encryption and the threshold coin, and share verification
+(`verify_shares=True`), all in pure-Python BLS.
 
-Not ported yet, and refused loudly: `protocol="dhb"` (DynamicHoneyBadger
-and its DKG), `scenario` (the Byzantine scenario plane), `native_acs=True`
-(the C++ ACS core) and `slo` (SLO tracking).  `tpu_dkg`, `async_dispatch`
-and `coalesce` act only on the DHB path in the JAX package too, so under
-"qhb" they change nothing.  The per-epoch state census and the trace
-timeline report are left out.
+Each epoch scopes three planes as the JAX sim does, restoring them after:
+`tpu_dkg` (HYDRABADGER_GPU_DKG; None inherits it), `async_dispatch`
+(HYDRABADGER_ASYNC) and `coalesce` (HYDRABADGER_COALESCE, on by default:
+every node's DKG MSMs of a router tick flush as one batch).  Under "qhb"
+they change nothing.
+
+Not ported yet, and refused loudly: `scenario` (the Byzantine scenario
+plane), `native_acs=True` (the C++ ACS core) and `slo` (SLO tracking).
+The per-epoch state census and the trace timeline report are left out.
 """
 from __future__ import annotations
 
+import os
 import random
 import time
 from collections import OrderedDict
+from contextlib import ExitStack, contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+import torch
+
+from ..consensus.dynamic_honey_badger import DynamicHoneyBadger
 from ..consensus.queueing import QueueingHoneyBadger
 from ..consensus.types import NetworkInfo
-from ..crypto import futures
+from ..crypto import dkg, futures
 from ..crypto import threshold as th
 from ..crypto.engine import get_engine
 from ..obs import metrics as M
@@ -49,7 +61,7 @@ from .router import Router
 @dataclass
 class SimConfig:
     n_nodes: int = 16
-    protocol: str = "qhb"  # "dhb" waits for a later slice
+    protocol: str = "qhb"  # "qhb" | "dhb"
     epochs: int = 10
     # workload (the reference's defaults: 5 txns x 2 bytes per interval)
     txns_per_node_per_epoch: int = 5
@@ -70,9 +82,14 @@ class SimConfig:
     max_messages_per_epoch: Optional[int] = None
     # None or False: the Python cores; True (the C++ ACS core) waits
     native_acs: Optional[bool] = None
-    # DHB-only knobs of the JAX package: no effect under "qhb"
+    # the DKG's device plane (crypto/dkg, HYDRABADGER_GPU_DKG), on the
+    # engine's device: None = inherit the environment; True/False = force
+    # it for each run_epoch and restore it after (the JAX name is kept)
     tpu_dkg: Optional[bool] = None
+    # the futures plane's cross-poll deferral (HYDRABADGER_ASYNC), scoped
+    # like tpu_dkg
     async_dispatch: Optional[bool] = None
+    # per-tick MSM coalescing (crypto/futures.MsmCoalescer): None = on
     coalesce: Optional[bool] = None
     # record consensus spans into SimNetwork.recorder; the router stamps
     # them at each delivery, plus a wire_tx/wire_rx event for every
@@ -84,7 +101,8 @@ class SimConfig:
     rbc_variant: Optional[str] = None
     # price every router send and delivery at its codec size
     meter_bytes: bool = False
-    # per-txn submit -> committed ledgers on every node (obs/latency.py)
+    # per-txn submit -> committed ledgers on every node (obs/latency.py);
+    # "qhb" only: the dhb workload proposes opaque concatenated payloads
     txn_latency: bool = True
     slo: Optional[object] = None  # waits for a later slice
 
@@ -158,10 +176,26 @@ def trusted_setup(n: int, seed: int):
     return ids, netinfos, id_sks
 
 
+@contextmanager
+def _env_flag(name: str, flag: Optional[bool]):
+    """Scoped boolean env override, restored on exit: a run forcing a
+    plane must not leak it process-wide into later runs."""
+    if flag is None:
+        yield
+        return
+    prev = os.environ.get(name)
+    os.environ[name] = "1" if flag else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
 def _unported(cfg: SimConfig) -> Optional[str]:
-    if cfg.protocol != "qhb":
-        if cfg.protocol == "dhb":
-            return "protocol='dhb' (DynamicHoneyBadger with the host DKG)"
+    if cfg.protocol not in ("qhb", "dhb"):
         raise ValueError(f"unknown protocol {cfg.protocol!r}")
     if cfg.scenario is not None:
         return "scenario (the Byzantine scenario plane)"
@@ -184,26 +218,49 @@ class SimNetwork:
         self.ids, self.netinfos, self.id_sks = trusted_setup(cfg.n_nodes, cfg.seed)
         self.rng = random.Random(cfg.seed + 1)
         self.engine = get_engine(cfg.engine)
+        # the DKG device plane runs on the engine's device ("cpu": the
+        # host engine, or the plain versions)
+        self.plane_device = getattr(self.engine, "device", torch.device("cpu"))
         self.rbc_variant = resolve_rbc_variant(cfg.rbc_variant)
         self.recorder = (Recorder(clock=time.perf_counter, clock_domain=DOMAIN_PERF)
                          if cfg.trace else NULL_RECORDER)
         self.metrics = MetricsRegistry()
         self.lifecycles: Dict = ({nid: TxnLifecycle() for nid in self.ids}
-                                 if cfg.txn_latency else {})
-        self.nodes: Dict = {
-            nid: QueueingHoneyBadger(
-                self.netinfos[nid],
-                batch_size=cfg.batch_size,
-                encrypt=cfg.encrypt,
-                coin_mode=cfg.coin_mode,
-                verify_shares=cfg.verify_shares,
-                engine=self.engine,
-                recorder=self.recorder.bind(node=nid),
-                rbc_variant=self.rbc_variant,
-                lifecycle=self.lifecycles.get(nid),
-            )
-            for nid in self.ids
-        }
+                                 if cfg.protocol == "qhb" and cfg.txn_latency else {})
+        if cfg.protocol == "qhb":
+            self.nodes: Dict = {
+                nid: QueueingHoneyBadger(
+                    self.netinfos[nid],
+                    batch_size=cfg.batch_size,
+                    encrypt=cfg.encrypt,
+                    coin_mode=cfg.coin_mode,
+                    verify_shares=cfg.verify_shares,
+                    engine=self.engine,
+                    recorder=self.recorder.bind(node=nid),
+                    rbc_variant=self.rbc_variant,
+                    lifecycle=self.lifecycles.get(nid),
+                )
+                for nid in self.ids
+            }
+        else:
+            pub_keys = {nid: self.id_sks[nid].public_key() for nid in self.ids}
+            self.nodes = {
+                nid: DynamicHoneyBadger(
+                    nid,
+                    self.id_sks[nid],
+                    self.netinfos[nid],
+                    pub_keys,
+                    encrypt=cfg.encrypt,
+                    coin_mode=cfg.coin_mode,
+                    verify_shares=cfg.verify_shares,
+                    # per-node seed: DKG secrets must differ across nodes
+                    rng=random.Random(cfg.seed * 1_000_003 + 2 + idx),
+                    engine=self.engine,
+                    recorder=self.recorder.bind(node=nid),
+                    rbc_variant=self.rbc_variant,
+                )
+                for idx, nid in enumerate(self.ids)
+            }
         self.router = Router(
             self.ids,
             self._handle,
@@ -229,6 +286,10 @@ class SimNetwork:
         # are tracked, so adversary-minted ids cannot grow it
         self._dup_seen: Dict = {}
         self._dup_ids = frozenset(self.ids)
+        # era-gap accounting: the highest era any node has reached, and
+        # the steady (no live keygen, no era flip) epoch durations
+        self._era_seen = 0
+        self._steady_durations: List[float] = []
 
     def _handle(self, me, sender, message):
         if sender in self._dup_ids:
@@ -251,10 +312,24 @@ class SimNetwork:
         pad = max(0, self.cfg.txn_bytes - 4)
         return prefix + bytes(self.rng.getrandbits(8) for _ in range(pad))
 
+    def _planes(self) -> ExitStack:
+        """The epoch's scoped planes: the DKG's device plane and its device,
+        the futures' deferral, the per-tick MSM coalescer (on by default)."""
+        cfg = self.cfg
+        stack = ExitStack()
+        stack.enter_context(_env_flag(dkg.GPU_DKG_ENV, cfg.tpu_dkg))
+        stack.enter_context(_env_flag("HYDRABADGER_ASYNC", cfg.async_dispatch))
+        stack.enter_context(_env_flag("HYDRABADGER_COALESCE",
+                                      True if cfg.coalesce is None else cfg.coalesce))
+        stack.enter_context(dkg.plane_device(self.plane_device))
+        return stack
+
     def run_epoch(self) -> None:
         """Generate the workload, propose everywhere, run to quiescence."""
-        self._run_epoch_inner()
-        self._drain_async()
+        with self._planes():
+            self._run_epoch_inner()
+            self._drain_async()
+        self._note_era_gap()
         # events emitted outside a delivery (the proposals) are stamped at
         # the epoch boundary, the sim's other I/O boundary
         if self.recorder.enabled:
@@ -301,20 +376,80 @@ class SimNetwork:
         out["resubmitted"] = sum(lc.resubmitted for lc in self.lifecycles.values())
         return out
 
+    def _note_era_gap(self) -> None:
+        """After each epoch: the committed-epoch gap across an era-switch
+        window (a keygen live or the era flipped) against the steady
+        durations, and the loud-stall mirror of the shadow DKG."""
+        if not self.epoch_durations:
+            return
+        dur = self.epoch_durations[-1]
+        nodes = [self.nodes[nid] for nid in self.ids]
+        kg_live = any(getattr(n, "key_gen", None) is not None for n in nodes)
+        era_now = max(getattr(n, "era", 0) for n in nodes)
+        stall = max([n.shadow_stall_epochs() for n in nodes if hasattr(n, "shadow_stall_epochs")]
+                    + [0])
+        switched = era_now != self._era_seen
+        self._era_seen = era_now
+        if kg_live or switched:
+            self.metrics.gauge(M.ERA_COMMIT_GAP_S).track(round(dur, 4))
+        elif len(self._steady_durations) < 4096:
+            self._steady_durations.append(dur)
+        self.metrics.gauge(M.SHADOW_DKG_STALL_EPOCHS).track(stall)
+
+    def steady_epoch_p50(self) -> float:
+        """Median steady epoch wall (no live keygen, no era flip)."""
+        if not self._steady_durations:
+            return 0.0
+        ordered = sorted(self._steady_durations)
+        return ordered[len(ordered) // 2]
+
+    def era_gap_snapshot(self) -> dict:
+        """The era-cutover gauges as one dict, with the device provenance of
+        the futures' gauges."""
+        gap = self.metrics.gauge(M.ERA_COMMIT_GAP_S).high_water
+        steady = self.steady_epoch_p50()
+        backend = futures.device_backend()
+        return {
+            "era_commit_gap_s": round(gap, 4),
+            "steady_epoch_p50_s": round(steady, 4),
+            "era_gap_vs_steady": round(gap / steady, 2) if steady else 0.0,
+            "shadow_dkg": dkg.shadow_scheduling(),
+            "shadow_dkg_stall_epochs": self.metrics.gauge(M.SHADOW_DKG_STALL_EPOCHS).high_water,
+            "device_backend": backend,
+            "device_overlap_has_device": 1 if backend == "gpu" else 0,
+        }
+
     def _drain_async(self) -> None:
-        """The tick boundary: surface the futures' overlap gauges in this
+        """The tick boundary: settle every node's in-flight crypto (a DHB
+        node's keygen flush), surface the futures' overlap gauges in this
         sim's registry, and fail the run here if any CryptoFuture was
         dropped unmaterialized (device work and its protocol effect
         silently discarded)."""
+        for nid in self.ids:
+            drain = getattr(self.nodes[nid], "drain_async", None)
+            if drain is not None:
+                self.router.dispatch_step(nid, drain())
         futures.stamp_gauges(self.metrics)
         futures.check_dropped()
 
     def _run_epoch_inner(self) -> None:
         t0 = time.perf_counter()
         cfg = self.cfg
+        if cfg.protocol == "dhb":
+            for nid in self.ids:
+                node = self.nodes[nid]
+                if node.is_validator:
+                    payload = b"".join(self._gen_txn() for _ in range(cfg.txns_per_node_per_epoch))
+                    self.router.dispatch_step(nid, node.propose(payload, self.rng))
+        else:
+            self._propose_qhb()
+        self.router.run(cfg.max_messages_per_epoch or max(1_000_000, 60 * cfg.n_nodes**3))
+        self.epoch_durations.append(time.perf_counter() - t0)
+
+    def _propose_qhb(self) -> None:
         for nid in self.ids:
             lc = self.lifecycles.get(nid)
-            for _ in range(cfg.txns_per_node_per_epoch):
+            for _ in range(self.cfg.txns_per_node_per_epoch):
                 txn = self._gen_txn()
                 # submission is stamped per txn at enqueue; a deduplicated
                 # resubmission keeps the original's stamp
@@ -328,8 +463,6 @@ class SimNetwork:
             lc = self.lifecycles.get(nid)
             if lc is not None:
                 lc.stamp(time.perf_counter())  # proposed notes
-        self.router.run(cfg.max_messages_per_epoch or max(1_000_000, 60 * cfg.n_nodes**3))
-        self.epoch_durations.append(time.perf_counter() - t0)
 
     def run(self, epochs: Optional[int] = None) -> SimMetrics:
         """Run `epochs` more epochs; the metrics are lifetime-cumulative."""
@@ -361,8 +494,11 @@ class SimNetwork:
         m.txn_latency = self.txn_latency_snapshot()
         for batch in self._batches(self.ids[0]):
             for _, txns in sorted(batch.contributions.items()):
-                m.txns_committed += len(txns)
-                m.bytes_committed += sum(len(t) for t in txns)
+                if isinstance(txns, (list, tuple)):
+                    m.txns_committed += len(txns)
+                    m.bytes_committed += sum(len(t) for t in txns)
+                else:  # a dhb contribution: one opaque payload
+                    m.bytes_committed += len(txns)
         return m
 
     def shutdown(self) -> None:
@@ -373,8 +509,10 @@ class SimNetwork:
         return self.nodes[nid].batches
 
     def batch_bytes(self, nid) -> List[tuple]:
-        """A node's committed batches as (epoch, ((proposer, txns), ...))."""
-        return [(b.epoch, tuple((p, tuple(bytes(t) for t in v))
+        """A node's committed batches as (epoch, ((proposer, txns), ...)),
+        a dhb contribution as its payload bytes."""
+        return [(b.epoch, tuple((p, tuple(bytes(t) for t in v) if isinstance(v, (list, tuple))
+                                 else bytes(v))
                                 for p, v in sorted(b.contributions.items())))
                 for b in self._batches(nid)]
 

@@ -421,3 +421,95 @@ def test_lowcomm_sim_on_the_card_equals_the_cpu(card):
     for nid in gpu.ids:
         assert gpu.batch_bytes(nid) == host.batch_bytes(nid)
     assert gpu.router.delivered == host.router.delivered
+
+
+def _msm_jobs(b, s, bits, seed, identity=False):
+    """b jobs of s distinct G1 points with `bits`-bit scalars; with
+    `identity`, infinity points, zero scalars and an empty job among them."""
+    rng = np.random.default_rng(seed)
+    pool = [bls.mul_sub(bls.G1, int(k) | 1) for k in rng.integers(1, 2**62, 32)]
+    jobs = [([pool[(i * s + k) % 32] for k in range(s)],
+             [int.from_bytes(rng.bytes(32), "little") % (1 << bits) % bls.R for _ in range(s)])
+            for i in range(b)]
+    if identity:
+        inf = bls.infinity(bls.FQ)
+        jobs[0] = ([inf] + jobs[0][0][1:], [5] + jobs[0][1][1:])
+        jobs[1] = (jobs[1][0], [0] * s)
+        jobs[2] = ([], [])
+    return jobs
+
+
+@pytest.mark.parametrize("b,s,bits", [(15, 6, 64), (225, 5, 64), (15, 6, 255), (1, 6, 64)])
+def test_msm_plane_matches_plain_and_host(card, b, s, bits):
+    """ops/msm_torch at the 16-node era switch's shapes (t + 1 = 6 terms,
+    64-bit RLC scalars; the full-width ack-value checks on the GLV ladder),
+    identity lanes included: the kernel against the plain versions, exact,
+    and sampled jobs against the host sum."""
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.ops import msm_torch
+
+    jobs = _msm_jobs(b, s, bits, b * s + bits, identity=b >= 3)
+    pts, digits, b_, s_ = msm_torch.operands(jobs, card)
+    before = fq_torch.launches
+    got = msm_torch.msm(pts, digits, b_, s_)
+    assert fq_torch.launches - before == msm_torch.launches(b_, s_)
+    assert torch.equal(got, msm_torch.msm(pts, digits, b_, s_, use_kernel=False))
+    host = limbs.limbs_to_points(got.cpu().numpy())
+    for i in sorted({0, 1, 2, b - 1} & set(range(b))):
+        assert bls.eq(host[i], dkg.g1_msm_or_fallback(*jobs[i]))
+
+
+@pytest.mark.parametrize("J,M", [(6, 16), (5, 15)])
+def test_vandermonde_fold_matches_plain_and_host(card, J, M):
+    """ops/vandermonde_torch at (J, K, M, nbits) = (6, 6, 16, 5) and the
+    16-node switch's (5, 5, 15, 4), with infinity entries: the kernel
+    against the plain versions, exact, and two nodes' folds against the
+    host fold."""
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+
+    rng = np.random.default_rng(J * M)
+    m = [[bls.mul_sub(bls.G1, int(k) | 1) for k in rng.integers(1, 2**62, J)] for _ in range(J)]
+    m[0][0] = m[J - 1][1] = bls.infinity(bls.FQ)
+    C = torch.from_numpy(limbs.points_to_limbs([p for row in m for p in row])).to(card)
+    C = C.reshape(3, limbs.N_LIMBS, J, J)
+    xs = list(range(1, M + 1))
+    before = fq_torch.launches
+    got = vt.fold_points_batch(C, xs)
+    assert fq_torch.launches - before == vt.launches(J, xs)
+    assert torch.equal(got, vt.fold_points_batch(C, xs, use_kernel=False))
+    host = limbs.limbs_to_points(got.cpu().numpy())
+    commit = dkg.BivarCommitment(m)
+    for i in (0, M - 1):
+        assert all(bls.eq(a, b) for a, b in zip(host[i * J:(i + 1) * J], commit.row_commitment(xs[i])))
+
+
+def test_dhb_era_switch_on_the_card_equals_the_cpu(card):
+    """A 4-node removal era switch with the DKG's device plane forced on
+    the card commits the host engine's bytes and launches kernel B2."""
+    from hydrabadger_tpu_torch.crypto import dkg, engine
+    from hydrabadger_tpu_torch.sim import network
+
+    def run(spec, flag):
+        dkg.clear_caches()
+        sim = network.SimNetwork(network.SimConfig(n_nodes=4, protocol="dhb", seed=7, engine=spec,
+                                                   tpu_dkg=flag))
+        sim.run(1)
+        for nid in sim.ids[:-1]:
+            sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(sim.ids[-1]))
+        for _ in range(8):
+            sim.run(1)
+            if all(sim.nodes[nid].era > 0 for nid in sim.ids):
+                break
+        m = sim.run(1)
+        return sim, m
+
+    host, hm = run("cpu", False)
+    before = fq_torch.launches
+    gpu, gm = run(engine.GpuEngine(device=card), True)
+    assert fq_torch.launches > before
+    assert gm.agreement_ok and (gm.messages_delivered, gm.faults) == (hm.messages_delivered, hm.faults)
+    for nid in gpu.ids:
+        assert gpu.batch_bytes(nid) == host.batch_bytes(nid)
+        assert gpu.nodes[nid].era == host.nodes[nid].era > 0
+        assert gpu.nodes[nid].netinfo.pk_set.to_bytes() == host.nodes[nid].netinfo.pk_set.to_bytes()
