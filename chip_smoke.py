@@ -8,9 +8,11 @@ beside itself) and needs one CUDA card with nvcc.  Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every kernel from csrc/ (one nvcc per source, in parallel):
-     each kernel's registers and spills (ptxas), and B1's matrix
-     instructions in its SASS (cuobjdump);
+  2. build every kernel from csrc/ (one nvcc per source, in parallel) and,
+     beside them, the native host library (g++ of native/bls12_381.cpp,
+     host C++, not a kernel; its seconds printed): each kernel's registers
+     and spills (ptxas), and B1's matrix instructions in its SASS
+     (cuobjdump);
   3. kernel B1 (gf256_matmul, the bit product on the int8 tensor cores)
      against its plain PyTorch version on the card, exact bytes, at the
      main path's shapes (the encode into the codeword's parity rows, the
@@ -132,6 +134,32 @@ failure:
      side by side in one launch, each batch's own launch against its
      lanes of it) and replayed back to back for its device ms, beside its
      bound.
+ 24. the native host library (crypto/native_bls) against the pure-Python
+     `_py_*` oracles: multiply and mul_sub on G1 and G2 (k = 0, 1, r - 1,
+     random), add (P + Q, P + P, P - P, infinity), the weighted sum, the
+     MSM, the fold, decompression, the subgroup checks, both pairing checks
+     and hash_to_g2;
+ 25. kernel B2's `glv_ladder` at verify_batch's shapes (2, 3, 8, 50 and a
+     ragged 1013 lanes of 128-bit coefficients) exact against its plain
+     version and native g1_mul_batch; verify_batch on the card against the
+     host engine (13 frames, one forged, one duplicate);
+ 26. the main path: config 1, the 4-node TCP testnet at full crypto
+     (`Config(txn_gen_interval_ms=300, keygen_peer_count=3)`, seeds
+     1000 + i, bench.py's generator) until every node commits 2 batches
+     (wall cap 300 s), on `GpuEngine` with the DKG's device plane forced
+     and on the host engine, in turns (cpu, gpu, gpu, cpu; a warm-up run
+     first): agreement on every node, every contribution decrypted to the
+     generator's transactions; every launch counter set to 0 just before
+     the counted card run and read just after: every verify_batch call that
+     reached the card replayed on the host engine with equal verdicts,
+     every r_i * pk_i from B2 equal to native g1_mul_batch, B2's launches
+     by entry equal to the verify batches plus the DKG plane's own counts,
+     no other kernel; the verify lane histogram, host ms in
+     limbs_to_points, wall epochs/s of both engines, and B2's device ms per
+     run (every recorded shape held exact and timed back to back, times
+     its count) beside its bound; then the fast tier with the low-comm
+     broadcast on `GpuEngine` (4 nodes, 2 batches): B1's launches equal to
+     those its sketch calls imply, no other kernel.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
@@ -144,6 +172,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1545,13 +1574,381 @@ def dkg_plane(dev: torch.device, tag: str, nodes: int = DKG_NODES) -> dict:
     }
 
 
+def tcp_testnet(engine: str, batches: int, cap_s: float, base: int, **cfg_kw):
+    """Config 1 (bench.py:390-462): a 4-node testnet on localhost sockets in
+    this process, seeds 1000 + i, every node dialling the others, with
+    bench.py's transaction generator, until every node has committed
+    `batches` batches or `cap_s` passed.  Returns (nodes, wall s)."""
+    import asyncio
+
+    from hydrabadger_tpu_torch.net.node import Config, Hydrabadger
+    from hydrabadger_tpu_torch.utils.ids import InAddr, OutAddr
+
+    n = 4
+    cfg = Config(txn_gen_interval_ms=300, keygen_peer_count=n - 1, engine=engine, **cfg_kw)
+
+    async def run():
+        nodes = [Hydrabadger(InAddr("127.0.0.1", base + i), cfg, seed=1000 + i) for i in range(n)]
+        gen = lambda count, size: [b"%02dx" % i * size for i in range(count)]  # noqa: E731
+        for i, node in enumerate(nodes):
+            await node.start([OutAddr("127.0.0.1", base + j) for j in range(n) if j != i], gen)
+        t0 = time.perf_counter()
+        while min(len(node.batches) for node in nodes) < batches:
+            if time.perf_counter() - t0 > cap_s:
+                break
+            await asyncio.sleep(0.02)
+        wall = time.perf_counter() - t0
+        for node in nodes:
+            await node.stop()
+        return nodes, wall
+
+    return asyncio.run(run())
+
+
+def testnet_checks(nodes, batches: int, what: str) -> None:
+    """Every node committed `batches` batches, all nodes agree on them, and
+    every contribution is a decrypted generator payload (a codec tuple of
+    bench.py's `%02dx` transactions)."""
+    from hydrabadger_tpu_torch.utils import codec
+
+    got = [len(n.batches) for n in nodes]
+    check(min(got) >= batches, f"{what}: batches committed {got}, want {batches} on every node "
+                               "within the wall cap")
+    for e in range(batches):
+        keys = {(n.batches[e].epoch, tuple(sorted((bytes(k), bytes(v)) for k, v in
+                                                  n.batches[e].contributions.items())))
+                for n in nodes}
+        check(len(keys) == 1, f"{what}: the nodes disagree on batch {e}")
+        for payload in nodes[0].batches[e].contributions.values():
+            txns = codec.decode(bytes(payload))
+            check(isinstance(txns, tuple) and txns and all(
+                re.fullmatch(rb"(\d\dx)+", bytes(t)) for t in txns),
+                f"{what}: batch {e} holds a contribution that did not decrypt to the generator's "
+                f"transactions: {bytes(payload)[:40]!r}")
+
+
+def tcp_plane(dev: torch.device, tag: str) -> tuple[dict, dict, int]:
+    """Phases 24-26: the native host library against its pure oracle, kernel
+    B2's GLV ladder at verify_batch's shapes, and config 1 (the 4-node TCP
+    testnet at full crypto) on GpuEngine against the host engine, then a
+    fast-tier low-comm leg.  Returns kernel B2's and kernel B1's records
+    for the `kernels` line and the worst error of the holds."""
+    from hydrabadger_tpu_torch.crypto import bls12_381 as bls
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.crypto import engine as teng
+    from hydrabadger_tpu_torch.crypto import native_bls as nb
+    from hydrabadger_tpu_torch.crypto import threshold as th
+    from hydrabadger_tpu_torch.obs import metrics as M
+    from hydrabadger_tpu_torch.ops import bls_torch, circuit_torch, fp_probe_torch, fq2_torch
+    from hydrabadger_tpu_torch.ops import fq_torch, gf256_torch, homhash_torch, limbs, msm_torch
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+
+    R = bls.R
+    worst = 0
+    rng = np.random.default_rng(24)
+
+    def aff(p):
+        return bls.g1_to_bytes(p) if isinstance(p[0], bls.FQ) else bls.g2_to_bytes(p)
+
+    # -- 24. the native host library against the pure-Python oracles ---------
+    t0 = time.perf_counter()
+    g1 = [bls._py_multiply(bls.G1, int.from_bytes(rng.bytes(32), "little") % R) for _ in range(3)]
+    g2 = [bls._py_hash_to_g2(b"smoke-%d" % i) for i in range(2)]
+    inf1, inf2 = bls.infinity(bls.FQ), bls.infinity(bls.FQ2)
+    ks = [0, 1, R - 1, int.from_bytes(rng.bytes(32), "little") % R]
+    for base, name in ((g1[0], "g1"), (g2[0], "g2")):
+        for k in ks:
+            want = aff(bls._py_multiply(base, k))
+            check(aff(bls.multiply(base, k)) == want == aff(bls.mul_sub(base, k)),
+                  f"native {name} multiply != _py_multiply at k = {k}")
+    for p, q in ((g1[0], g1[1]), (g1[0], g1[0]), (g1[0], bls.neg(g1[0])), (inf1, g1[2]),
+                 (g2[0], g2[1]), (g2[0], inf2)):
+        check(aff(bls.add(p, q)) == aff(bls._py_add(p, q)), "native add != _py_add")
+    lam = th.lagrange_coeffs_at_zero([1, 2, 3])
+    want = inf1
+    for p, li in zip(g1, lam):
+        want = bls._py_add(want, bls._py_multiply(p, li))
+    check(aff(th.interpolate_g_at_zero(dict(zip([1, 2, 3], g1)))) == aff(want),
+          "native weighted sum != the pure interpolation")
+    check(aff(nb.g1_msm(g1, lam)) == aff(want), "native MSM != the pure sum")
+    fold = nb.g1_fold_pow([g1[:2], [g1[2], inf1]], 5, 0)
+    check([aff(p) for p in fold] == [aff(bls._py_add(g1[0], bls._py_multiply(g1[2], 5))), aff(g1[1])],
+          "native fold != the pure Horner fold")
+    for p in g1 + [inf1]:
+        check(aff(bls.g1_from_bytes(bls.g1_to_bytes(p))) == aff(p), "native G1 decompression")
+    for p in g2:
+        check(aff(bls.g2_from_bytes(bls.g2_to_bytes(p))) == aff(p), "native G2 decompression")
+    y = (bls.FQ(0) * bls.FQ(0) * bls.FQ(0) + bls.B1).sqrt()
+    check(not bls.in_g1_subgroup((bls.FQ(0), y, bls.FQ(1))) and bls.in_g2_subgroup(g2[0]),
+          "native subgroup checks")
+    p1, q1 = bls._py_multiply(bls.G1, 35), bls._py_multiply(bls.G2, 11)
+    for k in (385, 386):
+        p2 = bls._py_multiply(bls.G1, k)
+        check(bls.pairing_check_eq(p1, q1, p2, bls.G2) == bls._py_pairing_check_eq(p1, q1, p2, bls.G2)
+              == (k == 385), "native pairing_check_eq != the pure check")
+    pairs = [(bls.neg(p1), q1), (bls._py_multiply(bls.G1, 385), bls.G2)]
+    check(bls.pairing_product_check(pairs) and bls._py_pairing_product_check(pairs),
+          "native pairing_product_check != the pure check")
+    for msg in (b"", b"config 1"):
+        check(aff(nb.hash_to_g2(msg, b"HBTPU-G2")) == aff(bls._py_hash_to_g2(msg)),
+              "native hash_to_g2 != the pure hash")
+    print(f"native host library == the pure-Python oracles: multiply / mul_sub (G1, G2, k in 0, 1, "
+          f"r - 1, random), add (P + Q, P + P, P - P, infinity), the weighted sum, the MSM, the fold, "
+          f"decompression, the subgroup checks, both pairing checks, hash_to_g2 "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 25. B2's GLV ladder at verify_batch's shapes; verify_batch on the card
+    pool = [bls.mul_sub(bls.G1, int(k) | 1) for k in rng.integers(1, 2**62, 64)]
+    for lanes in (2, 3, 8, 50, RAGGED):
+        pts = [pool[i % 64] for i in range(lanes)]
+        rs = [int.from_bytes(rng.bytes(16), "little") | 1 for _ in range(lanes)]
+        pts_t, digits = bls_torch.scalar_mul_operands(pts, rs, dev)
+        got = bls_torch.g1_scalar_mul_glv(pts_t, digits)
+        want = bls_torch.g1_scalar_mul_glv(pts_t, digits, use_kernel=False)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(got, want))
+        check(torch.equal(got, want), f"glv_ladder != plain at {lanes} lanes")
+        host = nb.g1_mul_batch(pts, rs)
+        check([aff(p) for p in bls_torch.to_host(got)] == [aff(p) for p in host],
+              f"glv_ladder x {lanes} != native g1_mul_batch")
+    print(f"kernel == plain, exact, and == native g1_mul_batch: glv_ladder at 2, 3, 8, 50 and "
+          f"{RAGGED} lanes (128-bit RLC coefficients)")
+    sks = [th.SecretKey(int.from_bytes(rng.bytes(31), "little") | 1) for _ in range(12)]
+    items = [(sk.public_key(), sk.sign(b"frame %d" % i), b"frame %d" % i) for i, sk in enumerate(sks)]
+    items[7] = (items[7][0], sks[1].sign(b"frame 7"), b"frame 7")  # forged
+    items.append(items[3])  # a duplicate
+    teng._VERIFIED_FRAMES.clear()
+    want_v = teng.CpuEngine().verify_batch(items)
+    teng._VERIFIED_FRAMES.clear()
+    got_v = teng.GpuEngine(device=dev).verify_batch(items)
+    check(got_v == want_v == [i != 7 for i in range(13)],
+          f"verify_batch on the card {got_v} != the host engine's {want_v}")
+    print("verify_batch on the card == the host engine: 13 frames, one forged, one duplicate")
+
+    # -- 26. config 1: the 4-node TCP testnet at full crypto ----------------
+    class RecordingGpuEngine(teng.GpuEngine):
+        """GpuEngine that records each verify_batch call that reached the
+        card (its items and verdicts) and each r_i * pk_i batch."""
+
+        verifies: list = []
+        muls: list = []
+
+        def verify_batch(self, items):
+            before = len(self.muls)
+            verdicts = super().verify_batch(items)
+            if len(self.muls) > before:
+                self.verifies.append((list(items), list(verdicts)))
+            return verdicts
+
+        def _g1_scalar_muls(self, points, scalars):
+            out = super()._g1_scalar_muls(points, scalars)
+            self.muls.append((list(points), list(scalars), out))
+            return out
+
+    teng.register_engine("gpu-recording", RecordingGpuEngine)
+    reg = M.default_registry()
+    names = (M.VERIFY_DEVICE_BATCHES, M.VERIFY_DEVICE_LANES, M.VERIFY_TO_POINTS_MS)
+    ports = iter(range(15300, 15400, 4))
+
+    def run(engine, gpu_dkg: bool):
+        os.environ[dkg.GPU_DKG_ENV] = "1" if gpu_dkg else "0"
+        dkg.clear_caches()
+        teng._VERIFIED_FRAMES.clear()
+        try:
+            nodes, wall = tcp_testnet(engine, 2, 300.0, next(ports))
+        finally:
+            os.environ.pop(dkg.GPU_DKG_ENV, None)
+        testnet_checks(nodes, 2, f"config 1 on the {engine} engine")
+        return nodes, wall
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        gf256_torch.launches = fq_torch.launches = fq2_torch.launches = 0
+        circuit_torch.launches = fp_probe_torch.launches = 0
+        fq_torch.launches_by_kind.clear()
+        msm_torch.calls.clear()
+        vt.calls.clear()
+        dkg.channel_key_calls.clear()
+        teng.device_verify_calls.clear()
+        RecordingGpuEngine.verifies.clear()
+        RecordingGpuEngine.muls.clear()
+        limbs.to_points_s = 0.0
+        return {k: reg.counter(k).value for k in names}
+
+    run("gpu-recording", True)  # warm-up
+    walls = {"gpu": [], "cpu": []}
+    _nodes, w = run("cpu", False)
+    walls["cpu"].append(w)
+    before = zero_counts()
+    card_nodes, w = run("gpu-recording", True)
+    torch.cuda.synchronize()
+    walls["gpu"].append(w)
+    by_kind = dict(fq_torch.launches_by_kind)
+    others = {"gf256_matmul": gf256_torch.launches, "fq2_point": fq2_torch.launches,
+              "circuit": circuit_torch.launches, "fp_probe": fp_probe_torch.launches}
+    msm_calls, fold_calls = dict(msm_torch.calls), dict(vt.calls)
+    key_calls, lane_hist = dict(dkg.channel_key_calls), dict(teng.device_verify_calls)
+    verifies, muls = list(RecordingGpuEngine.verifies), list(RecordingGpuEngine.muls)
+    counted = {k: reg.counter(k).value - before[k] for k in names}
+    to_points_ms = 1e3 * limbs.to_points_s
+    for engine, flag, key in (("gpu-recording", True, "gpu"), ("cpu", False, "cpu")):
+        walls[key].append(run(engine, flag)[1])
+    check(len(muls) == counted[M.VERIFY_DEVICE_BATCHES] == sum(lane_hist.values()) > 0,
+          f"config 1 sent {len(muls)} verify batches to the card (counted "
+          f"{counted[M.VERIFY_DEVICE_BATCHES]}, histogram {lane_hist}); want the same number, > 0")
+    # every card verdict replayed on the host engine, every r_i * pk_i against
+    # the native ladder
+    for items_, verdicts in verifies:
+        teng._VERIFIED_FRAMES.clear()
+        check(teng.CpuEngine().verify_batch(items_) == verdicts,
+              "a verify_batch verdict on the card != the host engine's replay")
+    for pts, rs, out in muls:
+        check([aff(p) for p in out] == [aff(p) for p in nb.g1_mul_batch(pts, rs)],
+              f"r_i * pk_i from B2 ({len(pts)} lanes) != native g1_mul_batch")
+    teng._VERIFIED_FRAMES.clear()
+    check(all(all(v) for _i, v in verifies), "an honest testnet frame failed verification")
+    check(sum(others.values()) == 0, f"config 1 launched other kernels: {others}")
+    check(by_kind.get("glv_ladder", 0) >= len(muls), f"B2 launches by entry {by_kind}")
+    msm_launches = sum(n * msm_torch.launches(b, s) for (b, s, _w), n in msm_calls.items())
+    fold_launches = sum(n * vt.launches(J, xs) for (J, _K, xs), n in fold_calls.items())
+    key_launches = sum(key_calls.values())
+    check(len(muls) + msm_launches + fold_launches + key_launches == sum(by_kind.values()),
+          f"B2 launches {sum(by_kind.values())} != verify batches {len(muls)} + msm {msm_launches} "
+          f"+ folds {fold_launches} + channel keys {key_launches}")
+    check(msm_launches + fold_launches + key_launches > 0, "the bootstrap DKG launched nothing on B2")
+    eps = {k: [round(2 / x, 4) for x in v] for k, v in walls.items()}
+    print(f"main path: config 1 (4-node TCP testnet, full crypto, txn_gen_interval_ms 300, "
+          f"keygen_peer_count 3, seeds 1000 + i) to 2 agreed, decrypted batches on every node on "
+          f"GpuEngine with the DKG plane forced and on the host engine; {len(verifies)} verify_batch "
+          f"calls on the card replayed on the host engine with equal verdicts, every r_i * pk_i equal "
+          f"to native g1_mul_batch; B2 launches by entry {by_kind} (verify batches {len(muls)}, MSMs "
+          f"{msm_launches}, folds {fold_launches}, channel keys {key_launches}), no other kernel")
+    print(f"config 1 verify batches on the card: {len(muls)}, lanes {counted[M.VERIFY_DEVICE_LANES]}, "
+          f"lane histogram {dict(sorted(lane_hist.items()))}; host {to_points_ms:.1f} ms in "
+          f"limbs_to_points (verify batches {counted[M.VERIFY_TO_POINTS_MS]:.1f} ms)")
+    print(f"config 1 wall epochs/s (2 batches from start, bootstrap DKG included) in turns (cpu, gpu, "
+          f"gpu, cpu): gpu engine {eps['gpu']}, cpu engine {eps['cpu']}; wall s gpu "
+          f"{[round(x, 2) for x in walls['gpu']]}, cpu {[round(x, 2) for x in walls['cpu']]} {tag}")
+
+    # B2's device time in the counted run: every recorded verify batch side
+    # by side held exact, then each lane count's launch and each DKG shape
+    # timed back to back, times its count
+    cat_pts, cat_digits = bls_torch.scalar_mul_operands(
+        [p for pts, _r, _o in muls for p in pts], [r for _p, rs, _o in muls for r in rs], dev)
+    t0 = time.perf_counter()
+    whole = bls_torch.g1_scalar_mul_glv(cat_pts, cat_digits)
+    want = bls_torch.g1_scalar_mul_glv(cat_pts, cat_digits, use_kernel=False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    worst = max(worst, max_abs_err(whole, want))
+    check(torch.equal(whole, want), f"glv_ladder != plain over config 1's {cat_pts.shape[-1]} verify lanes")
+    dev_ms = ops_ms = bytes_ms = 0.0
+    shapes = []
+    first = {}
+    for pts, rs, _o in muls:
+        first.setdefault(len(pts), (pts, rs))
+    for lanes, n in sorted(lane_hist.items()):
+        pts_t, digits = bls_torch.scalar_mul_operands(*first[lanes], dev)
+        ms = launch_ms(lambda: bls_torch.g1_scalar_mul_glv(pts_t, digits), reps=5)
+        o, by = plan_bound(bls_torch.glv_plan(digits.cpu().numpy()))
+        shapes.append({"what": "verify", "lanes": lanes, "count": n, "ms": ms, "bound_ms": max(o, by)})
+        dev_ms, ops_ms, bytes_ms = dev_ms + n * ms, ops_ms + n * o, bytes_ms + n * by
+    for (b, s, w), n in sorted(msm_calls.items()):
+        jobs = [([pool[(i * s + k) % 64] for k in range(s)],
+                 [int.from_bytes(rng.bytes(32 if w == 33 else 8), "little") % R for _ in range(s)])
+                for i in range(b)]
+        pts_t, digits, b_, s_ = msm_torch.operands(jobs, dev)
+        got = msm_torch.msm(pts_t, digits, b_, s_)
+        check(torch.equal(got, msm_torch.msm(pts_t, digits, b_, s_, use_kernel=False)),
+              f"msm != plain at config 1's ({b}, {s}, {w})")
+        ms = launch_ms(lambda: msm_torch.msm(pts_t, digits, b_, s_), reps=3)
+        d = digits.cpu().numpy()
+        plan = (bls_torch.glv_plan(d) + [row for row in bls_torch.weighted_sum_plan(
+            np.zeros((1, b * s), np.int32), s) if row.part == "tree"]) if w == 33 else \
+            bls_torch.weighted_sum_plan(d, s)
+        o, by = plan_bound(plan)
+        shapes.append({"what": "msm", "shape": [b, s, w], "count": n, "ms": ms, "bound_ms": max(o, by)})
+        dev_ms, ops_ms, bytes_ms = dev_ms + n * ms, ops_ms + n * o, bytes_ms + n * by
+    for (J, K, xs), n in sorted(fold_calls.items()):
+        C = torch.from_numpy(limbs.points_to_limbs([pool[i % 64] for i in range(J * K)])).to(dev)
+        C = C.reshape(3, limbs.N_LIMBS, J, K)
+        got = vt.fold_points_batch(C, list(xs))
+        check(torch.equal(got, vt.fold_points_batch(C, list(xs), use_kernel=False)),
+              f"fold != plain at config 1's ({J}, {K}, {len(xs)})")
+        ms = launch_ms(lambda: vt.fold_points_batch(C, list(xs)), reps=3)
+        o, by = plan_bound(fold_plan(J, K, xs))
+        shapes.append({"what": "fold", "shape": [J, K, len(xs)], "count": n, "ms": ms,
+                       "bound_ms": max(o, by)})
+        dev_ms, ops_ms, bytes_ms = dev_ms + n * ms, ops_ms + n * o, bytes_ms + n * by
+    for lanes, n in sorted(key_calls.items()):
+        pts_t, digits = bls_torch.scalar_mul_operands(
+            pool[:lanes], [int.from_bytes(rng.bytes(32), "little") % R for _ in range(lanes)], dev)
+        ms = launch_ms(lambda: bls_torch.g1_scalar_mul_glv(pts_t, digits), reps=5)
+        o, by = plan_bound(bls_torch.glv_plan(digits.cpu().numpy()))
+        shapes.append({"what": "channel keys", "lanes": lanes, "count": n, "ms": ms,
+                       "bound_ms": max(o, by)})
+        dev_ms, ops_ms, bytes_ms = dev_ms + n * ms, ops_ms + n * o, bytes_ms + n * by
+    bound, bound_by = roofline.bound_ms(ops_ms, bytes_ms)
+    verify_ms = sum(x["count"] * x["ms"] for x in shapes if x["what"] == "verify")
+    print(f"config 1's B2 work replayed at its {len(shapes)} recorded shapes: {dev_ms:.3f} device ms "
+          f"per run (verify batches {verify_ms:.3f} ms, {100 * dev_ms / 1e3 / walls['gpu'][0]:.3f}% of "
+          f"the {walls['gpu'][0]:.2f} s counted run), bound {bound:.5f} ms ({bound_by}), "
+          f"{dev_ms / bound:.0f}x; plain over all {cat_pts.shape[-1]} verify lanes {plain_ms:.0f} ms {tag}")
+    print(json.dumps({"tcp_config1": {"shapes": shapes, "launches_by_entry": by_kind,
+                                      "lane_histogram": lane_hist, "walls": walls, "card": tag}}))
+    b2 = {
+        "per": "config 1: the 4-node TCP testnet at full crypto to 2 batches on every node "
+               "(verify_batch's r_i * pk_i and the bootstrap DKG's MSMs, folds and channel keys), "
+               "every recorded shape timed back to back, times its count",
+        "launches": sum(by_kind.values()),
+        "launches_by_entry": by_kind,
+        "verify_batches": len(muls),
+        "verify_lanes": counted[M.VERIFY_DEVICE_LANES],
+        "lane_histogram": {str(k): v for k, v in sorted(lane_hist.items())},
+        "ms": dev_ms,
+        "verify_ms": verify_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "max_abs_err": worst,
+        "host_to_points_ms": to_points_ms,
+        "gpu_epochs_per_s": eps["gpu"],
+        "cpu_epochs_per_s": eps["cpu"],
+    }
+
+    # -- 26b. the fast tier with the low-comm broadcast: B1's sketches -------
+    homhash_torch.calls.clear()
+    zero_counts()
+    os.environ[dkg.GPU_DKG_ENV] = "0"  # B1 only: the 4-node DKG stays on the host
+    try:
+        nodes, w = tcp_testnet("gpu", 2, 300.0, next(ports), encrypt=False, coin_mode="hash",
+                               verify_shares=False, wire_sign=False, rbc_variant="lowcomm")
+    finally:
+        os.environ.pop(dkg.GPU_DKG_ENV, None)
+    torch.cuda.synchronize()
+    launched = {"gf256_matmul": gf256_torch.launches, "fq_point": fq_torch.launches,
+                "fq2_point": fq2_torch.launches, "circuit": circuit_torch.launches,
+                "fp_probe": fp_probe_torch.launches}
+    implied = sum(n * len(gf256_torch.chunks(8, L)) for (_b, L), n in homhash_torch.calls.items())
+    testnet_checks(nodes, 2, "the low-comm fast-tier testnet")
+    check(launched["gf256_matmul"] == implied > 0 and sum(launched.values()) == implied,
+          f"the low-comm testnet's launches {launched} != the {implied} its sketch calls imply")
+    print(f"main path: the 4-node TCP testnet, fast tier, rbc lowcomm, on GpuEngine: 2 agreed "
+          f"batches on every node in {w:.2f} s; B1 launches {launched['gf256_matmul']} == the sketch "
+          f"calls' {implied}, no other kernel {tag}")
+    b1 = {"per": "the 4-node TCP testnet, fast tier, rbc lowcomm, to 2 batches",
+          "launches": launched["gf256_matmul"], "wall_s": w}
+    return b2, b1, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
         return 2
 
-    from hydrabadger_tpu_torch.crypto import gf256
+    from hydrabadger_tpu_torch.crypto import gf256, native_bls
     from hydrabadger_tpu_torch.crypto.rs import decode_matrix, encode_matrix
     from hydrabadger_tpu_torch.ops import _kernels, circuit_torch, fq_torch, gf256_torch
     from hydrabadger_tpu_torch.sim import tensor as ts
@@ -1571,8 +1968,24 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
+    host_error: list = []
+
+    def build_host_native():  # g++ beside the nvcc builds
+        try:
+            native_bls.build_library()
+        except Exception as exc:  # re-raised below, on the main thread
+            host_error.append(exc)
+
+    gxx = threading.Thread(target=build_host_native)
+    gxx.start()
     built = _kernels.build()
+    gxx.join()
+    if host_error:
+        raise host_error[0]
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built) or 'none (cached)'}")
+    gxx_s = native_bls.build_seconds
+    print("  native/bls12_381.cpp (host C++, build/host_native/libbls381.so): "
+          + (f"g++ {gxx_s:.2f} s" if gxx_s is not None else "an earlier build, reused"))
     for name, (seconds, output) in built.items():
         print(f"  {name}: nvcc {seconds:.2f} s")
         for entry, regs, stores, loads in ptxas_report(output):
@@ -1742,6 +2155,8 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], sketch_err)
     fq_entry["dhb_era_switch"] = dkg_plane(dev, tag)
     fq_entry["max_abs_err"] = max(fq_entry["max_abs_err"], fq_entry["dhb_era_switch"]["max_abs_err"])
+    fq_entry["tcp_config1"], kernels[0]["tcp_lowcomm"], tcp_err = tcp_plane(dev, tag)
+    fq_entry["max_abs_err"] = max(fq_entry["max_abs_err"], tcp_err)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,14 +8,19 @@ consensus/, obs/, utils/, the sim's router and network).
     device.py            resolve_device: the card unless the caller asks for cpu
     utils/codec.py       the canonical message codec (pure Python)
     utils/lru.py         the digest-keyed LRU of the crypto caches
-    utils/envflags.py    HYDRABADGER_RBC, resolved at the sim
-    obs/                 the sans-io recorder, counters and gauges, the
-                         per-transaction latency ledgers
+    utils/envflags.py    HYDRABADGER_RBC, resolved at the sim and the node
+    utils/ids.py         node ids and addresses
+    obs/                 the sans-io recorder, counters, gauges and histograms,
+                         the per-transaction latency ledgers, structured
+                         logging, the trace writers
     crypto/gf256.py      GF(2^8) tables and host matrix ops (numpy)
     crypto/rs.py         encode/decode matrices, numpy ReedSolomon (the oracle),
                          byte payloads in and out of shards
     crypto/bls12_381.py  G1 over Fp, G2 over Fp2, Fp12 and the pairing checks,
-                         hash onto G2, encodings, pure Python (the host oracle)
+                         hash onto G2, encodings; native dispatch, the pure
+                         `_py_*` bodies as the oracles
+    crypto/native_bls.py ctypes binding of native/bls12_381.cpp (host C++, not a
+                         kernel), built by g++ into build/host_native/
     crypto/threshold.py  keys, signatures, Shamir key sets, Lagrange, threshold
                          encryption, decryption and signature shares, their
                          verification and combines
@@ -48,8 +53,12 @@ consensus/, obs/, utils/, the sim's router and network).
     sim/router.py        the deterministic message router
     sim/network.py       SimNetwork: QueueingHoneyBadger nodes over the router
                          (python -m hydrabadger_tpu_torch.sim is its CLI)
+    net/                 the TCP node tier: signed frames (wire), peers, the
+                         node (Config, Hydrabadger), the CryptoBridge batcher
+    __main__.py          the node CLI: python -m hydrabadger_tpu_torch
+    blockchain.py        the reference's toy proof-of-work chain (--mine)
     experiments/         the Fp probes E1-E4 (python -m ..., on a card)
 
 Importing builds nothing and touches no card; kernels build at their
-first launch on a CUDA tensor.
+first launch on a CUDA tensor, the native host library at its first call.
 """

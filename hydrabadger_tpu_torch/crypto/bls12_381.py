@@ -1,4 +1,4 @@
-"""BLS12-381 over Fp, Fp2 and Fp12 — the pure-Python host oracle.
+"""BLS12-381 over Fp, Fp2 and Fp12: the host group and pairing operations.
 
 Copy of what the port needs of hydrabadger_tpu/crypto/bls12_381.py: the
 fields FQ, FQ2 (Fp[u]/(u^2 + 1)) and FQ12, the generators G1 and G2, the
@@ -7,11 +7,17 @@ eq / is_on_curve for points over any of them, the ate pairing
 (`miller_loop`, `final_exponentiation`, `pairing_check_eq`,
 `pairing_product_check`), the psi endomorphism, cofactor clearing and the
 subgroup checks, `hash_to_fr`, `hash_to_g2` (try-and-increment, then
-clearing; cached by digest, since one costs ~28 ms) and the compressed G1
-and G2 encodings both ways.  No native engine: `multiply` and `mul_sub` are
-the plain double-and-add ladder and the pairing checks the plain final
-exponentiation (the JAX package's pure-Python `_py_*` fallbacks), which
-give the same group elements and verdicts as its native engine.
+clearing; cached by digest) and the compressed G1 and G2 encodings both
+ways.
+
+As in the JAX module, the public group and pairing operations dispatch to
+the native host library (crypto/native_bls: native/bls12_381.cpp, built by
+the port with g++) at the end of this file, and the pure-Python bodies stay
+as the `_py_*` oracles (`_py_multiply`, `_py_add`, `_py_pairing_check_eq`,
+`_py_pairing_product_check`, `_py_hash_to_g2`): plain copies of the JAX
+package's pure-Python fallbacks, giving the same group elements and
+verdicts.  HYDRABADGER_NO_NATIVE_BLS=1 (or native_bls.set_enabled(False))
+selects them; a missing or failing native library raises.
 
 Points are projective (X, Y, Z) tuples of FQ, FQ2 or FQ12; Z == 0 at
 infinity.
@@ -344,6 +350,11 @@ def double(pt):
 
 
 def add(p1, p2):
+    return _add_impl(p1, p2)
+
+
+def _add_impl(p1, p2):
+    """The pure complete add (the `_py_add` oracle; no dispatch re-entry)."""
     if is_inf(p1):
         return p2
     if is_inf(p2):
@@ -374,7 +385,9 @@ def neg(pt):
 
 
 def multiply(pt, n: int):
-    """Scalar multiplication (double-and-add, MSB first), G1 or G2."""
+    """Scalar multiplication (double-and-add, MSB first).  Self-contained
+    pure Python: this body stays as the `_py_multiply` oracle after the
+    native dispatch section rebinds the public name."""
     if n < 0:
         pt, n = neg(pt), -n
     if n == 0 or is_inf(pt):
@@ -384,14 +397,8 @@ def multiply(pt, n: int):
         if result is not None:
             result = double(result)
         if bit == "1":
-            result = pt if result is None else add(result, pt)
+            result = pt if result is None else _add_impl(result, pt)
     return result
-
-
-def mul_sub(pt, n: int):
-    """Scalar multiplication of an r-order subgroup point (every protocol
-    point).  The same group element as the JAX package's GLV/GLS ladders."""
-    return multiply(pt, n)
 
 
 def normalize(pt):
@@ -505,7 +512,7 @@ def miller_loop(q_twisted, p_casted) -> FQ12:
             n_, d_ = _linefunc(r_pt, q_twisted, p_casted)
             f_num = f_num * n_
             f_den = f_den * d_
-            r_pt = add(r_pt, q_twisted)
+            r_pt = _add_impl(r_pt, q_twisted)
     return f_num / f_den
 
 
@@ -549,22 +556,6 @@ def hash_to_fr(msg: bytes, domain: bytes = b"HBTPU-FR") -> int:
     return int.from_bytes(_expand_message(msg, domain, 40), "big") % R
 
 
-# Digest-keyed LRU of hash_to_g2: a coin round hashes one document per node
-# and the verify paths hash it again.  Keys are digests of (domain, msg),
-# never the message bodies.
-_H_CACHE: DigestLRU = DigestLRU(4096)
-
-
-def hash_to_g2(msg: bytes, domain: bytes = b"HBTPU-G2") -> tuple:
-    """`_hash_to_g2` through the digest cache."""
-    key = hashlib.sha256(len(domain).to_bytes(4, "big") + domain + msg).digest()
-    pt = _H_CACHE.get(key)
-    if pt is None:
-        pt = _hash_to_g2(msg, domain)
-        _H_CACHE.put(key, pt)
-    return pt
-
-
 def _hash_to_g2(msg: bytes, domain: bytes = b"HBTPU-G2") -> tuple:
     """Deterministic hash onto the r-torsion of E'(Fp2): try-and-increment
     on x, then cofactor clearing.  The same group element as the JAX
@@ -603,23 +594,29 @@ def in_g1_subgroup(pt) -> bool:
     """phi(P) == [-x^2]P."""
     if is_inf(pt):
         return True
+    if _nb.available():
+        return _nb.g1_in_subgroup(pt)
     x, y, z = pt
-    return eq((FQ(BETA) * x, y, z), neg(multiply(pt, X_PARAM * X_PARAM)))
+    return eq((FQ(BETA) * x, y, z), neg(_py_multiply(pt, X_PARAM * X_PARAM)))
 
 
 def in_g2_subgroup(pt) -> bool:
     """psi(P) == [x]P."""
     if is_inf(pt):
         return True
-    return eq(psi(pt), neg(multiply(pt, -X_PARAM)))
+    if _nb.available():
+        return _nb.g2_in_subgroup(pt)
+    return eq(psi(pt), neg(_py_multiply(pt, -X_PARAM)))
 
 
 def clear_cofactor_g2(pt):
-    """[x^2-x-1]P + [x-1]psi(P) + psi^2(2P): lands in G2 for all of E'."""
-    t1 = multiply(pt, X_PARAM * X_PARAM - X_PARAM - 1)
-    t2 = multiply(psi(pt), X_PARAM - 1)
-    t3 = psi(psi(add(pt, pt)))
-    return add(add(t1, t2), t3)
+    """[x^2-x-1]P + [x-1]psi(P) + psi^2(2P): lands in G2 for all of E'.
+    Pure-Python internals: the input may carry cofactor components, which
+    the subgroup ladders must never see (the native hash clears in C++)."""
+    t1 = _py_multiply(pt, X_PARAM * X_PARAM - X_PARAM - 1)
+    t2 = _py_multiply(psi(pt), X_PARAM - 1)
+    t3 = psi(psi(_py_add(pt, pt)))
+    return _py_add(_py_add(t1, t2), t3)
 
 
 def _fq_sign(n: int) -> int:
@@ -644,6 +641,8 @@ def g1_from_bytes(raw: bytes):
         raise ValueError("G1 encoding must be 48 bytes")
     if raw[0] & 0x40:
         return infinity(FQ)
+    if _nb.available():
+        return _nb.g1_decompress(raw)
     sign = (raw[0] >> 5) & 1
     x = FQ(int.from_bytes(bytes([raw[0] & 0x1F]) + raw[1:], "big"))
     y = (x * x * x + B1).sqrt()
@@ -679,6 +678,8 @@ def g2_from_bytes(raw: bytes):
         raise ValueError("G2 encoding must be 96 bytes")
     if raw[0] & 0x40:
         return infinity(FQ2)
+    if _nb.available():
+        return _nb.g2_decompress(raw)
     sign = (raw[0] >> 5) & 1
     c1 = int.from_bytes(bytes([raw[0] & 0x1F]) + raw[1:48], "big")
     c0 = int.from_bytes(raw[48:96], "big")
@@ -696,4 +697,90 @@ def g2_from_bytes(raw: bytes):
         # E'(Fp2)'s cofactor has small factors (13^2, 23^2, ...): a mauled
         # signature sig + T would pass a batch check with probability ~1/13
         raise ValueError("G2 point not in the r-order subgroup")
+    return pt
+
+
+# ---------------------------------------------------------------------------
+# Native dispatch
+# ---------------------------------------------------------------------------
+# The native host library (native/bls12_381.cpp through crypto/native_bls)
+# takes over the public group and pairing operations.  The pure-Python
+# definitions above remain the oracle: the tests run both and compare.
+
+_py_multiply = multiply
+_py_add = add
+_py_pairing_check_eq = pairing_check_eq
+_py_pairing_product_check = pairing_product_check
+_py_hash_to_g2 = _hash_to_g2
+
+from . import native_bls as _nb  # noqa: E402  (needs FQ/FQ2 defined)
+
+
+def multiply(pt, n: int):  # noqa: F811
+    """Scalar multiplication; native for G1/G2, Python for E(Fp12).
+    Correct for any curve point; mul_sub() takes the GLV/GLS ladders for
+    points of the r-order subgroup."""
+    if _nb.available():
+        t = type(pt[0])
+        if t is FQ:
+            return _nb.g1_mul(pt, n)
+        if t is FQ2:
+            return _nb.g2_mul(pt, n)
+    return _py_multiply(pt, n)
+
+
+def mul_sub(pt, n: int):
+    """Scalar multiplication for points known to lie in the r-order
+    subgroup (every protocol point): the 2-dim GLV (G1) / 4-dim GLS (G2)
+    ladders natively, the plain ladder otherwise.  Not valid for
+    cofactor-bearing points."""
+    if _nb.available():
+        t = type(pt[0])
+        if t is FQ:
+            return _nb.g1_mul_sub(pt, n)
+        if t is FQ2:
+            return _nb.g2_mul_sub(pt, n)
+    return _py_multiply(pt, n)
+
+
+def add(p1, p2):  # noqa: F811
+    if _nb.available():
+        t = type(p1[2])
+        if t is FQ:
+            return _nb.g1_add(p1, p2)
+        if t is FQ2:
+            return _nb.g2_add(p1, p2)
+    return _py_add(p1, p2)
+
+
+def pairing_check_eq(p1, q1, p2, q2) -> bool:  # noqa: F811
+    if _nb.available():
+        return _nb.pairing_check_eq(p1, q1, p2, q2)
+    return _py_pairing_check_eq(p1, q1, p2, q2)
+
+
+def pairing_product_check(pairs) -> bool:  # noqa: F811
+    pairs = list(pairs)
+    if _nb.available():
+        return _nb.pairing_product_check(pairs)
+    return _py_pairing_product_check(pairs)
+
+
+# Digest-keyed LRU of hash_to_g2: a coin round hashes one document per node
+# and the verify paths hash it again.  Keys are digests of (domain, msg),
+# never the message bodies.
+_H_CACHE: DigestLRU = DigestLRU(4096)
+
+
+def _hash_cache_clear() -> None:
+    _H_CACHE.clear()
+
+
+def hash_to_g2(msg: bytes, domain: bytes = b"HBTPU-G2") -> tuple:
+    """H(msg) onto G2 through the digest cache: native, else `_py_hash_to_g2`."""
+    key = hashlib.sha256(len(domain).to_bytes(4, "big") + domain + msg).digest()
+    pt = _H_CACHE.get(key)
+    if pt is None:
+        pt = _nb.hash_to_g2(msg, domain) if _nb.available() else _py_hash_to_g2(msg, domain)
+        _H_CACHE.put(key, pt)
     return pt

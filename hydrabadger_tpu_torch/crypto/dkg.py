@@ -35,10 +35,13 @@ where this process already holds a CUDA context, so a key-gen message
 never initialises the card; "auto" also wants the JAX module's sizes (256
 multiplies per MSM batch, t >= 16 for the folds).  The plane's device is
 `plane_device`'s scope (the sim's engine device; "cpu" runs the plain
-versions) or "cuda".  The host routes give the same points: the plain
-sums and Horner folds the JAX module takes without its native library.
-A failure on the device raises; only the structural ValueError (points
-and scalars of different lengths) is raised on every route.
+versions) or "cuda".  The device plane takes precedence where it is on.
+The host routes are the JAX module's: the native library's Pippenger MSM,
+short-Horner folds and GLV multiplies (crypto/native_bls), or, where
+HYDRABADGER_NO_NATIVE_BLS=1 selects the pure path, the plain sums and
+Horner folds; every route gives the same points.  A failure on the device
+or in the native library raises; the structural ValueError (points and
+scalars of different lengths) is raised on every route.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ import torch
 from ..device import resolve_device
 from ..utils import codec
 from ..utils.lru import DigestLRU
+from . import native_bls
 from .bls12_381 import FQ, G1, R, add, eq, g1_from_bytes, g1_to_bytes, infinity, mul_sub
 from .threshold import (
     PublicKey,
@@ -76,10 +80,22 @@ GPU_DKG_ENV = "HYDRABADGER_GPU_DKG"
 channel_key_calls: Counter = Counter()
 
 
+def _small_fold(point_matrix, base: int, axis: int, raw96=None):
+    """The native Horner fold by powers of a small base, where the library
+    is selected; None otherwise.  A native failure raises."""
+    if native_bls.available() and 0 < base < (1 << 16):
+        return native_bls.g1_fold_pow(point_matrix, base, axis, raw96=raw96)
+    return None
+
+
 def g1_poly_eval(points, x: int):
     """Evaluate a G1-point polynomial (coefficients low-to-high) at x:
     Σ_j points[j] * x^j, the accumulation of commitment folding and ack
-    verification (mirrored by threshold.PublicKeySet.public_key_share)."""
+    verification (mirrored by threshold.PublicKeySet.public_key_share).
+    Small x (node indices) takes the native short-Horner fold."""
+    fast = _small_fold([list(points)], x, 1)
+    if fast is not None:
+        return fast[0]
     acc = infinity(FQ)
     xj = 1
     for pt in points:
@@ -120,11 +136,15 @@ def rlc_scalars(seed: bytes, n: int) -> List[int]:
 
 
 def g1_msm_or_fallback(points, scalars):
-    """The host MSM: the plain sum Σ scalars[i] * points[i], the oracle the
-    device plane (ops/msm_torch) is pinned to."""
+    """The host MSM Σ scalars[i] * points[i]: the native Pippenger MSM
+    where the library is selected, else the plain sum; the oracle the device
+    plane (ops/msm_torch) is pinned to."""
     if len(points) != len(scalars):
-        # loud on every route: the plain path would silently zip-truncate
+        # loud on every route: the native path sizes its scalar buffer from
+        # len(points), the plain path would silently zip-truncate
         raise ValueError("points/scalars length mismatch")
+    if native_bls.available():
+        return native_bls.g1_msm(points, scalars)
     acc = infinity(FQ)
     for pt, s in zip(points, scalars):
         acc = add(acc, mul_sub(pt, s))
@@ -501,6 +521,10 @@ class BivarCommitment:
         cached = self._fold_cache.get(("row", x))
         if cached is not None:
             return list(cached)
+        fast = _small_fold(self.points, x, 0,
+                           raw96=self.raw96() if native_bls.available() else None)
+        if fast is not None:
+            return fast
         xs = [pow(x, j, R) for j in range(self.t + 1)]
         out = []
         for k in range(self.t + 1):
@@ -518,6 +542,10 @@ class BivarCommitment:
         cached = self._fold_cache.get(("col", y))
         if cached is not None:
             return list(cached)
+        fast = _small_fold(self.points, y, 1,
+                           raw96=self.raw96() if native_bls.available() else None)
+        if fast is not None:
+            return fast
         ys = [pow(y, k, R) for k in range(self.t + 1)]
         out = []
         for j in range(self.t + 1):
@@ -531,6 +559,15 @@ class BivarCommitment:
         return codec.encode(
             [[g1_to_bytes(p) for p in row] for row in self.points]
         )
+
+    def raw96(self) -> bytes:
+        """Concatenated 96-byte affine encodings (the native fold's input),
+        built once and cached: commitments are immutable."""
+        raw = getattr(self, "_raw96", None)
+        if raw is None:
+            raw = b"".join(native_bls._g1_to_raw(p) for row in self.points for p in row)
+            self._raw96 = raw
+        return raw
 
     @classmethod
     def from_bytes(cls, raw: bytes) -> "BivarCommitment":
@@ -693,7 +730,8 @@ class SyncKeyGen(Generic[N]):
         mid-poll.  Pair-cache hits (the other side of an in-process
         node already derived the key) are drained first; the true
         misses batch through the device plane (ops/bls_torch's GLV
-        ladder on kernel B2) when it is on, else host multiplies."""
+        ladder on kernel B2) when it is on, else the native host batch (or
+        the pure multiplies)."""
         from ..ops import bls_torch
 
         todo = []
@@ -715,6 +753,8 @@ class SyncKeyGen(Generic[N]):
             dhs = bls_torch.g1_scalar_mul_batch(
                 pts, [self.our_sk.scalar] * len(pts), device=_plane_device()
             )
+        elif native_bls.available():
+            dhs = native_bls.g1_mul_batch(pts, [self.our_sk.scalar] * len(pts))
         else:
             dhs = [mul_sub(p, self.our_sk.scalar) for p in pts]
         for (m, pair, _p), dh in zip(todo, dhs):

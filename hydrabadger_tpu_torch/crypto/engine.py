@@ -12,7 +12,9 @@ touching protocol logic.  Two engines:
   cores call (`rs_encode_bytes`, `rs_reconstruct_data`, `homhash_batch`,
   `encrypt`, the decryption and signature shares with their verification
   and combines, per-frame `sign` / `verify` with a process-wide verdict
-  cache) and the batch entries (`g1_msm_batch`: the host sum per job).
+  cache) and the batch entries (`g1_msm_batch`: the host MSM per job;
+  `verify_batch`: the TCP tier's wire signatures as one random linear
+  combination, its r_i * pk_i terms on the native host ladder).
 * `GpuEngine` ("gpu", `device="cuda"`) overrides, as the JAX TpuEngine
   does, only batch entries: `homhash_batch` on kernel B1
   (ops/homhash_torch, the low-comm broadcast's shard sketches, the one
@@ -21,7 +23,9 @@ touching protocol logic.  Two engines:
   and `combine_signature_shares_batch` on kernel B4 (ops/bls_g2_torch),
   `decrypt_share_batch` and `combine_decryption_shares_batch` on kernel B2
   (ops/bls_torch), `g1_msm_batch` (the DKG's batched MSMs) on kernel B2
-  (ops/msm_torch), each batch one device dispatch.  Every per-item entry
+  (ops/msm_torch), and `verify_batch`'s r_i * pk_i terms
+  (`_g1_scalar_muls`) on kernel B2's GLV ladder (ops/bls_torch), each
+  batch one device dispatch.  Every per-item entry
   stays the host code it inherits.  Its `submit_*` twins dispatch at once
   and defer only the device-to-host copy and the host conversion
   (crypto/futures).  `device="cpu"` runs the kernels' plain versions on
@@ -30,11 +34,11 @@ touching protocol logic.  Two engines:
 The registry (`get_engine`, `register_engine`) is the port's own; nothing
 is registered into the JAX package.  Its default is "gpu", which raises
 without a card; the host engine, the oracle, is had only by its name.
-The TCP tier's `verify_batch` and the pairing batches (`*_pairs`) are not
-ported yet.
+The pairing batches (`*_pairs`) are not ported yet.
 """
 from __future__ import annotations
 
+import collections
 import hashlib
 from functools import lru_cache
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import metrics as M
 from ..ops import bls_g2_torch, bls_torch, homhash_torch, limbs, msm_torch, rs_torch
 from ..utils.lru import DigestLRU
 from . import bls12_381 as bls
@@ -55,6 +60,9 @@ from .rs import ReedSolomon
 def _rs(data_shards: int, parity_shards: int) -> ReedSolomon:
     return ReedSolomon(data_shards, parity_shards)
 
+
+# verify_batch's device calls, by lane count (chip_smoke prints the histogram)
+device_verify_calls: "collections.Counter[int]" = collections.Counter()
 
 # Verified-frame verdicts shared by every engine and node of a process: a
 # frame reaches every in-process node with the same (pk, sig, body).
@@ -156,6 +164,62 @@ class CpuEngine:
             ok = pk.verify(sig, msg)
             _VERIFIED_FRAMES.put(key, ok)
         return ok
+
+    def verify_batch(self, items: Sequence[Tuple[th.PublicKey, th.Signature, bytes]]) -> List[bool]:
+        """Verify many (pk, sig, msg) triples at once.
+
+        Random-linear-combination batch verification: with Fiat-Shamir
+        coefficients r_i derived from the whole batch,
+
+            e(-G1, sum r_i sig_i) * prod e(r_i pk_i, H(m_i)) == 1
+
+        holds iff every signature verifies (except with probability
+        ~2^-128): n + 1 Miller loops and one final exponentiation.  On a
+        batch failure, item by item to report which signatures are bad.
+        The r_i * pk_i scalar multiplies go through `_g1_scalar_muls`
+        (GpuEngine: kernel B2)."""
+        # the process-wide verified-frame cache first (a broadcast frame
+        # reaches every in-process node identically)
+        keys = [_frame_key(pk, sig, msg) for pk, sig, msg in items]
+        verdicts: List[Optional[bool]] = [_VERIFIED_FRAMES.get(k) for k in keys]
+        todo = [i for i, v in enumerate(verdicts) if v is None]
+        if not todo:
+            return [bool(v) for v in verdicts]
+        sub = [items[i] for i in todo]
+        n = len(sub)
+        if n == 1:
+            pk, sig, msg = sub[0]
+            ok = pk.verify(sig, msg)
+            _VERIFIED_FRAMES.put(keys[todo[0]], ok)
+            verdicts[todo[0]] = ok
+            return [bool(v) for v in verdicts]
+        # Fiat-Shamir coefficients over the whole batch: an adversary must
+        # fix every item before learning any r_i
+        rs = self._rlc_coeffs([pk.to_bytes() + sig.to_bytes() + hashlib.sha256(msg).digest()
+                               for pk, sig, msg in sub], n)
+        agg_sig = bls.infinity(bls.FQ2)
+        for (_pk, sig, _msg), r in zip(sub, rs):
+            agg_sig = bls.add(agg_sig, bls.mul_sub(sig.point, r))
+        weighted_pks = self._g1_scalar_muls([pk.point for pk, _sig, _msg in sub], rs)
+        pairs = [(bls.neg(bls.G1), agg_sig)] + [
+            (wpk, bls.hash_to_g2(msg)) for wpk, (_pk, _sig, msg) in zip(weighted_pks, sub)]
+        if bls.pairing_product_check(pairs):
+            oks = [True] * n
+        else:
+            oks = [pk.verify(sig, msg) for pk, sig, msg in sub]
+        for i, ok in zip(todo, oks):
+            _VERIFIED_FRAMES.put(keys[i], ok)
+            verdicts[i] = ok
+        return [bool(v) for v in verdicts]
+
+    def _g1_scalar_muls(self, points: Sequence, scalars: Sequence[int]) -> List:
+        """verify_batch's r_i * pk_i: the native GLV ladder per point (the
+        plain ladder where HYDRABADGER_NO_NATIVE_BLS=1 selects it)."""
+        from . import native_bls as nb
+
+        if nb.available():
+            return nb.g1_mul_batch(points, scalars)
+        return [bls.multiply(p, r) for p, r in zip(points, scalars)]
 
     # -- threshold encryption (hbbft::threshold_decrypt) --------------------
 
@@ -319,6 +383,21 @@ class GpuEngine(CpuEngine):
 
     def g1_msm_batch(self, jobs) -> List:
         return self.submit_g1_msm_batch(jobs).result()
+
+    # -- wire-signature batches: the r_i * pk_i terms on kernel B2 -----------
+
+    def _g1_scalar_muls(self, points: Sequence, scalars: Sequence[int]) -> List:
+        """verify_batch's r_i * pk_i as one launch of kernel B2's GLV ladder
+        (ops/bls_torch), counted in the process registry: device batches,
+        lanes and the host ms of the affine conversion."""
+        t0 = limbs.to_points_s
+        out = bls_torch.g1_scalar_mul_batch(points, scalars, self.device, self.use_kernel)
+        reg = M.default_registry()
+        reg.counter(M.VERIFY_DEVICE_BATCHES).inc()
+        reg.counter(M.VERIFY_DEVICE_LANES).inc(len(points))
+        reg.counter(M.VERIFY_TO_POINTS_MS).inc(1e3 * (limbs.to_points_s - t0))
+        device_verify_calls[len(points)] += 1
+        return out
 
     # -- shard sketches on kernel B1 ----------------------------------------
 

@@ -1,6 +1,7 @@
 """Threshold BLS signatures and threshold encryption — the host oracle.
 
-Copy of hydrabadger_tpu/crypto/threshold.py without its native engine:
+Copy of hydrabadger_tpu/crypto/threshold.py (the group operations dispatch
+to the native host library through crypto/bls12_381, as there):
 
   - plain BLS signatures: pk in G1, sig = H_G2(msg) * sk in G2
     (`SecretKey.sign`, `PublicKey.verify`);
@@ -28,6 +29,7 @@ import hashlib
 from dataclasses import dataclass
 from typing import Mapping, Optional, Sequence
 
+from ..utils.lru import DigestLRU
 from . import bls12_381 as bls
 from .bls12_381 import (
     FQ,
@@ -45,6 +47,10 @@ from .bls12_381 import (
     multiply,
     pairing_check_eq,
 )
+
+# Signatures by digest of (secret scalar, message): a frame's body is signed
+# once per peer stream.
+_SIGN_CACHE: "DigestLRU[Signature]" = DigestLRU(1024)
 
 # ---------------------------------------------------------------------------
 # Fr helpers
@@ -91,10 +97,21 @@ def poly_interpolate_at_zero(points: Mapping[int, int]) -> int:
 
 
 def interpolate_g_at_zero(points: Mapping[int, tuple]) -> tuple:
-    """Lagrange interpolation *in the exponent*: sum of lambda_i * P_i at x=0."""
+    """Lagrange interpolation *in the exponent*: sum of lambda_i * P_i at
+    x=0, as one native weighted sum where the library is selected."""
+    from . import native_bls as _nb
+
     xs = list(points.keys())
-    acc = infinity(bls._field(points[xs[0]]))
-    for xi, li in zip(xs, lagrange_coeffs_at_zero(xs)):
+    lam = lagrange_coeffs_at_zero(xs)
+    field = bls._field(points[xs[0]])
+    if _nb.available():
+        pts = [points[xi] for xi in xs]
+        if field is FQ:
+            return _nb.g1_weighted_sum(pts, lam)
+        if field is bls.FQ2:
+            return _nb.g2_weighted_sum(pts, lam)
+    acc = infinity(field)
+    for xi, li in zip(xs, lam):
         acc = add(acc, multiply(points[xi], li))
     return acc
 
@@ -207,7 +224,15 @@ class SecretKey:
         return PublicKey(mul_sub(G1, self.scalar))
 
     def sign(self, msg: bytes) -> Signature:
-        return Signature(mul_sub(hash_to_g2(msg), self.scalar))
+        # digest-keyed LRU: a broadcast frame is signed once per peer
+        # stream with the same body (net/peer.Peers.wire_to_all); keys are
+        # digests, never message bodies
+        key = hashlib.sha256(self.scalar.to_bytes(32, "big") + hashlib.sha256(msg).digest()).digest()
+        sig = _SIGN_CACHE.get(key)
+        if sig is None:
+            sig = Signature(mul_sub(hash_to_g2(msg), self.scalar))
+            _SIGN_CACHE.put(key, sig)
+        return sig
 
     def decrypt(self, ct: "Ciphertext", verify: bool = True) -> Optional[bytes]:
         """Non-threshold decryption by the whole key's owner; `verify=False`

@@ -114,6 +114,18 @@ class LatencySketch:
     def percentiles(self) -> Dict[str, Optional[float]]:
         return {name: self.quantile(q) for name, q in PERCENTILES}
 
+    def to_dict(self) -> dict:
+        """JSON-able form for summary feeds."""
+        return {
+            "rel_err": self.rel_err,
+            "zero": self.zero_count,
+            "count": self.count,
+            "sum": self.sum,
+            "min": self.min if self.count else None,
+            "max": self.max if self.count else None,
+            "buckets": {str(idx): c for idx, c in sorted(self.buckets.items())},
+        }
+
 
 class TxnLifecycle:
     """Per-node transaction lifecycle ledger.  Everything that grows is
@@ -174,6 +186,10 @@ class TxnLifecycle:
             self._notes.append((tid, stage))
         else:
             self.dropped_notes += 1
+
+    def sketch_feed(self) -> Dict[str, dict]:
+        """``{span: sketch_dict}``: the JSON-able per-node feed."""
+        return {name: sk.to_dict() for name, sk in self.sketches.items()}
 
     def _finish(self, tid: str, rec: Dict[str, float]) -> None:
         self.pending.pop(tid, None)

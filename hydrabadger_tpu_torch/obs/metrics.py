@@ -1,21 +1,33 @@
-"""Process-local counters and gauges with high-water marks: the port's copy
-of the parts of hydrabadger_tpu/obs/metrics.py that the sim, the futures,
-the sketch plane and the DKG's planes use.  `snapshot()` returns one
-JSON-able dict."""
+"""Process-local counters, gauges with high-water marks and fixed-edge
+histograms: the port's copy of the parts of hydrabadger_tpu/obs/metrics.py
+that the sim, the TCP node, the futures, the sketch plane and the DKG's
+planes use.  `snapshot()` returns one JSON-able dict."""
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .latency import LatencySketch
 
 # the futures' overlap gauges (crypto/futures.stamp_gauges)
 DEVICE_OVERLAP_RATIO = "device_overlap_ratio"
 DEVICE_IDLE_S = "device_idle_s"
 DEVICE_OVERLAP_HAS_DEVICE = "device_overlap_has_device"
 
-# the router's byte meter, mirrored by SimNetwork.run
+# the router's byte meter, mirrored by SimNetwork.run; on the TCP tier the
+# framed bytes at each node's streams (net/wire.WireStream), received bytes
+# also by wire kind under the prefix
 BYTES_TX_TOTAL = "bytes_tx_total"
 BYTES_RX_TOTAL = "bytes_rx_total"
 BYTES_PER_EPOCH = "bytes_per_epoch"
+BYTES_RX_BY_KIND_PREFIX = "bytes_rx_by_kind_"
+
+# the TCP tier's wire-signature batches on the card (GpuEngine.verify_batch's
+# r_i * pk_i terms on kernel B2): device batches, their lanes, and the host
+# ms of the affine conversion (ops/limbs.limbs_to_points)
+VERIFY_DEVICE_BATCHES = "verify_batch_device_batches"
+VERIFY_DEVICE_LANES = "verify_batch_device_lanes"
+VERIFY_TO_POINTS_MS = "verify_batch_to_points_ms"
 
 # the sim's queue and adversary counters
 ROUTER_QUEUE_DEPTH = "router_queue_depth"
@@ -84,12 +96,49 @@ class Gauge:
     track = set
 
 
+# Default edges suit epoch and stage durations in seconds: 1 ms .. ~1 min.
+DEFAULT_EDGES: Tuple[float, ...] = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0, 60.0)
+
+
+class Histogram:
+    """Fixed-edge histogram: ``counts[i]`` counts observations ``v`` with
+    ``edges[i-1] < v <= edges[i]``; ``counts[0]`` is ``v <= edges[0]`` and
+    ``counts[-1]`` the overflow bucket.  A LatencySketch twin sees every
+    observation and serves relative-error quantiles past the last edge."""
+
+    __slots__ = ("edges", "counts", "total", "sum", "sketch")
+
+    def __init__(self, edges: Optional[Sequence[float]] = None):
+        self.edges: Tuple[float, ...] = tuple(edges or DEFAULT_EDGES)
+        if list(self.edges) != sorted(self.edges):
+            raise ValueError("histogram edges must be sorted")
+        self.counts: List[int] = [0] * (len(self.edges) + 1)
+        self.total = 0
+        self.sum = 0.0
+        self.sketch = LatencySketch()
+
+    def observe(self, v: float) -> None:
+        i = 0
+        for edge in self.edges:
+            if v <= edge:
+                break
+            i += 1
+        self.counts[i] += 1
+        self.total += 1
+        self.sum += v
+        self.sketch.add(v)
+
+    def quantile(self, q: float) -> Optional[float]:
+        return self.sketch.quantile(q)
+
+
 class MetricsRegistry:
     """Name -> metric; get-or-create accessors, one-shot snapshot."""
 
     def __init__(self):
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
+        self._histograms: Dict[str, Histogram] = {}
         self._lock = threading.Lock()
 
     def counter(self, name: str) -> Counter:
@@ -106,17 +155,29 @@ class MetricsRegistry:
                 g = self._gauges.setdefault(name, Gauge())
         return g
 
+    def histogram(self, name: str, edges: Optional[Sequence[float]] = None) -> Histogram:
+        h = self._histograms.get(name)
+        if h is None:
+            with self._lock:
+                h = self._histograms.setdefault(name, Histogram(edges))
+        return h
+
     def snapshot(self) -> dict:
         return {
             "counters": {k: c.value for k, c in sorted(self._counters.items())},
             "gauges": {k: {"value": g.value, "high_water": g.high_water}
                        for k, g in sorted(self._gauges.items())},
+            "histograms": {k: {"edges": list(h.edges), "counts": list(h.counts), "total": h.total,
+                               "sum": round(h.sum, 6), "p50": h.quantile(0.5),
+                               "p99": h.quantile(0.99)}
+                           for k, h in sorted(self._histograms.items())},
         }
 
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
+            self._histograms.clear()
 
 
 _DEFAULT = MetricsRegistry()

@@ -75,8 +75,8 @@ while pow(_g, (P - 1) // 3, P) == 1:
     _g += 1
 _beta = pow(_g, (P - 1) // 3, P)
 # two non-trivial cube roots; pick the one matching GLV_LAMBDA
-_probe = bls.multiply(bls.G1, 12345)
-_target = bls.normalize(bls.multiply(_probe, GLV_LAMBDA))
+_probe = bls._py_multiply(bls.G1, 12345)
+_target = bls.normalize(bls._py_multiply(_probe, GLV_LAMBDA))
 _aff = bls.normalize(_probe)
 if _target[0] != FQ(_aff[0].n * _beta % P):
     _beta = _beta * _beta % P

@@ -87,19 +87,24 @@ def test_codec_rejects_what_the_jax_codec_rejects(raw):
 
 
 def test_pairing_checks_equal_the_jax_pure_python_checks():
+    """The port's pure oracles (`_py_*`) against the JAX package's, and the
+    dispatched (native) checks against both."""
     a, b_ = 35, 11
-    p1, q1 = bls.multiply(bls.G1, a), bls.multiply(bls.G2, b_)
+    p1, q1 = bls._py_multiply(bls.G1, a), bls._py_multiply(bls.G2, b_)
     jp1, jq1 = jbls._py_multiply(jbls.G1, a), jbls._py_multiply(jbls.G2, b_)
     for k in (a * b_, a * b_ + 1):
-        p2, jp2 = bls.multiply(bls.G1, k), jbls._py_multiply(jbls.G1, k)
-        got = bls.pairing_check_eq(p1, q1, p2, bls.G2)
+        p2, jp2 = bls._py_multiply(bls.G1, k), jbls._py_multiply(jbls.G1, k)
+        got = bls._py_pairing_check_eq(p1, q1, p2, bls.G2)
         assert got == jbls._py_pairing_check_eq(jp1, jq1, jp2, jbls.G2) == (k == a * b_)
-    pairs = [(bls.neg(bls.multiply(bls.G1, 6)), bls.G2), (bls.multiply(bls.G1, 2), bls.multiply(bls.G2, 3))]
+        assert bls.pairing_check_eq(p1, q1, p2, bls.G2) == got
+    pairs = [(bls.neg(bls._py_multiply(bls.G1, 6)), bls.G2),
+             (bls._py_multiply(bls.G1, 2), bls._py_multiply(bls.G2, 3))]
     jpairs = [(jbls.neg(jbls._py_multiply(jbls.G1, 6)), jbls.G2),
               (jbls._py_multiply(jbls.G1, 2), jbls._py_multiply(jbls.G2, 3))]
-    assert bls.pairing_product_check(pairs) and jbls._py_pairing_product_check(jpairs)
-    pairs[1] = (bls.multiply(bls.G1, 3), bls.multiply(bls.G2, 3))
-    assert not bls.pairing_product_check(pairs)
+    assert bls._py_pairing_product_check(pairs) and jbls._py_pairing_product_check(jpairs)
+    assert bls.pairing_product_check(pairs)
+    pairs[1] = (bls._py_multiply(bls.G1, 3), bls._py_multiply(bls.G2, 3))
+    assert not bls._py_pairing_product_check(pairs) and not bls.pairing_product_check(pairs)
 
 
 @pytest.mark.parametrize("field", ["FQ2", "FQ12"])
@@ -116,7 +121,7 @@ def test_square_and_power_equal_the_jax_products(field):
 
 
 def test_final_exponentiation_equals_the_jax_one_and_its_cube_shortcut():
-    f = bls.miller_loop(bls.twist(bls.multiply(bls.G2, 7)), bls.cast_g1_to_fq12(bls.multiply(bls.G1, 5)))
+    f = bls.miller_loop(bls.twist(bls._py_multiply(bls.G2, 7)), bls.cast_g1_to_fq12(bls._py_multiply(bls.G1, 5)))
     jf = jbls.miller_loop(jbls.twist(jbls._py_multiply(jbls.G2, 7)),
                           jbls.cast_g1_to_fq12(jbls._py_multiply(jbls.G1, 5)))
     assert f.coeffs == jf.coeffs
@@ -132,6 +137,7 @@ def test_hashes_and_subgroup_checks_equal_the_jax_ones():
     h = bls.hash_to_g2(b"coin")
     assert bls.hash_to_g2(b"coin") is h  # the digest cache
     assert affine(h) == jaffine(jbls._py_hash_to_g2(b"coin"))
+    assert affine(bls._py_hash_to_g2(b"coin")) == affine(h)
     assert bls.in_g1_subgroup(bls.multiply(bls.G1, 9)) and bls.in_g2_subgroup(h)
     # an on-curve G1 point of the cofactor part: x = 0 is not in the subgroup
     y = (bls.FQ(0) * bls.FQ(0) * bls.FQ(0) + bls.B1).sqrt()

@@ -513,3 +513,64 @@ def test_dhb_era_switch_on_the_card_equals_the_cpu(card):
         assert gpu.batch_bytes(nid) == host.batch_bytes(nid)
         assert gpu.nodes[nid].era == host.nodes[nid].era > 0
         assert gpu.nodes[nid].netinfo.pk_set.to_bytes() == host.nodes[nid].netinfo.pk_set.to_bytes()
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 50, 1013])
+def test_verify_batch_scalar_muls_on_the_card_equal_the_native_host(card, lanes):
+    """The TCP tier's r_i * pk_i terms (GpuEngine._g1_scalar_muls: one B2
+    GLV ladder launch) against the native host ladder."""
+    from hydrabadger_tpu_torch.crypto import engine, native_bls
+
+    rng = np.random.default_rng(lanes)
+    pool = [bls.mul_sub(bls.G1, int(k) | 1) for k in rng.integers(1, 2**62, 64)]
+    pts = [pool[i % 64] for i in range(lanes)]
+    rs = [int.from_bytes(rng.bytes(16), "little") | 1 for _ in range(lanes)]
+    before = fq_torch.launches_by_kind.get("glv_ladder", 0)
+    got = engine.GpuEngine(device=card)._g1_scalar_muls(pts, rs)
+    assert fq_torch.launches_by_kind.get("glv_ladder", 0) == before + 1
+    want = native_bls.g1_mul_batch(pts, rs)
+    assert [bls.g1_to_bytes(p) for p in got] == [bls.g1_to_bytes(p) for p in want]
+
+
+def test_verify_batch_on_the_card_equals_the_host_engine(card):
+    from hydrabadger_tpu_torch.crypto import engine
+    from hydrabadger_tpu_torch.crypto import threshold as th
+
+    rng = np.random.default_rng(9)
+    sks = [th.SecretKey(int.from_bytes(rng.bytes(31), "little") | 1) for _ in range(8)]
+    items = [(sk.public_key(), sk.sign(b"frame %d" % i), b"frame %d" % i) for i, sk in enumerate(sks)]
+    items[5] = (items[5][0], sks[0].sign(b"frame 5"), b"frame 5")  # forged
+    engine._VERIFIED_FRAMES.clear()
+    want = engine.CpuEngine().verify_batch(items)
+    engine._VERIFIED_FRAMES.clear()
+    assert engine.GpuEngine(device=card).verify_batch(items) == want == [i != 5 for i in range(8)]
+
+
+async def test_lowcomm_tcp_cluster_on_the_card(card):
+    """A 4-node fast-tier TCP testnet with the low-comm broadcast on
+    GpuEngine: agreed batches, and the shard sketches launched B1."""
+    import asyncio
+
+    from hydrabadger_tpu_torch.net.node import Config, Hydrabadger
+    from hydrabadger_tpu_torch.utils.ids import InAddr, OutAddr
+
+    base = 15280
+    cfg = Config(txn_gen_interval_ms=150, keygen_peer_count=3, encrypt=False, coin_mode="hash",
+                 verify_shares=False, wire_sign=False, engine="gpu", rbc_variant="lowcomm")
+    before = gf256_torch.launches
+    nodes = [Hydrabadger(InAddr("127.0.0.1", base + i), cfg, seed=1000 + i) for i in range(4)]
+    gen = lambda count, size: [b"%02dx" % i * size for i in range(count)]  # noqa: E731
+    for i, node in enumerate(nodes):
+        await node.start([OutAddr("127.0.0.1", base + j) for j in range(i)], gen)
+
+    async def committed():
+        while min(len(n.batches) for n in nodes) < 2:
+            await asyncio.sleep(0.05)
+    try:
+        await asyncio.wait_for(committed(), 120)
+    finally:
+        for n in nodes:
+            await n.stop()
+    for e in range(2):
+        assert len({tuple(sorted(n.batches[e].contributions.items())) for n in nodes}) == 1
+    assert gf256_torch.launches > before
