@@ -160,8 +160,26 @@ failure:
      its count) beside its bound; then the fast tier with the low-comm
      broadcast on `GpuEngine` (4 nodes, 2 batches): B1's launches equal to
      those its sketch calls imply, no other kernel.
+ 27. the pairing plane at config 7's geometry (bench.py:705-760:
+     random.Random(7), a t = 1 key set, 1024 ciphertexts, shares from key
+     i % 2): every pairing circuit (ops/pairing_torch) on kernel B3 exact
+     against its plain version at a ragged 1013 and at 2048 lanes with
+     edge values; the main path, `GpuEngine.verify_decryption_share_pairs`
+     on the 1024 shares plus 8 forged lanes and one at infinity, every
+     launch counter set to 0 just before and read just after: B3's
+     launches by circuit equal to `pairing_torch.schedule`, no other
+     kernel, every verdict equal to native `pairing_check_eq`;
+     `verify_signature_share_pairs` on 64 shares (13 forged) the same;
+     device ms per batch by events around the batch replayed as a CUDA graph
+     (its verdicts held against the eager batch's) beside B3's share of it
+     and the bound
+     (ops/pairing_torch.bound), each circuit's time and plain time; shares/s
+     wall on the card against the native per-share loop (32 checks), in
+     turns, the hash cache cleared before each; host ms in hash_to_g2,
+     normalize_batch and the word conversion; the card's busy share.
 
-The line before the last is one JSON object {"kernels": [...]}; the last
+The line before the last is one JSON object {"kernels": [...]} (B3's
+entry carries `pairing`); the last
 is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
 no result.
 """
@@ -194,6 +212,8 @@ FC_SIM_NODES, FC_SIM_EPOCHS = 4, 2  # the full crypto tier (pure-Python BLS on t
 SKETCH_K, SKETCH_COLS = (1, 5, 6, 97, 257, 300), (1, 4, 9, 13, 16, 64)
 # config 5's Python-core leg (bench.py:539-541): the DHB era switch
 DKG_NODES, DKG_SEED, DKG_TXNS = 16, 7, 4
+# config 7 (bench.py:705-760, run at 1024): verified decryption shares
+PAIR_BATCH, PAIR_FORGED, PAIR_SIG = 1024, 8, 64
 
 
 class SmokeFailure(RuntimeError):
@@ -1942,6 +1962,219 @@ def tcp_plane(dev: torch.device, tag: str) -> tuple[dict, dict, int]:
     return b2, b1, worst
 
 
+def graph_ms(fn, reps: int = 5):
+    """(device ms per call, the call's result) of fn captured once in a CUDA
+    graph and replayed between CUDA events: the call's kernels back to back
+    with no host gap, however many launches it makes (the median of
+    `reps` replays; the result is the last replay's)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up on a side stream, as capture wants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), out
+
+
+def pairing_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
+    """Phase 27: the batched pairing check on kernel B3 at config 7's
+    geometry.  Returns the `pairing` record of kernel B3's entry of the
+    `kernels` line and the worst error of the circuit holds."""
+    import random
+
+    from hydrabadger_tpu_torch.crypto import bls12_381 as bls
+    from hydrabadger_tpu_torch.crypto import threshold as th
+    from hydrabadger_tpu_torch.crypto.engine import CpuEngine, GpuEngine
+    from hydrabadger_tpu_torch.ops import circuit_torch, fp_probe_torch, fq2_torch, fq_torch
+    from hydrabadger_tpu_torch.ops import gf256_torch, limbs
+    from hydrabadger_tpu_torch.ops import pairing_torch as pt
+
+    # -- set-up: config 7 (bench.py:705-760) -----------------------------------
+    t0 = time.perf_counter()
+    rng = random.Random(7)
+    sks = th.SecretKeySet.random(1, rng)
+    pks = sks.public_keys()
+    cts, shares, pk_shares = [], [], []
+    for i in range(PAIR_BATCH):
+        ct = pks.public_key().encrypt(b"%032d" % i, rng)
+        cts.append(ct)
+        shares.append(sks.secret_key_share(i % 2).decrypt_share(ct))
+        pk_shares.append(pks.public_key_share(i % 2))
+    # forged lanes (the other key's share) and one share at infinity
+    extra_cts = cts[:PAIR_FORGED + 1]
+    extra_shares = [sks.secret_key_share((i + 1) % 2).decrypt_share(ct)
+                    for i, ct in enumerate(extra_cts[:PAIR_FORGED])]
+    extra_shares.append(th.DecryptionShare(bls.infinity(bls.FQ)))
+    extra_pks = pk_shares[:PAIR_FORGED + 1]
+    print(f"pairing set-up: config 7, {PAIR_BATCH} ciphertexts and shares (key i % 2), "
+          f"{PAIR_FORGED} forged lanes, 1 at infinity: {time.perf_counter() - t0:.2f} s")
+
+    # -- each circuit on B3 against its plain version --------------------------
+    worst = 0
+    gen = np.random.default_rng(27)
+    circs = {**pt.circuits(), "sqr": pt._sqr_circuit()}
+    for lanes in (RAGGED, 2 * PAIR_BATCH):
+        for name, circ in circs.items():
+            ints = [int.from_bytes(gen.bytes(48), "little") % bls.P
+                    for _ in range(circ.n_inputs * lanes)]
+            for j, v in enumerate((bls.P - 1, bls.P - 2, 0, 1)):
+                ints[j * lanes // 4] = v  # edge values, one lane each
+            w = limbs.ints_to_limbs_batch(ints).reshape(circ.n_inputs, lanes, 12)
+            x = torch.from_numpy(np.ascontiguousarray(w.transpose(0, 2, 1))).to(dev)
+            got, want = circ(x), circ.plain(x)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            worst = max(worst, err)
+            check(torch.equal(got, want), f"B3 {name} != plain at {lanes} lanes (max err {err})")
+        print(f"kernel == plain, exact: every pairing circuit ({', '.join(circs)}) at "
+              f"[n, 12, {lanes}]")
+
+    # -- the main path: every verdict against the native host check ------------
+    gpu, host = GpuEngine(device=dev), CpuEngine()
+    all_pks, all_shares, all_cts = (pk_shares + extra_pks, shares + extra_shares,
+                                    cts + extra_cts)
+    gpu.verify_decryption_share_pairs(all_pks[:4], all_shares[:4], all_cts[:4])  # warm-up
+    torch.cuda.synchronize()
+    fq_torch.launches, fq2_torch.launches, circuit_torch.launches = 0, 0, 0
+    gf256_torch.launches, fp_probe_torch.launches = 0, 0
+    circuit_torch.launches_by_circuit.clear()
+    verdicts = gpu.verify_decryption_share_pairs(all_pks, all_shares, all_cts)
+    torch.cuda.synchronize()
+    by_circuit = dict(circuit_torch.launches_by_circuit)
+    counted = circuit_torch.launches
+    others = fq_torch.launches + fq2_torch.launches + gf256_torch.launches + fp_probe_torch.launches
+    want_sched = pt.schedule(len(all_shares) - 1)  # every lane but the one at infinity
+    check(by_circuit == want_sched, f"B3 launches by circuit {by_circuit}, pairing_torch's "
+                                    f"schedule {want_sched}")
+    check(others == 0, f"the pairing batch launched {others} kernels of other libraries")
+    print(f"main path: one pairing batch of {len(all_shares)} checks, B3 launches {counted} "
+          f"(by circuit {by_circuit}) == pairing_torch.schedule; no other kernel")
+    t0 = time.perf_counter()
+    oracle = [host.verify_decryption_share(pk, s, ct)
+              for pk, s, ct in zip(all_pks, all_shares, all_cts)]
+    check(verdicts == oracle, "a verdict != native pairing_check_eq")
+    check(all(verdicts[:PAIR_BATCH]) and not any(verdicts[PAIR_BATCH:]),
+          "config 7's shares must all pass and the forged and infinity lanes fail")
+    print(f"all {len(verdicts)} verdicts == native pairing_check_eq ({PAIR_BATCH} true, "
+          f"{PAIR_FORGED} forged and 1 infinity false; host {time.perf_counter() - t0:.2f} s)")
+    msgs = [b"coin-%d" % i for i in range(PAIR_SIG)]
+    sig_shares = [sks.secret_key_share(i % 2).sign_share(msgs[i] if i % 5 else b"forged")
+                  for i in range(PAIR_SIG)]
+    sig_pks = [pks.public_key_share(i % 2) for i in range(PAIR_SIG)]
+    sig_v = gpu.verify_signature_share_pairs(sig_pks, sig_shares, msgs)
+    sig_o = [host.verify_signature_share(pks, i % 2, s, m)
+             for i, (s, m) in enumerate(zip(sig_shares, msgs))]
+    check(sig_v == sig_o and sum(sig_o) == PAIR_SIG - len(range(0, PAIR_SIG, 5)),
+          "a signature-share verdict != native pairing_check_eq")
+    print(f"verify_signature_share_pairs: all {PAIR_SIG} verdicts == native pairing_check_eq "
+          f"({sum(sig_o)} true)")
+
+    # -- timings ---------------------------------------------------------------
+    batch = (pk_shares, shares, cts)
+    args = pt.operands([s.point for s in shares], [th._te_hash(ct) for ct in cts],
+                       [pk.point for pk in pk_shares], [ct.w for ct in cts], dev)
+    check(bool(pt.pairing_eq_kernel(*args).all()), "the timed batch's verdicts")
+    eager = pt.pairing_eq_kernel(*args)
+    launches_before = circuit_torch.launches
+    dev_med, replayed = graph_ms(lambda: pt.pairing_eq_kernel(*args))
+    check(circuit_torch.launches - launches_before == 2 * sum(pt.schedule(PAIR_BATCH).values()),
+          "the graph's warm-up and capture must launch the schedule once each")
+    check(torch.equal(replayed, eager), "the graph's verdicts != the eager batch's")
+    kernel_wall = wall_ms(lambda: pt.pairing_eq_kernel(*args))
+    # B3 alone: each circuit at its lanes, back to back, times its launches
+    per_circuit, b3_ms, plain_ms = {}, 0.0, 0.0
+    sched = pt.schedule(PAIR_BATCH)
+    for name, count in sched.items():
+        circ = circs[name]
+        lanes = 2 * PAIR_BATCH if name.startswith("miller") else PAIR_BATCH
+        xin = torch.randint(0, 2**31 - 1, (circ.n_inputs, 12, lanes), dtype=torch.int32,
+                            device=dev) & 0x0FFFFFFF  # canonical: below 2^380
+        ms = launch_ms(lambda: circ(xin))
+        p_ms = wall_ms(lambda: circ.plain(xin))
+        per_circuit[name] = {"count": count, "lanes": lanes, "products_per_lane": circ.n_products,
+                             "layers": len(circ.circ.n_lanes), "warps": circ.slots.warps,
+                             "smem": circ.smem, "ms": ms, "plain_ms": p_ms}
+        b3_ms += count * ms
+        plain_ms += count * p_ms
+    ops_ms, bytes_ms = pt.bound(PAIR_BATCH)
+    bound, bound_by = roofline.bound_ms(ops_ms, bytes_ms)
+    # shares/s wall against the native per-share loop, in turns (native, card,
+    # card, native): "cold" clears the hash cache before each turn, "warm"
+    # fills it first (bench.py's measured call is its second, warm)
+    n_native = min(32, PAIR_BATCH)
+    sps = {mode: {"native": [], "gpu": []} for mode in ("cold", "warm")}
+    host_split = {"cold": [], "warm": []}
+    for mode in ("cold", "warm"):
+        if mode == "warm":
+            for ct in cts:  # the cache holds every hash from here on
+                th._te_hash(ct)
+        for turn in ("native", "gpu", "gpu", "native"):
+            if mode == "cold":
+                bls._hash_cache_clear()
+            torch.cuda.synchronize()
+            if turn == "native":
+                t0 = time.perf_counter()
+                for pk, s, ct in zip(pk_shares[:n_native], shares[:n_native], cts[:n_native]):
+                    check(host.verify_decryption_share(pk, s, ct), "native per-share check")
+                sps[mode]["native"].append(n_native / (time.perf_counter() - t0))
+            else:
+                pt.host_s.clear()
+                t0 = time.perf_counter()
+                ok = gpu.verify_decryption_share_pairs(*batch)
+                wall = time.perf_counter() - t0
+                check(all(ok), "timed batch: a config-7 share failed")
+                sps[mode]["gpu"].append(PAIR_BATCH / wall)
+                host_split[mode].append({"wall_ms": wall * 1e3,
+                                         **{k + "_ms": v * 1e3 for k, v in pt.host_s.items()}})
+    gpu_sps, native_sps = sps["warm"]["gpu"], sps["warm"]["native"]
+    busy = dev_med / kernel_wall
+    print(f"config 7 at {PAIR_BATCH} checks: device {dev_med:.3f} ms per batch by events around "
+          f"the batch replayed as a CUDA graph (median of 5), of which B3 {b3_ms:.3f} ms (each "
+          f"circuit back to back times its launches), "
+          f"{sum(sched.values())} B3 launches; bound {bound:.4f} ms ({bound_by}; "
+          f"{pt.products(1)} Fp products a check), {dev_med / bound:.0f}x; pairing_eq_kernel's "
+          f"wall {kernel_wall:.1f} ms; plain circuits {plain_ms:.1f} ms {tag}")
+    for mode in ("warm", "cold"):
+        g, h = sps[mode]["gpu"], sps[mode]["native"]
+        print(f"config 7 shares/s wall, hash cache {mode}: card {[round(v, 1) for v in g]}, native "
+              f"per-share loop ({n_native} checks) {[round(v, 1) for v in h]}, ratio "
+              f"{np.median(g) / np.median(h):.2f}; host split {host_split[mode]} {tag}")
+    print(f"card busy {100 * busy:.1f}% of pairing_eq_kernel's wall (device {dev_med:.3f} ms of "
+          f"{kernel_wall:.1f} ms) {tag}")
+    print(json.dumps({"pairing_circuits": per_circuit, "device_ms": dev_med,
+                      "kernel_wall_ms": kernel_wall, "shares_per_s": sps,
+                      "host_split": host_split, "ops_bound_ms": ops_ms,
+                      "bytes_bound_ms": bytes_ms}))
+    return {
+        "per": f"one config-7 pairing batch ({PAIR_BATCH} checks): device time by events "
+               f"around the batch replayed as a CUDA graph; B3's share of it in b3_ms",
+        "launches": counted,
+        "launches_by_circuit": by_circuit,
+        "ms": dev_med,
+        "b3_ms": b3_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shares_per_s": float(np.median(gpu_sps)),
+        "native_shares_per_s": float(np.median(native_sps)),
+        "shares_per_s_cold_hash": float(np.median(sps["cold"]["gpu"])),
+        "native_shares_per_s_cold_hash": float(np.median(sps["cold"]["native"])),
+        "busy_share": busy,
+    }, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -2157,6 +2390,9 @@ def main() -> int:
     fq_entry["max_abs_err"] = max(fq_entry["max_abs_err"], fq_entry["dhb_era_switch"]["max_abs_err"])
     fq_entry["tcp_config1"], kernels[0]["tcp_lowcomm"], tcp_err = tcp_plane(dev, tag)
     fq_entry["max_abs_err"] = max(fq_entry["max_abs_err"], tcp_err)
+    b3_entry = next(k for k in kernels if k["name"] == "circuit")
+    b3_entry["pairing"], pair_err = pairing_plane(dev, tag)
+    b3_entry["max_abs_err"] = max(b3_entry["max_abs_err"], pair_err)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -415,6 +415,44 @@ def normalize(pt):
     return (x * zinv, y * zinv)
 
 
+def normalize_batch(pts):
+    """Projective -> affine for a list of points with ONE field inversion
+    (Montgomery's trick) and 3 products per point; points already affine
+    (z == 1) are taken as they are.  Element for element what normalize()
+    gives: (x, y), or None at infinity."""
+    def _is_one(z):
+        if isinstance(z, FQ):
+            return z.n == 1
+        return z.coeffs[0] == 1 and all(c == 0 for c in z.coeffs[1:])
+
+    idx, zs = [], []
+    for i, pt in enumerate(pts):
+        if not is_inf(pt) and not _is_one(pt[2]):
+            idx.append(i)
+            zs.append(pt[2])
+    invs = [None] * len(zs)
+    if zs:
+        pre = [zs[0]]
+        for z in zs[1:]:
+            pre.append(pre[-1] * z)
+        acc = pre[-1].inv()
+        for j in range(len(zs) - 1, 0, -1):
+            invs[j] = acc * pre[j - 1]
+            acc = acc * zs[j]
+        invs[0] = acc
+    inv_at = dict(zip(idx, invs))
+    out = []
+    for i, pt in enumerate(pts):
+        if is_inf(pt):
+            out.append(None)
+        elif i in inv_at:
+            zi = inv_at[i]
+            out.append((pt[0] * zi, pt[1] * zi))
+        else:
+            out.append((pt[0], pt[1]))
+    return out
+
+
 def eq(p1, p2) -> bool:
     if is_inf(p1) or is_inf(p2):
         return is_inf(p1) and is_inf(p2)

@@ -23,9 +23,11 @@ touching protocol logic.  Two engines:
   and `combine_signature_shares_batch` on kernel B4 (ops/bls_g2_torch),
   `decrypt_share_batch` and `combine_decryption_shares_batch` on kernel B2
   (ops/bls_torch), `g1_msm_batch` (the DKG's batched MSMs) on kernel B2
-  (ops/msm_torch), and `verify_batch`'s r_i * pk_i terms
-  (`_g1_scalar_muls`) on kernel B2's GLV ladder (ops/bls_torch), each
-  batch one device dispatch.  Every per-item entry
+  (ops/msm_torch), `verify_batch`'s r_i * pk_i terms
+  (`_g1_scalar_muls`) on kernel B2's GLV ladder (ops/bls_torch), and the
+  pairing batches `verify_decryption_share_pairs` /
+  `verify_signature_share_pairs` on kernel B3 (ops/pairing_torch), each
+  batch one device dispatch (a pairing batch: ~430 launches).  Every per-item entry
   stays the host code it inherits.  Its `submit_*` twins dispatch at once
   and defer only the device-to-host copy and the host conversion
   (crypto/futures).  `device="cpu"` runs the kernels' plain versions on
@@ -34,12 +36,12 @@ touching protocol logic.  Two engines:
 The registry (`get_engine`, `register_engine`) is the port's own; nothing
 is registered into the JAX package.  Its default is "gpu", which raises
 without a card; the host engine, the oracle, is had only by its name.
-The pairing batches (`*_pairs`) are not ported yet.
 """
 from __future__ import annotations
 
 import collections
 import hashlib
+import time
 from functools import lru_cache
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -48,7 +50,7 @@ import torch
 
 from ..device import resolve_device
 from ..obs import metrics as M
-from ..ops import bls_g2_torch, bls_torch, homhash_torch, limbs, msm_torch, rs_torch
+from ..ops import bls_g2_torch, bls_torch, homhash_torch, limbs, msm_torch, pairing_torch, rs_torch
 from ..utils.lru import DigestLRU
 from . import bls12_381 as bls
 from . import futures, homhash
@@ -517,6 +519,39 @@ class GpuEngine(CpuEngine):
 
     def combine_decryption_shares_batch(self, jobs) -> List[bytes]:
         return self.dispatch_combine_decryption_shares_batch(jobs)[1].result()
+
+    # -- the pairing batches on kernel B3 -----------------------------------
+
+    def verify_decryption_share_pairs(self, pk_shares: Sequence[th.PublicKeyShare],
+                                      shares: Sequence[th.DecryptionShare],
+                                      cts: Sequence[th.Ciphertext]) -> List[bool]:
+        """B independent share checks e(S_i, H_i) == e(pk_i, W_i), H_i the
+        ciphertext's hash onto G2, as one pairing batch (ops/pairing_torch
+        on kernel B3): the shape of (instances x nodes) shares with
+        distinct ciphertexts, where verify_decryption_shares_batch's
+        same-ciphertext collapse does not apply."""
+        if not shares:
+            return []
+        t0 = time.perf_counter()
+        hs = [th._te_hash(ct) for ct in cts]
+        pairing_torch.host_s["hash_to_g2"] += time.perf_counter() - t0
+        return [bool(v) for v in pairing_torch.pairing_eq_batch(
+            [s.point for s in shares], hs, [pk.point for pk in pk_shares], [ct.w for ct in cts],
+            self.device, self.use_kernel)]
+
+    def verify_signature_share_pairs(self, pk_shares: Sequence[th.PublicKeyShare],
+                                     shares: Sequence[th.SignatureShare],
+                                     msgs: Sequence[bytes]) -> List[bool]:
+        """B independent checks e(G1, sigma_i) == e(pk_i, H(m_i)) as one
+        pairing batch on kernel B3."""
+        if not shares:
+            return []
+        t0 = time.perf_counter()
+        hs = [bls.hash_to_g2(m) for m in msgs]
+        pairing_torch.host_s["hash_to_g2"] += time.perf_counter() - t0
+        return [bool(v) for v in pairing_torch.pairing_eq_batch(
+            [bls.G1] * len(shares), [s.point for s in shares], [pk.point for pk in pk_shares], hs,
+            self.device, self.use_kernel)]
 
 
 _REGISTRY: Dict[str, type] = {"cpu": CpuEngine, "gpu": GpuEngine}

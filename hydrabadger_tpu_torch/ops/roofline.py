@@ -38,6 +38,15 @@ def product_ms(products: int, elements: int) -> tuple[float, float]:
     return ops_bytes_ms(products * OPS_PER_PRODUCT, elements * ELEMENT_BYTES)
 
 
+def pairing_ms(products: int, checks: int) -> tuple[float, float]:
+    """(operations ms, bytes ms) of a batch of `checks` pairing checks that
+    makes `products` Fp products (ops/pairing_torch.bound counts them from
+    the recorded circuits and the launch schedule): each check reads its
+    four affine points once (12 field elements) and writes a one-byte
+    verdict."""
+    return ops_bytes_ms(products * OPS_PER_PRODUCT, checks * (12 * ELEMENT_BYTES + 1))
+
+
 def bound_ms(ops_ms: float, bytes_ms: float) -> tuple[float, str]:
     """(bound ms, "operations" or "bytes"): the larger of the two times."""
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")

@@ -6,12 +6,15 @@
         --encrypt --coin threshold --verify --json
     python -m hydrabadger_tpu_torch.sim --protocol dhb --engine cpu --nodes 4 --epochs 2
     python -m hydrabadger_tpu_torch.sim --protocol dhb --gpu-dkg --nodes 16 --epochs 2
+    python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 2 --crash 3 \
+        --meter-bytes --trace /tmp/sim.jsonl --metrics /tmp/sim-metrics.json
 
-The JAX CLI's flags for what is ported, plus `--engine {gpu,cpu}` (default
-gpu, which raises without a card), `--device` (the GPU engine's card) and
-`--gpu-dkg` / `--no-gpu-dkg` (force the DKG's device plane on or off for
-a dhb run; by default the environment's HYDRABADGER_GPU_DKG decides).
-Exits 0 if and only if agreement held.
+The JAX CLI's flags except `--attack`, `--checkpoint`, `--checkpoint-every`
+and `--resume` (their modules are not ported yet), plus `--engine
+{gpu,cpu}` (default gpu, which raises without a card), `--device` (the GPU
+engine's card) and `--gpu-dkg` / `--no-gpu-dkg` (force the DKG's device
+plane on or off for a dhb run; by default the environment's
+HYDRABADGER_GPU_DKG decides).  Exits 0 if and only if agreement held.
 """
 from __future__ import annotations
 
@@ -20,13 +23,28 @@ import json
 import sys
 
 from ..crypto.engine import GpuEngine
+from ..obs import export
+from ..obs.metrics import default_registry
 from .network import (
     SimConfig,
     SimNetwork,
+    byzantine_adversary,
+    crash_adversary,
     delay_adversary,
     drop_adversary,
     duplicate_adversary,
 )
+
+
+def _node_list(spec: str, n: int):
+    """"I,J,..." -> sim node ids, each index checked against n."""
+    ids = []
+    for part in spec.split(","):
+        idx = int(part)
+        if not 0 <= idx < n:
+            raise ValueError(f"node index {idx} out of range (n={n})")
+        ids.append(f"n{idx:03d}")
+    return ids
 
 
 def main(argv=None) -> int:
@@ -47,6 +65,18 @@ def main(argv=None) -> int:
     p.add_argument("--drop", type=float, default=0.0, help="message drop rate")
     p.add_argument("--dup", type=float, default=0.0, help="message duplication rate")
     p.add_argument("--delay", type=float, default=0.0, help="message delay rate")
+    p.add_argument("--crash", default=None, metavar="I,J,...",
+                   help="fail-stop these node indices (silenced from the start)")
+    p.add_argument("--byzantine", default=None, metavar="I,J,...",
+                   help="these node indices replay old messages alongside real traffic")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record consensus spans and write them on exit: .jsonl -> one event "
+                        "per line, anything else -> Chrome trace JSON")
+    p.add_argument("--metrics", default=None, metavar="PATH",
+                   help="write the sim's metrics registry, the process registry and the "
+                        "queue peaks as JSON on exit")
+    p.add_argument("--meter-bytes", action="store_true",
+                   help="price every router send and delivery at its codec wire size")
     p.add_argument("--rbc", choices=["bracha", "lowcomm"], default=None,
                    help="reliable-broadcast variant (default: HYDRABADGER_RBC or bracha)")
     p.add_argument("--gpu-dkg", action=argparse.BooleanOptionalAction, default=None,
@@ -61,15 +91,24 @@ def main(argv=None) -> int:
         if not 0.0 <= getattr(args, name) <= 1.0:
             p.error(f"--{name} must be in [0, 1]")
     faults = [f"--{n}" for n in ("drop", "dup", "delay") if getattr(args, n) > 0]
+    faults += [f"--{n}" for n in ("crash", "byzantine") if getattr(args, n) is not None]
     if len(faults) > 1:
         p.error(f"{' and '.join(faults)} are mutually exclusive (one adversary schedule per run)")
     adversary = None
-    if args.drop > 0:
-        adversary = drop_adversary(args.drop, args.seed)
-    elif args.dup > 0:
-        adversary = duplicate_adversary(args.dup, args.seed)
-    elif args.delay > 0:
-        adversary = delay_adversary(args.delay, seed=args.seed)
+    try:
+        if args.drop > 0:
+            adversary = drop_adversary(args.drop, args.seed)
+        elif args.dup > 0:
+            adversary = duplicate_adversary(args.dup, args.seed)
+        elif args.delay > 0:
+            adversary = delay_adversary(args.delay, seed=args.seed)
+        elif args.crash is not None:
+            adversary = crash_adversary(_node_list(args.crash, args.nodes))
+        elif args.byzantine is not None:
+            adversary = byzantine_adversary(_node_list(args.byzantine, args.nodes),
+                                            seed=args.seed)
+    except ValueError as exc:
+        p.error(str(exc))
     engine = GpuEngine(device=args.device) if args.engine == "gpu" else "cpu"
     cfg = SimConfig(
         n_nodes=args.nodes,
@@ -84,10 +123,23 @@ def main(argv=None) -> int:
         engine=engine,
         seed=args.seed,
         adversary=adversary,
+        trace=bool(args.trace),
         rbc_variant=args.rbc,
+        meter_bytes=args.meter_bytes,
         tpu_dkg=args.gpu_dkg,
     )
-    metrics = SimNetwork(cfg).run(args.epochs)
+    net = SimNetwork(cfg)
+    metrics = net.run(args.epochs)
+    if args.trace:
+        meta = {"clock_domain": net.recorder.clock_domain}
+        write = export.write_jsonl if args.trace.endswith(".jsonl") else export.write_chrome_trace
+        n = write(net.recorder.events, args.trace, meta=meta)
+        print(f"trace: {n} events -> {args.trace}", file=sys.stderr)
+    if args.metrics:
+        with open(args.metrics, "w") as fh:
+            json.dump({"sim": net.metrics.snapshot(), "process": default_registry().snapshot(),
+                       "queue_peaks": net.queue_peaks()}, fh, indent=1)
+        print(f"metrics -> {args.metrics}", file=sys.stderr)
     if args.json:
         print(json.dumps(metrics.as_dict()))
     else:

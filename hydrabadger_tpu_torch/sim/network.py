@@ -505,6 +505,19 @@ class SimNetwork:
         """Teardown: fail loudly if any CryptoFuture was dropped."""
         self._drain_async()
 
+    def queue_peaks(self) -> dict:
+        """High-water marks of the sim tier's bounded buffers: the router's
+        queue, a core's deferred future-epoch messages, and a DHB node's
+        future-era messages."""
+        deferred = max((len(self.nodes[nid].hb.deferred) for nid in self.ids), default=0)
+        future = max((len(getattr(self.nodes[nid], "future_msgs", ())) for nid in self.ids),
+                     default=0)
+        return {
+            "router_queue": self.metrics.gauge(M.ROUTER_QUEUE_DEPTH).high_water,
+            "deferred": deferred,
+            "future": future,
+        }
+
     def _batches(self, nid) -> List:
         return self.nodes[nid].batches
 

@@ -574,3 +574,40 @@ async def test_lowcomm_tcp_cluster_on_the_card(card):
     for e in range(2):
         assert len({tuple(sorted(n.batches[e].contributions.items())) for n in nodes}) == 1
     assert gf256_torch.launches > before
+
+
+@pytest.mark.parametrize("lanes", [1, 33, 1013])
+def test_pairing_circuits_on_the_card_equal_plain(card, lanes):
+    """Every circuit of the pairing batch, B3 against its plain version on
+    random canonical words, one launch each."""
+    from hydrabadger_tpu_torch.ops import pairing_torch as pt
+
+    rng = np.random.default_rng(lanes)
+    for name, circ in pt.circuits().items():
+        ints = [int.from_bytes(rng.bytes(48), "little") % bls.P
+                for _ in range(circ.n_inputs * lanes)]
+        w = limbs.ints_to_limbs_batch(ints).reshape(circ.n_inputs, lanes, 12).transpose(0, 2, 1)
+        x = torch.from_numpy(np.ascontiguousarray(w)).to(card)
+        before = circuit_torch.launches_by_circuit.get(name, 0)
+        got = circ(x)
+        assert circuit_torch.launches_by_circuit[name] == before + 1
+        assert torch.equal(got, circ.plain(x)), name
+
+
+def test_pairing_eq_batch_on_the_card_equals_the_host(card):
+    """True, forged and infinity lanes: the host oracle's verdicts, and B3's
+    launches by circuit equal to `pairing_torch.schedule`."""
+    from hydrabadger_tpu_torch.ops import pairing_torch as pt
+
+    g1, g2 = bls.G1, bls.G2
+    lanes = [(bls.multiply(g1, 3), bls.multiply(g2, 11), bls.multiply(g1, 33), g2),
+             (bls.multiply(g1, 5), bls.multiply(g2, 13), bls.multiply(g1, 66), g2),
+             (bls.infinity(bls.FQ), g2, g1, g2),
+             (bls.multiply(g1, 7), g2, g1, bls.multiply(g2, 7))]
+    before = dict(circuit_torch.launches_by_circuit)
+    got = pt.pairing_eq_batch(*zip(*lanes), device=card)
+    torch.cuda.synchronize()
+    delta = {k: v - before.get(k, 0) for k, v in circuit_torch.launches_by_circuit.items()
+             if v != before.get(k, 0)}
+    assert got.tolist() == [bls.pairing_check_eq(*lane) for lane in lanes] == [True, False, False, True]
+    assert delta == pt.schedule(3)
