@@ -177,9 +177,30 @@ failure:
      wall on the card against the native per-share loop (32 checks), in
      turns, the hash cache cleared before each; host ms in hash_to_g2,
      normalize_batch and the word conversion; the card's busy share.
+ 28. the process tier on the card: config 5's era switch (16 nodes) on
+     `GpuEngine` with the DKG plane forced, uninterrupted, and again
+     snapshotted with `checkpoint.save_sim` at the first epoch boundary
+     after the vote where the era-switch DKG is live with parts or acks
+     pending, the DKG caches cleared (as in a fresh process), loaded with
+     `load_sim` and run to the same epoch: every node's batches, eras, key
+     sets, validators, counts and faults byte-identical; the snapshot's
+     classes name no module of the JAX package and no torch class but
+     `torch.device`; counters set to 0 just before the resumed leg and read
+     just after: B2 launched, no other kernel, the two legs' B2 entries
+     those of the uninterrupted run; the snapshot's bytes, save and load ms.
+     Then config 1 (as phase 26, on `GpuEngine` with the DKG plane forced)
+     with `checkpoint_every=1` and a flight recorder on each node, stopped
+     after 2 batches: each store's newest generation equals the node's state
+     at stop; every node restored from it with `from_checkpoint` (epochs
+     aligned to the newest) and restarted, counters set to 0 just before:
+     2 agreed, decrypted batches on every node at epochs >= the newest,
+     every card verdict and r_i * pk_i equal to the host's replay, B2's
+     launches equal to the verify batches plus the DKG plane's, no other
+     kernel; every node's final flight dump loads with reason "stop";
+     checkpoints persisted and the wall from the restart to the first batch.
 
 The line before the last is one JSON object {"kernels": [...]} (B3's
-entry carries `pairing`); the last
+entry carries `pairing`, B2's `resume` and `tcp_restart`); the last
 is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
 no result.
 """
@@ -1257,12 +1278,11 @@ def sim_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
     }, worst
 
 
-def era_switch(engine, nodes: int, **kw):
-    """Config 5's Python-core leg at `nodes`: a bootstrap epoch, a removal
-    vote for the last node from every other, epochs until every survivor
-    is in the new era, then two steady epochs.  The process-wide DKG caches
-    are cleared first, so every run derives its folds and keys itself.
-    Returns (sim, metrics, wall s)."""
+def voted_sim(engine, nodes: int, **kw):
+    """Config 5's Python-core leg at `nodes` up to its vote: the process-wide
+    DKG caches cleared (so every run derives its folds and keys itself), a
+    bootstrap epoch, then a removal vote for the last node from every
+    other.  Returns (sim, the time it started)."""
     from hydrabadger_tpu_torch.crypto import dkg
     from hydrabadger_tpu_torch.sim import network
 
@@ -1275,6 +1295,14 @@ def era_switch(engine, nodes: int, **kw):
     victim = sim.ids[-1]
     for nid in sim.ids[:-1]:
         sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(victim))
+    return sim, t0
+
+
+def era_switch(engine, nodes: int, **kw):
+    """Config 5's Python-core leg at `nodes` (`voted_sim`), then epochs
+    until every survivor is in the new era, then two steady epochs.
+    Returns (sim, metrics, wall s)."""
+    sim, t0 = voted_sim(engine, nodes, **kw)
     for _ in range(8):
         sim.run(1)
         if all(sim.nodes[nid].era > 0 for nid in sim.ids[:-1]):
@@ -1451,13 +1479,7 @@ def dkg_plane(dev: torch.device, tag: str, nodes: int = DKG_NODES) -> dict:
              M.MSM_COALESCE_SUBMISSIONS)
 
     def zero_counts():
-        torch.cuda.synchronize()
-        gf256_torch.launches = fq_torch.launches = fq2_torch.launches = 0
-        circuit_torch.launches = fp_probe_torch.launches = 0
-        fq_torch.launches_by_kind.clear()
-        msm_torch.calls.clear()
-        vt.calls.clear()
-        dkg.channel_key_calls.clear()
+        zero_launches(dev)
         limbs.to_points_s = 0.0
         return {k: reg.counter(k).value for k in names}
 
@@ -1647,6 +1669,54 @@ def testnet_checks(nodes, batches: int, what: str) -> None:
                 f"transactions: {bytes(payload)[:40]!r}")
 
 
+def recording_gpu_engine(dev):
+    """A GpuEngine on `dev` that records each verify_batch call that reached
+    the card (its items and verdicts) and each r_i * pk_i batch, registered
+    as the engine "gpu-recording"; returns its class (the records are class
+    lists)."""
+    import functools
+
+    from hydrabadger_tpu_torch.crypto import engine as teng
+
+    class RecordingGpuEngine(teng.GpuEngine):
+        verifies: list = []
+        muls: list = []
+
+        def verify_batch(self, items):
+            before = len(self.muls)
+            verdicts = super().verify_batch(items)
+            if len(self.muls) > before:
+                self.verifies.append((list(items), list(verdicts)))
+            return verdicts
+
+        def _g1_scalar_muls(self, points, scalars):
+            out = super()._g1_scalar_muls(points, scalars)
+            self.muls.append((list(points), list(scalars), out))
+            return out
+
+    teng.register_engine("gpu-recording", functools.partial(RecordingGpuEngine, device=dev))
+    return RecordingGpuEngine
+
+
+def replay_on_the_host(verifies, muls) -> None:
+    """Every verify_batch verdict from the card replayed on the host engine,
+    every r_i * pk_i against the native ladder; every honest frame passed."""
+    from hydrabadger_tpu_torch.crypto import bls12_381 as bls
+    from hydrabadger_tpu_torch.crypto import engine as teng
+    from hydrabadger_tpu_torch.crypto import native_bls as nb
+
+    for items_, verdicts in verifies:
+        teng._VERIFIED_FRAMES.clear()
+        check(teng.CpuEngine().verify_batch(items_) == verdicts,
+              "a verify_batch verdict on the card != the host engine's replay")
+    for pts, rs, out in muls:
+        check([bls.g1_to_bytes(p) for p in out] == [bls.g1_to_bytes(p) for p in
+                                                   nb.g1_mul_batch(pts, rs)],
+              f"r_i * pk_i from B2 ({len(pts)} lanes) != native g1_mul_batch")
+    teng._VERIFIED_FRAMES.clear()
+    check(all(all(v) for _i, v in verifies), "an honest testnet frame failed verification")
+
+
 def tcp_plane(dev: torch.device, tag: str) -> tuple[dict, dict, int]:
     """Phases 24-26: the native host library against its pure oracle, kernel
     B2's GLV ladder at verify_batch's shapes, and config 1 (the 4-node TCP
@@ -1746,26 +1816,7 @@ def tcp_plane(dev: torch.device, tag: str) -> tuple[dict, dict, int]:
     print("verify_batch on the card == the host engine: 13 frames, one forged, one duplicate")
 
     # -- 26. config 1: the 4-node TCP testnet at full crypto ----------------
-    class RecordingGpuEngine(teng.GpuEngine):
-        """GpuEngine that records each verify_batch call that reached the
-        card (its items and verdicts) and each r_i * pk_i batch."""
-
-        verifies: list = []
-        muls: list = []
-
-        def verify_batch(self, items):
-            before = len(self.muls)
-            verdicts = super().verify_batch(items)
-            if len(self.muls) > before:
-                self.verifies.append((list(items), list(verdicts)))
-            return verdicts
-
-        def _g1_scalar_muls(self, points, scalars):
-            out = super()._g1_scalar_muls(points, scalars)
-            self.muls.append((list(points), list(scalars), out))
-            return out
-
-    teng.register_engine("gpu-recording", RecordingGpuEngine)
+    RecordingGpuEngine = recording_gpu_engine(dev)
     reg = M.default_registry()
     names = (M.VERIFY_DEVICE_BATCHES, M.VERIFY_DEVICE_LANES, M.VERIFY_TO_POINTS_MS)
     ports = iter(range(15300, 15400, 4))
@@ -1782,14 +1833,7 @@ def tcp_plane(dev: torch.device, tag: str) -> tuple[dict, dict, int]:
         return nodes, wall
 
     def zero_counts():
-        torch.cuda.synchronize()
-        gf256_torch.launches = fq_torch.launches = fq2_torch.launches = 0
-        circuit_torch.launches = fp_probe_torch.launches = 0
-        fq_torch.launches_by_kind.clear()
-        msm_torch.calls.clear()
-        vt.calls.clear()
-        dkg.channel_key_calls.clear()
-        teng.device_verify_calls.clear()
+        zero_launches(dev)
         RecordingGpuEngine.verifies.clear()
         RecordingGpuEngine.muls.clear()
         limbs.to_points_s = 0.0
@@ -1816,17 +1860,7 @@ def tcp_plane(dev: torch.device, tag: str) -> tuple[dict, dict, int]:
     check(len(muls) == counted[M.VERIFY_DEVICE_BATCHES] == sum(lane_hist.values()) > 0,
           f"config 1 sent {len(muls)} verify batches to the card (counted "
           f"{counted[M.VERIFY_DEVICE_BATCHES]}, histogram {lane_hist}); want the same number, > 0")
-    # every card verdict replayed on the host engine, every r_i * pk_i against
-    # the native ladder
-    for items_, verdicts in verifies:
-        teng._VERIFIED_FRAMES.clear()
-        check(teng.CpuEngine().verify_batch(items_) == verdicts,
-              "a verify_batch verdict on the card != the host engine's replay")
-    for pts, rs, out in muls:
-        check([aff(p) for p in out] == [aff(p) for p in nb.g1_mul_batch(pts, rs)],
-              f"r_i * pk_i from B2 ({len(pts)} lanes) != native g1_mul_batch")
-    teng._VERIFIED_FRAMES.clear()
-    check(all(all(v) for _i, v in verifies), "an honest testnet frame failed verification")
+    replay_on_the_host(verifies, muls)
     check(sum(others.values()) == 0, f"config 1 launched other kernels: {others}")
     check(by_kind.get("glv_ladder", 0) >= len(muls), f"B2 launches by entry {by_kind}")
     msm_launches = sum(n * msm_torch.launches(b, s) for (b, s, _w), n in msm_calls.items())
@@ -2175,6 +2209,299 @@ def pairing_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
     }, worst
 
 
+def b2_launches(dev: torch.device) -> tuple[dict, dict]:
+    """B2's launches by entry since the counters were last set to 0, and
+    every other kernel's count."""
+    from hydrabadger_tpu_torch.ops import circuit_torch, fp_probe_torch, fq2_torch, fq_torch
+    from hydrabadger_tpu_torch.ops import gf256_torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(fq_torch.launches_by_kind), {
+        "gf256_matmul": gf256_torch.launches, "fq2_point": fq2_torch.launches,
+        "circuit": circuit_torch.launches, "fp_probe": fp_probe_torch.launches}
+
+
+def zero_launches(dev: torch.device) -> None:
+    """Every kernel's launch counter and the DKG plane's call records to 0."""
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.crypto import engine as teng
+    from hydrabadger_tpu_torch.ops import circuit_torch, fp_probe_torch, fq2_torch, fq_torch
+    from hydrabadger_tpu_torch.ops import gf256_torch, msm_torch
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    gf256_torch.launches = fq_torch.launches = fq2_torch.launches = 0
+    circuit_torch.launches = fp_probe_torch.launches = 0
+    fq_torch.launches_by_kind.clear()
+    msm_torch.calls.clear()
+    vt.calls.clear()
+    dkg.channel_key_calls.clear()
+    teng.device_verify_calls.clear()
+
+
+def snapshot_classes(raw: bytes) -> set:
+    """(module, name) of every class a sim checkpoint's pickle names, read
+    by loading it once more through a recording find_class."""
+    import io
+
+    from hydrabadger_tpu_torch import checkpoint as ck
+
+    names = set()
+
+    class Recording(ck._PortUnpickler):
+        def find_class(self, module, name):
+            names.add((module, name))
+            return super().find_class(module, name)
+
+    Recording(io.BytesIO(ck._unpack(raw, ck._KIND_SIM))).load()
+    return names
+
+
+def era_switch_resume(dev: torch.device, tag: str, nodes: int) -> dict:
+    """Phase 28a: config 5's era switch on the card with the DKG plane
+    forced, uninterrupted and resumed from a mid-DKG snapshot (save_sim,
+    the DKG caches cleared, load_sim), byte for byte."""
+    import tempfile
+
+    from hydrabadger_tpu_torch import checkpoint as ck
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.crypto.engine import GpuEngine
+
+    gpu = GpuEngine(device=dev)
+    zero_launches(dev)
+    straight, straight_m, straight_s = era_switch(gpu, nodes, tpu_dkg=True)
+    by_straight, others = b2_launches(dev)
+    check(sum(others.values()) == 0, f"the uninterrupted era switch launched other kernels: {others}")
+    want = dhb_record(straight, straight_m)
+
+    zero_launches(dev)
+    sim, _t0 = voted_sim(gpu, nodes, tpu_dkg=True)
+    done, live = 1, []
+    for _ in range(8):
+        sim.run(1)
+        done += 1
+        # (the removed node follows the switch with a tracker, no parts)
+        live = [nid for nid in sim.ids if sim.nodes[nid].key_gen is not None
+                and (getattr(sim.nodes[nid].key_gen.key_gen, "parts", None)
+                     or sim.nodes[nid].pending_kg)]
+        if live:
+            break
+    check(bool(live) and all(sim.nodes[nid].era == 0 for nid in sim.ids),
+          "no epoch boundary with the era-switch DKG live and parts or acks pending")
+    by_prefix, others_p = b2_launches(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "era_switch.ckpt")
+        t0 = time.perf_counter()
+        ck.save_sim(path, sim)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(path)
+        del sim
+        dkg.clear_caches()  # a fresh process starts with them cold
+        t0 = time.perf_counter()
+        resumed = ck.load_sim(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        with open(path, "rb") as fh:
+            classes = snapshot_classes(fh.read())
+    modules = sorted({m for m, _n in classes})
+    check(not any(m == "hydrabadger_tpu" or m.startswith("hydrabadger_tpu.") for m in modules),
+          f"the snapshot names a module of the JAX package: {modules}")
+    torch_names = sorted(f"{m}.{n}" for m, n in classes if m.split(".")[0] == "torch")
+    check(torch_names == ["torch.device"], f"the snapshot holds torch state beyond devices: "
+                                           f"{torch_names}")
+    zero_launches(dev)
+    t0 = time.perf_counter()
+    m = resumed.run(straight_m.epochs_done - done)
+    resumed_s = time.perf_counter() - t0
+    by_resumed, others_r = b2_launches(dev)
+    got = dhb_record(resumed, m)
+    check(got == want, "the resumed era switch != the uninterrupted one (batches, eras, key sets, "
+                       "validators, counts or faults differ)")
+    check(all(e > 0 for e in got["eras"].values()), "the resumed run did not switch era")
+    check(sum(others_p.values()) + sum(others_r.values()) == 0,
+          f"the snapshotted run launched other kernels: {others_p}, {others_r}")
+    check(sum(by_resumed.values()) > 0, "the resumed leg launched B2 no time")
+    check(set(by_prefix) | set(by_resumed) == set(by_straight),
+          f"the snapshotted run's B2 entries {sorted(set(by_prefix) | set(by_resumed))} != the "
+          f"uninterrupted run's {sorted(by_straight)}")
+    total = sum(by_prefix.values()) + sum(by_resumed.values())
+    check(total >= sum(by_straight.values()),
+          f"the snapshotted run launched B2 {total} times, fewer than the uninterrupted "
+          f"{sum(by_straight.values())}")
+    print(f"main path: config 5's era switch ({nodes} nodes) on the card, DKG plane forced, "
+          f"snapshotted after epoch {done} with the DKG live on {len(live)} nodes (parts or acks "
+          f"pending), caches cleared, resumed to epoch {m.epochs_done}: every node's batches, eras, "
+          f"key sets, validators, counts and faults == the uninterrupted run's; the snapshot holds "
+          f"no tensor (torch names {torch_names}) and names no JAX module "
+          f"({len(classes)} classes from {len(modules)} modules)")
+    print(f"snapshot {size} bytes, save_sim {save_ms:.1f} ms, load_sim {load_ms:.1f} ms; B2 launches "
+          f"uninterrupted {sum(by_straight.values())} {by_straight}, before the snapshot "
+          f"{sum(by_prefix.values())}, resumed leg {sum(by_resumed.values())} {by_resumed} "
+          f"(cold caches: {total - sum(by_straight.values())} more in all); walls uninterrupted "
+          f"{straight_s:.2f} s, resumed leg {resumed_s:.2f} s {tag}")
+    return {
+        "per": f"config 5's era switch ({nodes} nodes) resumed from a mid-DKG sim snapshot: "
+               f"the resumed leg's B2 launches",
+        "launches": sum(by_resumed.values()),
+        "launches_by_entry": by_resumed,
+        "launches_before_snapshot": sum(by_prefix.values()),
+        "launches_uninterrupted": sum(by_straight.values()),
+        "snapshot_epoch": done,
+        "snapshot_bytes": size,
+        "save_ms": save_ms,
+        "load_ms": load_ms,
+        "resumed_s": resumed_s,
+        "uninterrupted_s": straight_s,
+    }
+
+
+def tcp_restart(dev: torch.device, tag: str, base: int = 15400, cap_s: float = 300.0) -> dict:
+    """Phase 28b: config 1 on the card with checkpoints every epoch and a
+    flight recorder on each node, stopped after 2 batches, every node
+    restored from its store's newest generation (epochs aligned to the
+    newest), restarted to 2 more batches."""
+    import asyncio
+    import dataclasses
+    import tempfile
+
+    from hydrabadger_tpu_torch.checkpoint import CheckpointStore
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.crypto import engine as teng
+    from hydrabadger_tpu_torch.net.node import Config, Hydrabadger
+    from hydrabadger_tpu_torch.obs import metrics as M
+    from hydrabadger_tpu_torch.obs.flight import FlightRecorder, load_flight
+    from hydrabadger_tpu_torch.obs.recorder import DOMAIN_WALL, Recorder
+    from hydrabadger_tpu_torch.ops import msm_torch
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+    from hydrabadger_tpu_torch.utils.ids import InAddr, OutAddr
+
+    n = 4
+    Rec = recording_gpu_engine(dev)
+    gen = lambda count, size: [b"%02dx" % i * size for i in range(count)]  # noqa: E731
+
+    def mount(node, rec, prefix):
+        """A flight recorder on the node's recorder, metrics and fault ring."""
+        node.flight = FlightRecorder(prefix, node=node.uid.bytes.hex()[:8], recorder=rec,
+                                     metrics=node.metrics, fault_ring=node.fault_log,
+                                     clock=node.wall_now, mono=node._now)
+
+    async def drive(nodes, port0, batches):
+        """Start every node dialling the others; wait until each has
+        `batches` batches (or the cap); stop them.  Returns (wall s, s to
+        the first batch on every node)."""
+        for i, node in enumerate(nodes):
+            await node.start([OutAddr("127.0.0.1", port0 + j) for j in range(n) if j != i], gen)
+        t0 = time.perf_counter()
+        first = None
+        while min(len(node.batches) for node in nodes) < batches:
+            if first is None and min(len(node.batches) for node in nodes) >= 1:
+                first = time.perf_counter() - t0
+            if time.perf_counter() - t0 > cap_s:
+                break
+            await asyncio.sleep(0.02)
+        wall = time.perf_counter() - t0
+        for node in nodes:
+            await node.stop()
+        return wall, wall if first is None else first
+
+    reg = M.default_registry()
+    os.environ[dkg.GPU_DKG_ENV] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def cfg(i):
+                return Config(txn_gen_interval_ms=300, keygen_peer_count=n - 1,
+                              engine="gpu-recording", checkpoint_path=os.path.join(tmp, f"node{i}.ckpt"),
+                              checkpoint_every=1)
+
+            dkg.clear_caches()
+            teng._VERIFIED_FRAMES.clear()
+            recs = [Recorder(clock_domain=DOMAIN_WALL) for _ in range(n)]
+            first = [Hydrabadger(InAddr("127.0.0.1", base + i), cfg(i), seed=1000 + i,
+                                 recorder=recs[i]) for i in range(n)]
+            for i, node in enumerate(first):
+                mount(node, recs[i], os.path.join(tmp, f"node{i}.run0.flight"))
+            wall0, _ = asyncio.run(drive(first, base, 2))
+            testnet_checks(first, 2, "config 1 with checkpoints on the card")
+            stores = [CheckpointStore(cfg(i).checkpoint_path) for i in range(n)]
+            cps = [store.load() for store in stores]
+            for i, (node, cp) in enumerate(zip(first, cps)):
+                check(cp is not None and cp == node.checkpoint(),
+                      f"node {i}'s newest checkpoint generation != its state at stop")
+                check(all(os.path.exists(p) for p in stores[i].generation_paths()),
+                      f"node {i}'s store did not rotate a generation")
+            persisted0 = sum(nd.metrics.counter(M.CHECKPOINTS_PERSISTED).value for nd in first)
+            skipped0 = sum(nd.metrics.counter(M.CHECKPOINT_PERSISTS_SKIPPED).value for nd in first)
+            top = max(cp.epoch for cp in cps)
+            cps = [dataclasses.replace(cp, epoch=top) for cp in cps]
+            recs = [Recorder(clock_domain=DOMAIN_WALL) for _ in range(n)]
+            restored = [Hydrabadger.from_checkpoint(InAddr("127.0.0.1", base + 10 + i), cps[i],
+                                                    cfg(i), seed=2000 + i, recorder=recs[i])
+                        for i in range(n)]
+            check(all(nd.is_validator() and nd.our_id == old.our_id
+                      for nd, old in zip(restored, first)), "a restored node is not the validator it was")
+            for i, node in enumerate(restored):
+                mount(node, recs[i], os.path.join(tmp, f"node{i}.run1.flight"))
+            zero_launches(dev)
+            Rec.verifies.clear()
+            Rec.muls.clear()
+            teng._VERIFIED_FRAMES.clear()
+            before = reg.counter(M.VERIFY_DEVICE_BATCHES).value
+            wall1, to_first = asyncio.run(drive(restored, base + 10, 2))
+            by_kind, others = b2_launches(dev)
+            msm_calls, fold_calls = dict(msm_torch.calls), dict(vt.calls)
+            key_calls = dict(dkg.channel_key_calls)
+            verifies, muls = list(Rec.verifies), list(Rec.muls)
+            counted = reg.counter(M.VERIFY_DEVICE_BATCHES).value - before
+            testnet_checks(restored, 2, "config 1 restarted from its checkpoints")
+            check(all(nd.batches[0].epoch >= top for nd in restored),
+                  f"a restored node committed an epoch below {top}")
+            check(len({nd.dhb.netinfo.pk_set.to_bytes() for nd in first + restored}) == 1,
+                  "the restored nodes' key set != the one the bootstrap DKG formed")
+            replay_on_the_host(verifies, muls)
+            check(len(muls) == counted > 0, f"the restarted testnet sent {len(muls)} verify batches "
+                                            f"to the card (counted {counted}); want the same, > 0")
+            dkg_launches = (sum(k * msm_torch.launches(b, s) for (b, s, _w), k in msm_calls.items())
+                            + sum(k * vt.launches(J, xs) for (J, _K, xs), k in fold_calls.items())
+                            + sum(key_calls.values()))
+            check(sum(others.values()) == 0, f"the restarted testnet launched other kernels: {others}")
+            check(len(muls) + dkg_launches == sum(by_kind.values()),
+                  f"B2 launches {sum(by_kind.values())} != verify batches {len(muls)} + the DKG "
+                  f"plane's {dkg_launches}")
+            for i, nd in enumerate(restored):
+                cp = stores[i].load()
+                check(cp is not None and cp.epoch >= top + 2,
+                      f"node {i}'s store holds epoch {cp and cp.epoch} after the restart, want >= "
+                      f"{top + 2}")
+            persisted1 = sum(nd.metrics.counter(M.CHECKPOINTS_PERSISTED).value for nd in restored)
+            dumps = []
+            for nd in first + restored:
+                payload = load_flight(nd.flight.path)
+                check(payload["reason"] == "stop" and payload["events"],
+                      f"{nd.flight.path}: reason {payload['reason']!r}, {len(payload['events'])} events")
+                dumps.append(len(payload["events"]))
+    finally:
+        os.environ.pop(dkg.GPU_DKG_ENV, None)
+    print(f"main path: config 1 on the card with checkpoints every epoch and flight recorders: 2 "
+          f"batches in {wall0:.2f} s, {persisted0} checkpoints persisted ({skipped0} skipped); every "
+          f"node restored from its store's newest generation at epoch {top}, restarted: first batch "
+          f"on every node {to_first:.2f} s after the restart, 2 agreed, decrypted batches in "
+          f"{wall1:.2f} s at epochs >= {top}, {persisted1} more checkpoints; {len(verifies)} "
+          f"verify_batch calls on the card replayed on the host with equal verdicts, every r_i * "
+          f"pk_i == native; B2 launches {by_kind}, no other kernel; {len(dumps)} flight dumps load "
+          f"with reason 'stop' ({min(dumps)}-{max(dumps)} events) {tag}")
+    return {
+        "per": "config 1 restarted from its checkpoints, to 2 batches on every node",
+        "launches": sum(by_kind.values()),
+        "launches_by_entry": by_kind,
+        "verify_batches": len(muls),
+        "checkpoints_persisted": persisted0 + persisted1,
+        "restart_to_first_commit_s": to_first,
+        "restart_wall_s": wall1,
+        "first_run_wall_s": wall0,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -2393,6 +2720,9 @@ def main() -> int:
     b3_entry = next(k for k in kernels if k["name"] == "circuit")
     b3_entry["pairing"], pair_err = pairing_plane(dev, tag)
     b3_entry["max_abs_err"] = max(b3_entry["max_abs_err"], pair_err)
+    # -- 28. the process tier on the card ----------------------------------
+    fq_entry["resume"] = era_switch_resume(dev, tag, DKG_NODES)
+    fq_entry["tcp_restart"] = tcp_restart(dev, tag)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

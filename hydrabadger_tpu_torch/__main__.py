@@ -8,8 +8,10 @@ flag-for-flag parity with the reference binary (src/bin/peer_node.rs:21-78):
     python -m hydrabadger_tpu_torch --engine cpu -b 127.0.0.1:3000 ...
 
 `--engine {gpu,cpu}` defaults to gpu, the card (it raises without one), and
-`--device` names the gpu engine's card.  `--checkpoint` and `--flight`
-belong to the process tier, not ported yet: they exit 2.
+`--device` names the gpu engine's card.  `--checkpoint PATH` persists a
+generational node checkpoint every `--checkpoint-every` committed epochs and
+on a graceful stop, and resumes from its newest loadable generation at boot;
+`--flight [DIR|PREFIX]` mounts the flight recorder (obs/flight.py).
 
 Environment: HYDRABADGER_LOG sets the log level/filters the way the
 reference's env_logger setup does (peer_node.rs:110-122) — e.g.
@@ -29,7 +31,8 @@ from .net.node import Config, Hydrabadger
 from .obs import logging as obs_logging
 from .utils.ids import InAddr, OutAddr
 
-# the JAX CLI's default flight-recorder directory (the flag's const)
+# default flight-recorder directory; ONE constant serves both the argparse
+# const and the directory-vs-prefix branch below
 FLIGHT_DEFAULT_DIR = "tmp/obs"
 
 
@@ -177,16 +180,18 @@ def make_parser() -> argparse.ArgumentParser:
         "--checkpoint",
         default=None,
         metavar="PATH",
-        help="durable checkpoint store (the process tier: not ported yet, "
-        "exits 2)",
+        help="durable generational checkpoint store: persist an "
+        "era/epoch-stamped NodeCheckpoint here every --checkpoint-every "
+        "committed epochs (+ a final one on graceful stop), and RESUME "
+        "from it at boot when a loadable generation exists — the "
+        "restart-from-disk path a supervisor uses after SIGKILL",
     )
     p.add_argument(
         "--checkpoint-every",
         type=int,
         default=1,
         metavar="N",
-        help="committed epochs between durable checkpoints (with --checkpoint; not "
-        "ported yet)",
+        help="committed epochs between durable checkpoints (default 1)",
     )
     p.add_argument(
         "--batch-log",
@@ -202,8 +207,14 @@ def make_parser() -> argparse.ArgumentParser:
         const=FLIGHT_DEFAULT_DIR,
         default=None,
         metavar="DIR|PREFIX",
-        help="the flight recorder (the process tier: not ported yet, "
-        "exits 2)",
+        help="mount the flight recorder (obs/flight.py): a bounded "
+        "black box of recent spans/wire events + fault-ring mirror, "
+        "dumped atomically (generational, digest-checked) on every "
+        "fault-ring entry, a periodic heartbeat, and SIGTERM — the "
+        "dump a SIGKILL cannot retract.  A directory (default tmp/obs) "
+        "gets <uid>.flight.<pid>.json; anything else is used as the "
+        "path prefix.  Implies an in-memory recorder even without "
+        "--trace",
     )
     p.add_argument(
         "--mine",
@@ -235,11 +246,6 @@ def main(argv=None) -> int:
             "--metrics-interval streams summary lines and needs a "
             ".jsonl --metrics path"
         )
-    for flag, value in (("--checkpoint", args.checkpoint), ("--flight", args.flight)):
-        if value is not None:
-            print(f"{flag}: not ported yet; it comes with the port's process-tier "
-                  "slice (checkpoint.py, obs/flight.py)", file=sys.stderr)
-            return 2
     setup_logging()
     if args.mine:
         from . import blockchain
@@ -262,6 +268,8 @@ def main(argv=None) -> int:
         start_epoch=args.start_epoch,
         engine=engine,
         rbc_variant=args.rbc,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=max(1, args.checkpoint_every),
     )
     if args.fast_crypto:
         cfg.encrypt = False
@@ -270,22 +278,62 @@ def main(argv=None) -> int:
         cfg.wire_sign = False
 
     recorder = None
-    if args.trace:
-        from .obs.recorder import Recorder
+    if args.trace or args.flight:
+        from .obs.recorder import DOMAIN_WALL, Recorder
 
         # the TCP node's stamping boundaries read the node wall clock
         # (declared domain; re-pointed at node.wall_now below so
         # injected skew is honestly visible in the trace)
-        recorder = Recorder(clock_domain="wall")
+        recorder = Recorder(clock_domain=DOMAIN_WALL)
         # warnings interleave with the spans they explain
         obs_logging.attach_recorder(recorder)
 
     host, port = args.bind_address
-    node = Hydrabadger(InAddr(host, port), cfg, seed=args.seed, recorder=recorder)
+    node = None
+    if args.checkpoint:
+        # restart-from-disk: the generational store walks newest to
+        # oldest, rejecting corrupt/truncated generations LOUDLY; only
+        # when no generation loads does the node boot fresh (and then
+        # re-joins through discovery/DKG like any newcomer)
+        from .checkpoint import CheckpointStore
+
+        ckpt = CheckpointStore(args.checkpoint).load()
+        if ckpt is not None:
+            node = Hydrabadger.from_checkpoint(
+                InAddr(host, port), ckpt, cfg, seed=args.seed, recorder=recorder
+            )
+            print(
+                f"resumed from checkpoint: era {ckpt.era} epoch "
+                f"{ckpt.epoch} ({'validator' if ckpt.sk_share else 'observer'})",
+                file=sys.stderr,
+            )
+    if node is None:
+        node = Hydrabadger(InAddr(host, port), cfg, seed=args.seed, recorder=recorder)
     if recorder is not None:
         # emit_stamped consumers without their own clock (the logging
         # mirror) read the node's skewed wall clock too
         recorder.clock = node.wall_now
+    if args.flight:
+        import os as _os
+
+        from .obs.flight import FlightRecorder
+
+        uid8 = node.uid.bytes.hex()[:8]
+        prefix = (
+            _os.path.join(args.flight, f"{uid8}.flight")
+            if args.flight.endswith(_os.sep) or _os.path.isdir(args.flight)
+            or args.flight == FLIGHT_DEFAULT_DIR
+            else args.flight
+        )
+        node.flight = FlightRecorder(
+            prefix,
+            node=uid8,
+            recorder=recorder,
+            metrics=node.metrics,
+            fault_ring=node.fault_log,
+            clock=node.wall_now,
+            mono=node._now,  # skew reaches the dump debounce too
+        )
     remotes = [OutAddr(h, p) for h, p in args.remote_address]
 
     stop_reason = {"why": "exit"}
@@ -336,7 +384,8 @@ def main(argv=None) -> int:
         graceful_tasks = []
 
         def _graceful(why: str):
-            # SIGTERM: drain async futures (inside node.stop()) and exit 0
+            # SIGTERM: drain async futures, persist a final checkpoint and
+            # dump the flight recorder (all inside node.stop()), exit 0
             stop_reason["why"] = why
             graceful_tasks.append(asyncio.ensure_future(node.stop()))
 
@@ -408,9 +457,21 @@ def main(argv=None) -> int:
                     None, _append_line, metrics_jsonl, row
                 )
 
+        async def flight_loop():
+            # heartbeat dump: even a fault-free incarnation that takes a
+            # SIGKILL leaves a black box at most one interval stale
+            # (skipped while nothing new was recorded); its own task, so
+            # the black box does not depend on --metrics being streamed
+            interval = args.metrics_interval if args.metrics_interval > 0 else 1.0
+            while True:
+                await asyncio.sleep(interval)
+                node.flight.maybe_dump("periodic")
+
         tasks = [asyncio.create_task(log_batches())]
         if metrics_jsonl and args.metrics_interval > 0:
             tasks.append(asyncio.create_task(summary_loop()))
+        if node.flight is not None:
+            tasks.append(asyncio.create_task(flight_loop()))
         gen = gen_txns_factory(args.seed)
         try:
             await node.run_node(

@@ -28,8 +28,10 @@ Broadcast), plus an explicit signature on votes so they cannot be forged
 by a relaying proposer.
 
 Left out with what they serve, which the port has not yet: the native ACS
-entry points (`external_contribution`, `apply_external_batch`) and the
-checkpoint pickling hooks.
+entry points (`external_contribution`, `apply_external_batch`).  Of the
+checkpoint pickling hooks only `__getstate__` is kept (it settles the
+in-flight keygen flush); the JAX `__setstate__` filled in fields that older
+JAX snapshots lacked, and the port loads no JAX snapshot.
 """
 from __future__ import annotations
 
@@ -285,6 +287,14 @@ class DynamicHoneyBadger:
         )
         dhb.hb.epoch = plan.epoch - plan.era  # skip the era's earlier epochs
         return dhb
+
+    def __getstate__(self):
+        """Pickle (sim checkpoints): an in-flight settle closure holds
+        device buffers and is not host state, so it is settled first (its
+        effects are host state the snapshot must hold anyway; its faults
+        ride _deferred_faults, which pickles).  A device error raises."""
+        self._settle_keygen_inflight()
+        return self.__dict__
 
     # -- API ----------------------------------------------------------------
 

@@ -33,9 +33,13 @@ Its seams:
   - The handler scopes the DKG's device plane (crypto/dkg.plane_device) to
     the node's engine's device: `GpuEngine.device`, "cpu" for the host
     engine.
-  - Not ported yet (the process tier): `checkpoint_path`, `checkpoint()`,
-    `from_checkpoint`, a chaos plane and `set_slo()` raise
-    NotImplementedError.
+  - Durable checkpoints (`Config.checkpoint_path`, `checkpoint()`,
+    `from_checkpoint`, checkpoint.CheckpointStore) are the JAX package's,
+    byte for byte.  `crash()` settles the in-flight keygen flushes and
+    `drain_async` and raises a device error once the sockets are closed,
+    where the JAX handler discards it.
+  - Not ported yet (the process tier's chaos and SLO planes): a chaos
+    plane and `set_slo()` raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -44,8 +48,9 @@ import random
 import time as _time
 from collections import OrderedDict, deque, namedtuple
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional
 
+from ..checkpoint import CheckpointStore, NodeCheckpoint
 from ..consensus.dynamic_honey_badger import DhbBatch, DynamicHoneyBadger, JoinPlan
 from ..consensus.types import NetworkInfo, Step, quorum_exists
 from ..crypto import dkg as _dkg
@@ -54,12 +59,19 @@ from ..crypto.engine import get_engine
 from ..crypto.threshold import PublicKey, SecretKey, Signature
 from ..obs.latency import STAGE_ADMITTED, STAGE_COMMITTED, STAGE_PROPOSED, TxnLifecycle, txn_id
 from ..obs.logging import get_logger
-from ..obs.metrics import MetricsRegistry
+from ..obs.metrics import (
+    CHECKPOINT_PERSIST_FAILURES,
+    CHECKPOINT_PERSISTS_SKIPPED,
+    MetricsRegistry,
+)
 from ..obs.recorder import resolve as _resolve_recorder
 from ..utils.ids import InAddr, OutAddr, Uid
 from . import wire
 from .peer import Peer, Peers
 from .wire import WireMessage, WireStream
+
+if TYPE_CHECKING:
+    from ..obs.flight import FlightRecorder
 
 log = get_logger("hydrabadger_tpu_torch.net")
 
@@ -182,9 +194,13 @@ class Config:
     # ONCE at node construction and threaded into every consensus-core
     # build (bootstrap DKG, observer join, checkpoint restore)
     rbc_variant: Optional[str] = None
-    # durable checkpointing (the process tier): not ported yet, a path
-    # raises NotImplementedError
+    # durable checkpointing: when set, the node persists an era/epoch-
+    # stamped NodeCheckpoint to this path (generational store,
+    # checkpoint.CheckpointStore) every ``checkpoint_every`` committed
+    # epochs and once more on graceful stop — the disk artifact a
+    # SIGKILL'd process restarts from
     checkpoint_path: Optional[str] = None
+    checkpoint_every: int = 1
 
 
 class KeyGenMachine:
@@ -319,14 +335,11 @@ class Hydrabadger:
         self.rbc_variant = resolve_rbc_variant(
             getattr(self.cfg, "rbc_variant", None)
         )
-        # the wire-tier chaos plane and durable checkpoints belong to the
-        # process tier, not ported yet
+        # the wire-tier chaos plane belongs to the process tier's chaos
+        # slice, not ported yet
         if chaos is not None:
             raise NotImplementedError(
                 "the chaos plane (net/chaos.py) comes with the port's process-tier slice")
-        if self.cfg.checkpoint_path:
-            raise NotImplementedError(
-                "durable checkpoints (checkpoint.py) come with the port's process-tier slice")
         # hbtrace: the recorder is THE stamping boundary for this node's
         # consensus cores (handler poll = one stamp); metrics registry
         # is per-node so multi-node harnesses don't cross streams
@@ -446,6 +459,21 @@ class Hydrabadger:
         # the DKG's device plane runs on the engine's device: the card for
         # GpuEngine, the plain versions on the host engine's CPU
         self.plane_device = getattr(self.engine, "device", "cpu")
+        # flight recorder (obs/flight.py): mounted by the harness
+        # (__main__ --flight); every fault-ring entry and the graceful
+        # stop dump the black box
+        self.flight: Optional["FlightRecorder"] = None
+        # durable checkpoint store (Config.checkpoint_path): every
+        # rejection/fallback inside the store lands in this node's fault
+        # ring and metrics, exactly like a wire fault
+        self._ckpt_store = None
+        self._ckpt_inflight = None  # at most one executor write in flight
+        if self.cfg.checkpoint_path:
+            self._ckpt_store = CheckpointStore(
+                self.cfg.checkpoint_path,
+                metrics=self.metrics,
+                fault=self._note_fault,
+            )
 
     def _now(self) -> float:
         """This node's monotonic clock, with injected skew applied.
@@ -535,16 +563,51 @@ class Hydrabadger:
         return True
 
     def checkpoint(self):
-        """Snapshot durable consensus identity: not ported yet."""
-        raise NotImplementedError(
-            "checkpoints (checkpoint.py) come with the port's process-tier slice")
+        """Snapshot durable consensus identity (a NodeCheckpoint).
+
+        Only meaningful once the network is active (validator/observer);
+        raises otherwise."""
+        if self.dhb is None:
+            raise RuntimeError("nothing to checkpoint: network not active")
+        return NodeCheckpoint.capture(self.secret_key, self.dhb)
 
     @classmethod
-    def from_checkpoint(cls, bind: InAddr, ckpt, config: Optional[Config] = None,
-                        seed: Optional[int] = None, chaos=None, recorder=None) -> "Hydrabadger":
-        """Rebuild a node from a checkpoint: not ported yet."""
-        raise NotImplementedError(
-            "checkpoints (checkpoint.py) come with the port's process-tier slice")
+    def from_checkpoint(
+        cls,
+        bind: InAddr,
+        ckpt,
+        config: Optional[Config] = None,
+        seed: Optional[int] = None,
+        chaos=None,
+        recorder=None,
+    ) -> "Hydrabadger":
+        """Rebuild a node from a NodeCheckpoint (the port's or the JAX
+        package's): same identity and keys, consensus core fast-forwarded
+        to the saved era/epoch.  The node rejoins as validator (or
+        observer if the checkpoint has no key share) instead of re-running
+        DKG — the resume path the reference approximates with start_epoch
+        + JoinPlan (state.rs:298, handler.rs:256-264).  If the network
+        moved past the saved epoch while the node was down, the
+        certified-frontier fast-forward (_maybe_fast_forward) catches it
+        up after reconnect."""
+        node = cls(
+            bind, config, uid=Uid(ckpt.uid), seed=seed,
+            recorder=recorder, chaos=chaos,
+        )
+        node.secret_key = SecretKey.from_bytes(ckpt.secret_key)
+        node.public_key = node.secret_key.public_key()
+        node.dhb = node._wrap_dhb(ckpt.restore_dhb(
+            encrypt=node.cfg.encrypt,
+            coin_mode=node.cfg.coin_mode,
+            verify_shares=node.cfg.verify_shares,
+            rng=node.rng,
+            engine=node.cfg.engine,
+            recorder=node.obs,
+            rbc_variant=node.rbc_variant,
+        ))
+        node.current_epoch = ckpt.epoch
+        node.state = "validator" if ckpt.sk_share else "observer"
+        return node
 
     def new_key_gen_instance(self) -> asyncio.Queue:
         """Start a user-scoped DKG among current validators; events
@@ -579,6 +642,87 @@ class Hydrabadger:
             self._tasks.append(asyncio.create_task(self._connect_outgoing(remote)))
         log.info("%s listening on %s", self.uid, self.bind)
 
+    async def crash(self) -> None:
+        """SIGKILL emulation: tear the node down with NO goodbyes and no
+        graceful pump drain — every socket dies mid-stream exactly as a
+        killed process's would, queued frames and all — and write no
+        checkpoint.  Peers observe reader errors, vote us out or retry,
+        and the node restarts from its last checkpoint (from_checkpoint).
+
+        One in-process concession: in-flight device work is settled and
+        its effects discarded first, because the futures' drop ledger is
+        process-global here, where a real SIGKILL takes the whole
+        process's futures down with it.  A device error raised by that
+        settle is raised once the sockets are closed, not swallowed."""
+        self._stopped.set()
+        errors = []
+        prev, self._kg_prev = self._kg_prev, []
+        with _dkg.plane_device(self.plane_device):
+            for entry in prev:
+                try:
+                    entry[3]()  # materialize; effects discarded with the node
+                except Exception as exc:
+                    errors.append(exc)
+            if self.dhb is not None:
+                try:
+                    self.dhb.drain_async()
+                except Exception as exc:
+                    errors.append(exc)
+        if self._server is not None:
+            self._server.close()
+        for peer in list(self.peers.by_addr.values()):
+            peer.wire.close()  # transport down NOW; no sentinel drain
+        for t in self._tasks:
+            t.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        if errors:
+            raise errors[0]
+
+    def _persist_checkpoint(self, sync: bool = False) -> None:
+        """Write the durable consensus identity to the generational
+        on-disk store (checkpoint.CheckpointStore).  Never raises: a full
+        disk must not take down a committing node — the failure is
+        counted, ringed and logged instead, and the previous generation
+        stays loadable.
+
+        The snapshot is captured synchronously (consensus state mutates
+        under the handler loop) but the disk work — two fsyncs and the
+        rotation — runs on the default executor, so the wire plane never
+        stalls for the fsync latency on a committed epoch.  One write in
+        flight at a time; an epoch arriving while the previous write is
+        still syncing skips its persist (counted), leaving the cadence
+        >= checkpoint_every.  ``sync=True`` (graceful stop) writes
+        inline, AFTER the caller has awaited any write in flight."""
+        if self._ckpt_store is None or self.dhb is None:
+            return
+        try:
+            ckpt = self.checkpoint()
+        except Exception:
+            self._note_fault("checkpoint: persist failed", CHECKPOINT_PERSIST_FAILURES)
+            log.exception("checkpoint capture failed")
+            return
+        if sync:
+            try:
+                self._ckpt_store.save(ckpt)
+            except Exception:
+                self._note_fault("checkpoint: persist failed", CHECKPOINT_PERSIST_FAILURES)
+                log.exception("checkpoint persist failed")
+            return
+        if self._ckpt_inflight is not None and not self._ckpt_inflight.done():
+            self.metrics.counter(CHECKPOINT_PERSISTS_SKIPPED).inc()
+            return
+        fut = asyncio.get_event_loop().run_in_executor(None, self._ckpt_store.save, ckpt)
+        self._ckpt_inflight = fut
+
+        def _done(f):
+            try:
+                f.result()
+            except Exception:
+                self._note_fault("checkpoint: persist failed", CHECKPOINT_PERSIST_FAILURES)
+                log.exception("checkpoint persist failed")
+
+        fut.add_done_callback(_done)
+
     async def stop(self) -> None:
         self._stopped.set()
         # settle any in-flight keygen flushes: device work must never be
@@ -592,6 +736,20 @@ class Hydrabadger:
                 self.dhb.drain_async()
             except Exception:
                 log.exception("drain_async failed during stop")
+        # graceful stop: the LAST act before the transport dies is a final
+        # durable checkpoint, so a restart resumes from the exact stop
+        # epoch.  Await any executor write still in flight first — the
+        # store's rotation is not safe under two concurrent writers.
+        if self._ckpt_inflight is not None and not self._ckpt_inflight.done():
+            try:
+                await self._ckpt_inflight
+            except Exception:
+                pass  # already counted, ringed and logged by its done-callback
+        self._persist_checkpoint(sync=True)
+        if self.flight is not None:
+            # a graceful stop leaves a final flight dump next to the final
+            # checkpoint, inline: the process may exit right after
+            self.flight.dump("stop", sync=True)
         if self._server is not None:
             self._server.close()
         self.peers.close_all()
@@ -627,10 +785,15 @@ class Hydrabadger:
 
     def _note_fault(self, kind: str, counter: Optional[str] = None) -> None:
         """Record a wire-tier detection: fault ring entry (+ optional
-        counter)."""
+        counter).  With a flight recorder mounted (obs/flight.py) every
+        ring entry also triggers a debounced black-box dump, checkpoint
+        corruption rejections included (the store's fault hook routes
+        here)."""
         if counter is not None:
             self.metrics.counter(counter).inc()
         self.fault_log.append((self.uid.bytes.hex()[:8], WireFault(kind)))
+        if self.flight is not None:
+            self.flight.note_fault(kind)
 
     async def _on_incoming(self, reader, writer) -> None:
         addr = writer.get_extra_info("peername") or ("?", 0)
@@ -1944,6 +2107,13 @@ class Hydrabadger:
         self._flush_user_contributions()  # the next epoch just opened
         self.current_epoch = batch.epoch + 1
         self.batch_queue.put_nowait(batch)
+        # durable-checkpoint cadence: epoch-stamped, so a SIGKILL at any
+        # instant restarts at most checkpoint_every epochs stale
+        if (
+            self._ckpt_store is not None
+            and batch.epoch % max(1, self.cfg.checkpoint_every) == 0
+        ):
+            self._persist_checkpoint()
         if batch.join_plan is not None:
             self.peers.wire_to_all(
                 WireMessage("join_plan", batch.join_plan.wire())

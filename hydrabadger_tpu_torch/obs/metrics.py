@@ -1,7 +1,7 @@
 """Process-local counters, gauges with high-water marks and fixed-edge
 histograms: the port's copy of the parts of hydrabadger_tpu/obs/metrics.py
-that the sim, the TCP node, the futures, the sketch plane and the DKG's
-planes use.  `snapshot()` returns one JSON-able dict."""
+that the sim, the TCP node, the futures, the sketch plane, the DKG's
+planes and the checkpoint store use.  `snapshot()` returns one JSON-able dict."""
 from __future__ import annotations
 
 import threading
@@ -67,6 +67,16 @@ TXN_LATENCY_P999_S = "txn_latency_p999_s"
 TXN_SUBMITTED = "txn_submitted"
 TXN_RESUBMITTED = "txn_resubmitted"
 TXN_COMMITTED = "txn_committed"
+
+# durable checkpoints (checkpoint.CheckpointStore and the node's cadence):
+# generations written; a corrupt generation rejected at load; a load served
+# by an older generation; a persist that raised (disk full: the node keeps
+# committing); a persist skipped because the previous write still syncs
+CHECKPOINTS_PERSISTED = "checkpoints_persisted"
+CHECKPOINT_CORRUPT_REJECTED = "checkpoint_corrupt_rejected"
+CHECKPOINT_GENERATION_FALLBACKS = "checkpoint_generation_fallbacks"
+CHECKPOINT_PERSIST_FAILURES = "checkpoint_persist_failures"
+CHECKPOINT_PERSISTS_SKIPPED = "checkpoint_persists_skipped"
 
 
 class Counter:
@@ -139,6 +149,17 @@ class MetricsRegistry:
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+        self._lock = threading.Lock()
+
+    def __getstate__(self):
+        """Picklable (sim checkpoints pickle the owning SimNetwork): the
+        creation lock is process-local, recreated on load."""
+        state = self.__dict__.copy()
+        state.pop("_lock", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
         self._lock = threading.Lock()
 
     def counter(self, name: str) -> Counter:

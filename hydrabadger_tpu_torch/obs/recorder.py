@@ -1,5 +1,5 @@
 """Sans-io span/event recorder: the port's copy of
-hydrabadger_tpu/obs/recorder.py, without checkpoint pickling.
+hydrabadger_tpu/obs/recorder.py.
 
 Protocol cores emit logical events (span begins and ends, instants)
 tagged with what they know (epoch, instance, stage) and never a
@@ -24,8 +24,16 @@ PHASE_INSTANT = "i"
 # the oldest beyond this
 DEFAULT_CAPACITY = 1 << 18
 
+# the clock a recorder's stamping boundary reads: the TCP node's (possibly
+# skewed) wall clock, the sim's perf_counter, or undeclared
+DOMAIN_WALL = "wall"
 DOMAIN_PERF = "perf_counter"
 DOMAIN_UNSPECIFIED = "unspecified"
+
+
+def domain_clock(domain: str) -> Callable[[], float]:
+    """The reader for a declared clock domain (unknown -> wall)."""
+    return time.perf_counter if domain == DOMAIN_PERF else time.time
 
 
 @dataclass
@@ -53,7 +61,19 @@ class Recorder:
         self._pending: List[Event] = []
         self._pending_cap = capacity
         self.clock_domain = clock_domain
-        self.clock = clock or time.perf_counter
+        self.clock = clock or domain_clock(clock_domain)
+
+    def __getstate__(self):
+        """Picklable (sim checkpoints hold the owning SimNetwork's
+        recorder): the clock may be a harness-bound method, so it is
+        dropped and rebuilt from the declared domain on load."""
+        state = self.__dict__.copy()
+        state.pop("clock", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.clock = domain_clock(self.clock_domain)
 
     def emit(self, name: str, phase: str = PHASE_INSTANT, **attrs) -> None:
         if len(self._pending) >= self._pending_cap:

@@ -8,13 +8,17 @@
     python -m hydrabadger_tpu_torch.sim --protocol dhb --gpu-dkg --nodes 16 --epochs 2
     python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 2 --crash 3 \
         --meter-bytes --trace /tmp/sim.jsonl --metrics /tmp/sim-metrics.json
+    python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 100 \
+        --checkpoint /tmp/sim.ckpt --checkpoint-every 25
+    python -m hydrabadger_tpu_torch.sim --resume /tmp/sim.ckpt --epochs 50
 
-The JAX CLI's flags except `--attack`, `--checkpoint`, `--checkpoint-every`
-and `--resume` (their modules are not ported yet), plus `--engine
-{gpu,cpu}` (default gpu, which raises without a card), `--device` (the GPU
-engine's card) and `--gpu-dkg` / `--no-gpu-dkg` (force the DKG's device
-plane on or off for a dhb run; by default the environment's
-HYDRABADGER_GPU_DKG decides).  Exits 0 if and only if agreement held.
+The JAX CLI's flags except `--attack` (the scenario plane is not ported
+yet), plus `--engine {gpu,cpu}` (default gpu, which raises without a card),
+`--device` (the GPU engine's card) and `--gpu-dkg` / `--no-gpu-dkg` (force
+the DKG's device plane on or off for a dhb run; by default the
+environment's HYDRABADGER_GPU_DKG decides).  `--resume` runs the
+checkpointed sim as it was built: its engine, device and DKG plane with it.
+Exits 0 if and only if agreement held.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import argparse
 import json
 import sys
 
+from .. import checkpoint as ckpt_mod
 from ..crypto.engine import GpuEngine
 from ..obs import export
 from ..obs.metrics import default_registry
@@ -45,6 +50,29 @@ def _node_list(spec: str, n: int):
             raise ValueError(f"node index {idx} out of range (n={n})")
         ids.append(f"n{idx:03d}")
     return ids
+
+
+def _config(args, adversary) -> SimConfig:
+    """The SimConfig of a fresh run from the CLI's flags."""
+    engine = GpuEngine(device=args.device) if args.engine == "gpu" else "cpu"
+    return SimConfig(
+        n_nodes=args.nodes,
+        protocol=args.protocol,
+        epochs=args.epochs,
+        txns_per_node_per_epoch=args.txns,
+        txn_bytes=args.txn_bytes,
+        batch_size=args.batch_size,
+        encrypt=args.encrypt,
+        coin_mode=args.coin,
+        verify_shares=args.verify,
+        engine=engine,
+        seed=args.seed,
+        adversary=adversary,
+        trace=bool(args.trace),
+        rbc_variant=args.rbc,
+        meter_bytes=args.meter_bytes,
+        tpu_dkg=args.gpu_dkg,
+    )
 
 
 def main(argv=None) -> int:
@@ -82,6 +110,16 @@ def main(argv=None) -> int:
     p.add_argument("--gpu-dkg", action=argparse.BooleanOptionalAction, default=None,
                    help="force the DKG's device plane (kernel B2) on or off for each epoch")
     p.add_argument("--json", action="store_true", help="emit metrics as JSON")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="write a full-state sim checkpoint when the run finishes")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="also checkpoint every N epochs during the run")
+    p.add_argument("--resume", default=None, metavar="PATH",
+                   help="resume from a sim checkpoint instead of starting fresh (--epochs "
+                        "counts additional epochs; topology, engine and device flags are "
+                        "ignored). WARNING: sim checkpoints restore via pickle — only resume "
+                        "files from your own trust domain, or set HYDRABADGER_CKPT_KEY on both "
+                        "ends to require an authenticated (HMAC) checkpoint")
     args = p.parse_args(argv)
     if args.nodes < 1:
         p.error("--nodes must be >= 1")
@@ -94,6 +132,23 @@ def main(argv=None) -> int:
     faults += [f"--{n}" for n in ("crash", "byzantine") if getattr(args, n) is not None]
     if len(faults) > 1:
         p.error(f"{' and '.join(faults)} are mutually exclusive (one adversary schedule per run)")
+    if args.checkpoint_every and not args.checkpoint:
+        p.error("--checkpoint-every requires --checkpoint")
+    if args.resume and args.trace:
+        # a resumed SimNetwork's cores were built (and pickled) with the
+        # checkpoint's recorder bindings — a fresh recorder could not be
+        # rebound into them, so the flag would silently record nothing
+        p.error("--trace is not supported with --resume (trace the original run instead)")
+    # --crash/--byzantine indices are checked against the sim that will
+    # run: on --resume that is the checkpointed topology, not --nodes
+    n_nodes = args.nodes
+    resumed = None
+    if args.resume:
+        # with a fault flag a fresh adversary replaces the checkpoint's;
+        # without one, a checkpoint that ran adversarially refuses to load
+        # (callables are not serialized)
+        resumed = ckpt_mod.load_sim(args.resume, adversary="pending" if faults else None)
+        n_nodes = resumed.cfg.n_nodes
     adversary = None
     try:
         if args.drop > 0:
@@ -103,33 +158,28 @@ def main(argv=None) -> int:
         elif args.delay > 0:
             adversary = delay_adversary(args.delay, seed=args.seed)
         elif args.crash is not None:
-            adversary = crash_adversary(_node_list(args.crash, args.nodes))
+            adversary = crash_adversary(_node_list(args.crash, n_nodes))
         elif args.byzantine is not None:
-            adversary = byzantine_adversary(_node_list(args.byzantine, args.nodes),
+            adversary = byzantine_adversary(_node_list(args.byzantine, n_nodes),
                                             seed=args.seed)
     except ValueError as exc:
         p.error(str(exc))
-    engine = GpuEngine(device=args.device) if args.engine == "gpu" else "cpu"
-    cfg = SimConfig(
-        n_nodes=args.nodes,
-        protocol=args.protocol,
-        epochs=args.epochs,
-        txns_per_node_per_epoch=args.txns,
-        txn_bytes=args.txn_bytes,
-        batch_size=args.batch_size,
-        encrypt=args.encrypt,
-        coin_mode=args.coin,
-        verify_shares=args.verify,
-        engine=engine,
-        seed=args.seed,
-        adversary=adversary,
-        trace=bool(args.trace),
-        rbc_variant=args.rbc,
-        meter_bytes=args.meter_bytes,
-        tpu_dkg=args.gpu_dkg,
-    )
-    net = SimNetwork(cfg)
-    metrics = net.run(args.epochs)
+    if resumed is not None:
+        net = resumed
+        net.cfg.adversary = net.router.adversary = adversary
+    else:
+        net = SimNetwork(_config(args, adversary))
+    if args.checkpoint and args.checkpoint_every:
+        remaining = args.epochs
+        while remaining > 0:
+            chunk = min(args.checkpoint_every, remaining)
+            metrics = net.run(chunk)
+            remaining -= chunk
+            ckpt_mod.save_sim(args.checkpoint, net)
+    else:
+        metrics = net.run(args.epochs)
+        if args.checkpoint:
+            ckpt_mod.save_sim(args.checkpoint, net)
     if args.trace:
         meta = {"clock_domain": net.recorder.clock_domain}
         write = export.write_jsonl if args.trace.endswith(".jsonl") else export.write_chrome_trace

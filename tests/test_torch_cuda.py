@@ -515,6 +515,41 @@ def test_dhb_era_switch_on_the_card_equals_the_cpu(card):
         assert gpu.nodes[nid].netinfo.pk_set.to_bytes() == host.nodes[nid].netinfo.pk_set.to_bytes()
 
 
+def test_dhb_era_switch_resumed_on_the_card_equals_the_uninterrupted_run(card, tmp_path):
+    """A 4-node removal era switch on the card, snapshotted with save_sim
+    while the DKG is live (the caches then cleared, as in a fresh process),
+    resumes to the uninterrupted run's bytes and launches kernel B2."""
+    from hydrabadger_tpu_torch import checkpoint
+    from hydrabadger_tpu_torch.crypto import dkg, engine
+    from hydrabadger_tpu_torch.sim import network
+
+    def voted():
+        dkg.clear_caches()
+        sim = network.SimNetwork(network.SimConfig(n_nodes=4, protocol="dhb", seed=7, tpu_dkg=True,
+                                                   engine=engine.GpuEngine(device=card)))
+        sim.run(1)
+        for nid in sim.ids[:-1]:
+            sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(sim.ids[-1]))
+        return sim
+
+    straight = voted()
+    straight.run(5)
+    assert all(straight.nodes[nid].era > 0 for nid in straight.ids)
+    sim = voted()
+    sim.run(1)
+    assert any(d.key_gen is not None for d in sim.nodes.values())
+    path = str(tmp_path / "sim.ckpt")
+    checkpoint.save_sim(path, sim)
+    dkg.clear_caches()
+    resumed = checkpoint.load_sim(path)
+    before = fq_torch.launches
+    m = resumed.run(4)
+    assert fq_torch.launches > before and m.agreement_ok
+    for nid in straight.ids:
+        assert resumed.batch_bytes(nid) == straight.batch_bytes(nid)
+        assert resumed.nodes[nid].netinfo.pk_set.to_bytes() == straight.nodes[nid].netinfo.pk_set.to_bytes()
+
+
 @pytest.mark.parametrize("lanes", [1, 2, 50, 1013])
 def test_verify_batch_scalar_muls_on_the_card_equal_the_native_host(card, lanes):
     """The TCP tier's r_i * pk_i terms (GpuEngine._g1_scalar_muls: one B2

@@ -1,5 +1,6 @@
 """The port's sim CLI against the JAX CLI: `--crash`, `--byzantine`,
-`--meter-bytes`, `--trace` and `--metrics`.
+`--meter-bytes`, `--trace`, `--metrics`, `--checkpoint`, `--checkpoint-every`
+and `--resume`.
 
 Both CLIs' `main(argv)` run in-process on the host engine at 4 nodes x 2
 epochs.  Their JSON lines are equal except for the wall-clock keys, the
@@ -87,3 +88,33 @@ def test_fault_flags_exclude_each_other_and_indices_are_checked(capsys):
         assert ours.value.code == theirs.value.code == 2
     err = capsys.readouterr().err
     assert "mutually exclusive" in err and "out of range" in err
+
+
+def test_checkpoint_and_resume_flags_equal_the_jax_cli(capsys, tmp_path):
+    """Each CLI checkpoints every epoch of a 2-epoch run and resumes its own
+    file for 2 more: the same epochs done (2, then 4), agreement, committed
+    transactions, bytes and faults.  (Message counts differ: without a
+    fault flag the JAX CLI takes its native ACS core where it is built.)
+    `--checkpoint-every` without `--checkpoint`, and `--trace` with
+    `--resume`, are refused by both."""
+    lines = {}
+    for tag, main in (("port", cli.main), ("jax", jcli.main)):
+        path = str(tmp_path / f"{tag}.ckpt")
+        assert main(BASE + ["--checkpoint", path, "--checkpoint-every", "1"]) == 0
+        first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert main(["--resume", path, "--epochs", "2", "--json", "--engine", "cpu"]) == 0
+        lines[tag] = (first, json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    keys = ("epochs_done", "agreement_ok", "txns_committed", "bytes_committed", "faults")
+    for ours, theirs in zip(lines["port"], lines["jax"]):
+        assert {k: ours[k] for k in keys} == {k: theirs[k] for k in keys}
+    assert lines["port"][0]["epochs_done"] == 2 and lines["port"][1]["epochs_done"] == 4
+    assert lines["port"][1]["agreement_ok"]
+    for argv in (BASE + ["--checkpoint-every", "1"],
+                 BASE + ["--resume", str(tmp_path / "port.ckpt"), "--trace", "t.jsonl"]):
+        with pytest.raises(SystemExit) as ours:
+            cli.main(argv)
+        with pytest.raises(SystemExit) as theirs:
+            jcli.main(argv)
+        assert ours.value.code == theirs.value.code == 2
+    err = capsys.readouterr().err
+    assert "requires --checkpoint" in err and "not supported with --resume" in err
