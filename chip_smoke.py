@@ -198,11 +198,36 @@ failure:
      launches equal to the verify batches plus the DKG plane's, no other
      kernel; every node's final flight dump loads with reason "stop";
      checkpoints persisted and the wall from the restart to the first batch.
+ 29. the adversarial plane on the card: config 11 (bench.py:985-1068,
+     `attack_spec(4, seed=23)`: qhb, encryption and share checks, seed 23,
+     a warm epoch and 6 timed) attacked and its honest twin, each on
+     `GpuEngine` and the host engine: honest batches, counts, faults,
+     injections and byz_* counters byte-identical across the engines,
+     `verify_scenario` held, attacked/honest epochs/s >= 0.5 on each
+     engine, 0 kernel launches (the reference broadcast makes no device
+     call); the same attacked leg with the low-comm broadcast, counters set
+     to 0 just before: B1's launches equal to those the sketch calls imply
+     (the equivocator's forged codings included), no other kernel, every
+     call shape exact, byte-identical across the engines; a 16-node
+     attacked low-comm leg (f = 5, 2 epochs) on `GpuEngine`: agreement, the
+     contract, B1's launches against the sketch calls; the 4-node dhb era
+     switch voting out an equivocating, keygen-corrupting, replay-flooding
+     node (seed 9) with the DKG plane forced, against the host engine:
+     batches, eras and faults equal, B2's launches by entry equal to the
+     DKG plane's MSMs, folds and channel keys; config 12 (bench.py:1071-
+     1117), the chaos cluster on `GpuEngine` with the DKG plane forced (4
+     nodes, f = 1, full crypto, signed frames, the default wire spec, a
+     crash and a restart from a stale checkpoint, traced, 6 epochs under
+     fault): liveness, agreement, byte-identical recovery and the wire
+     contract (checked inside net/chaos.chaos_cluster), every card verdict
+     and r_i * pk_i equal to the host's replay, B2's launches equal to the
+     verify batches plus the DKG plane's; the commit gap, the catch-up,
+     epochs/s and the timeline fields; the phase's seconds.
 
 The line before the last is one JSON object {"kernels": [...]} (B3's
-entry carries `pairing`, B2's `resume` and `tcp_restart`); the last
-is {"ok": true, "device": {...}}.  Without a card it exits 2 and prints
-no result.
+entry carries `pairing`, B2's `resume`, `tcp_restart`, `attack_era_switch`
+and `chaos_cluster`, B1's `attack`); the last is {"ok": true, "device":
+{...}}.  Without a card it exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -235,6 +260,13 @@ SKETCH_K, SKETCH_COLS = (1, 5, 6, 97, 257, 300), (1, 4, 9, 13, 16, 64)
 DKG_NODES, DKG_SEED, DKG_TXNS = 16, 7, 4
 # config 7 (bench.py:705-760, run at 1024): verified decryption shares
 PAIR_BATCH, PAIR_FORGED, PAIR_SIG = 1024, 8, 64
+# config 11 (bench.py:985-1068): the attacked sim, 4 nodes x (1 warm + 6
+# timed epochs) and 16 nodes x 2 epochs; the attacked era switch's seed
+ATTACK_NODES, ATTACK_SEED, ATTACK_EPOCHS = 4, 23, 6
+ATTACK16_NODES, ATTACK16_EPOCHS = 16, 2
+ERA_ATTACK_SEED = 9
+# config 12 (bench.py:1071-1117): the chaos cluster, epochs under fault
+CHAOS_EPOCHS, CHAOS_DEADLINE_S = 6, 400.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1698,9 +1730,10 @@ def recording_gpu_engine(dev):
     return RecordingGpuEngine
 
 
-def replay_on_the_host(verifies, muls) -> None:
+def replay_on_the_host(verifies, muls, all_pass: bool = True) -> None:
     """Every verify_batch verdict from the card replayed on the host engine,
-    every r_i * pk_i against the native ladder; every honest frame passed."""
+    every r_i * pk_i against the native ladder; with `all_pass` (no frame
+    was forged) every frame passed."""
     from hydrabadger_tpu_torch.crypto import bls12_381 as bls
     from hydrabadger_tpu_torch.crypto import engine as teng
     from hydrabadger_tpu_torch.crypto import native_bls as nb
@@ -1714,7 +1747,8 @@ def replay_on_the_host(verifies, muls) -> None:
                                                    nb.g1_mul_batch(pts, rs)],
               f"r_i * pk_i from B2 ({len(pts)} lanes) != native g1_mul_batch")
     teng._VERIFIED_FRAMES.clear()
-    check(all(all(v) for _i, v in verifies), "an honest testnet frame failed verification")
+    check(not all_pass or all(all(v) for _i, v in verifies),
+          "an honest testnet frame failed verification")
 
 
 def tcp_plane(dev: torch.device, tag: str) -> tuple[dict, dict, int]:
@@ -2241,6 +2275,17 @@ def zero_launches(dev: torch.device) -> None:
     teng.device_verify_calls.clear()
 
 
+def dkg_plane_launches(msm_calls: dict, fold_calls: dict, key_calls: dict) -> int:
+    """B2 launches the DKG plane's recorded MSMs, folds and channel-key
+    batches imply."""
+    from hydrabadger_tpu_torch.ops import msm_torch
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+
+    return (sum(k * msm_torch.launches(b, s) for (b, s, _w), k in msm_calls.items())
+            + sum(k * vt.launches(J, xs) for (J, _K, xs), k in fold_calls.items())
+            + sum(key_calls.values()))
+
+
 def snapshot_classes(raw: bytes) -> set:
     """(module, name) of every class a sim checkpoint's pickle names, read
     by loading it once more through a recording find_class."""
@@ -2461,9 +2506,7 @@ def tcp_restart(dev: torch.device, tag: str, base: int = 15400, cap_s: float = 3
             replay_on_the_host(verifies, muls)
             check(len(muls) == counted > 0, f"the restarted testnet sent {len(muls)} verify batches "
                                             f"to the card (counted {counted}); want the same, > 0")
-            dkg_launches = (sum(k * msm_torch.launches(b, s) for (b, s, _w), k in msm_calls.items())
-                            + sum(k * vt.launches(J, xs) for (J, _K, xs), k in fold_calls.items())
-                            + sum(key_calls.values()))
+            dkg_launches = dkg_plane_launches(msm_calls, fold_calls, key_calls)
             check(sum(others.values()) == 0, f"the restarted testnet launched other kernels: {others}")
             check(len(muls) + dkg_launches == sum(by_kind.values()),
                   f"B2 launches {sum(by_kind.values())} != verify batches {len(muls)} + the DKG "
@@ -2500,6 +2543,238 @@ def tcp_restart(dev: torch.device, tag: str, base: int = 15400, cap_s: float = 3
         "restart_wall_s": wall1,
         "first_run_wall_s": wall0,
     }
+
+
+def adversarial_plane(dev: torch.device, tag: str) -> tuple[dict, dict, dict, int]:
+    """Phase 29: the adversarial plane on the card.  Returns the records for
+    B1's entry (the attacked sims), for B2's (the attacked era switch and
+    the chaos cluster) and the worst error of the sketch holds."""
+    import asyncio
+
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.crypto import engine as teng
+    from hydrabadger_tpu_torch.crypto import homhash
+    from hydrabadger_tpu_torch.net import chaos
+    from hydrabadger_tpu_torch.ops import gf256_torch, homhash_torch, msm_torch
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+    from hydrabadger_tpu_torch.sim import network
+    from hydrabadger_tpu_torch.sim.byzantine import EquivocateRbc
+    from hydrabadger_tpu_torch.sim.scenario import ScenarioSpec, attack_spec
+
+    t_phase = time.perf_counter()
+    gpu = teng.GpuEngine(device=dev)
+
+    def leg(engine, spec, variant, nodes=ATTACK_NODES, timed=ATTACK_EPOCHS):
+        """Config 11's leg (bench.py:1002-1025): qhb, encryption and share
+        checks, seed 23, a warm epoch, then `timed` epochs; the contract
+        verified on an attacked run.  Returns (sim, metrics, epochs/s)."""
+        sim = network.SimNetwork(network.SimConfig(
+            n_nodes=nodes, protocol="qhb", encrypt=True, verify_shares=True, seed=ATTACK_SEED,
+            scenario=spec, rbc_variant=variant, engine=engine, native_acs=False))
+        sim.run(1)
+        warm = sim.total_wall_s
+        m = sim.run(timed)
+        check(m.agreement_ok and m.epochs_done == timed + 1,
+              f"attack leg ({nodes} nodes, {variant}): agreement {m.agreement_ok}, "
+              f"{m.epochs_done} epochs, want {timed + 1}")
+        if spec is not None:
+            sim.verify_scenario()  # every injected kind surfaced, or raise
+        sim.shutdown()
+        return sim, m, timed / (sim.total_wall_s - warm)
+
+    def record(sim, m) -> dict:
+        """What the two engines' runs must share: the honest nodes' batches,
+        the counts, the faults, the injections and the byz_* counters."""
+        return {"batches": {nid: sim.batch_bytes(nid) for nid in sim.honest_ids},
+                "counts": (m.epochs_done, m.messages_delivered, m.txns_committed, m.faults),
+                "faults": [(s, f.node_id, f.kind) for s, f in sim.router.faults],
+                "injected": dict(sim.scenario_log.counts) if sim.scenario_log else {},
+                "byz": {k: v for k, v in sim.metrics.snapshot()["counters"].items()
+                        if k.startswith("byz_")}}
+
+    def launched() -> tuple[int, dict]:
+        """B1's launches, and every other kernel's (B2 summed over its
+        entries), since the counters were set to 0."""
+        by_kind, others = b2_launches(dev)
+        return others.pop("gf256_matmul"), dict(others, fq_point=sum(by_kind.values()))
+
+    # -- 29a. config 11 at 4 nodes, the reference broadcast -----------------
+    spec = attack_spec(ATTACK_NODES, seed=ATTACK_SEED)
+    zero_launches(dev)
+    a_gpu, a_gpu_m, a_gpu_eps = leg(gpu, spec, "bracha")
+    b1, rest = launched()
+    check(b1 == 0 and sum(rest.values()) == 0,
+          f"the attacked bracha sim launched kernels: B1 {b1}, others {rest}")
+    a_cpu, a_cpu_m, a_cpu_eps = leg("cpu", spec, "bracha")
+    h_gpu, h_gpu_m, h_gpu_eps = leg(gpu, None, "bracha")
+    h_cpu, h_cpu_m, h_cpu_eps = leg("cpu", None, "bracha")
+    check(record(a_gpu, a_gpu_m) == record(a_cpu, a_cpu_m),
+          "the attacked bracha sim on the card != the host engine's run")
+    check(record(h_gpu, h_gpu_m) == record(h_cpu, h_cpu_m),
+          "the honest twin on the card != the host engine's run")
+    ratios = {"gpu": a_gpu_eps / h_gpu_eps, "cpu": a_cpu_eps / h_cpu_eps}
+    check(min(ratios.values()) >= 0.5, f"attacked/honest epochs/s below 0.5: {ratios}")
+    injected = dict(a_gpu.scenario_log.counts)
+    byz_faults = {k: v for k, v in record(a_gpu, a_gpu_m)["byz"].items()
+                  if k.startswith("byz_faults_")}
+    print(f"main path: config 11 ({ATTACK_NODES} nodes, f = 1, qhb, bracha, encryption and share "
+          f"checks, seed {ATTACK_SEED}, 1 + {ATTACK_EPOCHS} epochs) attacked and honest, each on "
+          f"GpuEngine and the host engine: honest batches, counts, faults and injections "
+          f"byte-identical across the engines, the contract held, 0 kernel launches; injected "
+          f"{injected}, observed {byz_faults}; epochs/s attacked gpu {a_gpu_eps:.3f} / cpu "
+          f"{a_cpu_eps:.3f}, honest gpu {h_gpu_eps:.3f} / cpu {h_cpu_eps:.3f}, attacked/honest gpu "
+          f"{ratios['gpu']:.3f} cpu {ratios['cpu']:.3f} {tag}")
+
+    # -- 29b. the same leg with the low-comm broadcast: kernel B1 -----------
+    def lowcomm_counted(engine, nodes, timed):
+        homhash_torch.calls.clear()
+        zero_launches(dev)
+        sim, m, eps = leg(engine, attack_spec(nodes, seed=ATTACK_SEED), "lowcomm", nodes, timed)
+        b1, rest = launched()
+        calls = dict(homhash_torch.calls)
+        implied = sum(n * len(gf256_torch.chunks(8, L)) for (_b, L), n in calls.items())
+        check(b1 > 0 and b1 == implied,
+              f"attacked lowcomm sim ({nodes} nodes): B1 launches {b1}, implied by the sketch "
+              f"calls {implied}")
+        check(sum(rest.values()) == 0, f"the attacked lowcomm sim launched other kernels: {rest}")
+        forged = sum(len(s._alt_lc) for nid in sim.ids if nid not in sim.honest_ids
+                     for s in sim.nodes[nid]._strategies if isinstance(s, EquivocateRbc))
+        return sim, m, eps, b1, calls, forged
+
+    lc_gpu, lc_gpu_m, lc_gpu_eps, lc_b1, lc_calls, lc_forged = lowcomm_counted(
+        gpu, ATTACK_NODES, ATTACK_EPOCHS)
+    lc_cpu, lc_cpu_m, lc_cpu_eps = leg("cpu", spec, "lowcomm")
+    check(record(lc_gpu, lc_gpu_m) == record(lc_cpu, lc_cpu_m),
+          "the attacked lowcomm sim on the card != the host engine's run")
+    check(lc_forged > 0, "the equivocating node forged no second coding")
+    worst = 0
+    for (B, L), _n in sorted(lc_calls.items()):  # every call shape, exact
+        op = gf256_torch.operand(homhash.matrix_T(b"attack", L), dev)
+        rows = torch.randint(0, 256, (B, L), dtype=torch.uint8, device=dev)
+        got = gf256_torch.gf_matmul(op, rows.T)
+        want = gf256_torch.gf_matmul_bits_plain(op, rows.T)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(got, want))
+        check(torch.equal(got, want),
+              f"gf256_matmul != plain at the attacked run's sketch (8,{L}) x {B}")
+    t16 = time.perf_counter()
+    big, big_m, big_eps, big_b1, big_calls, big_forged = lowcomm_counted(
+        gpu, ATTACK16_NODES, ATTACK16_EPOCHS - 1)
+    big_s = time.perf_counter() - t16
+    check(len(big.honest_ids) == ATTACK16_NODES - (ATTACK16_NODES - 1) // 3,
+          f"16-node attack: {len(big.honest_ids)} honest nodes")
+    print(f"config 11 with the low-comm broadcast, {ATTACK_NODES} nodes: honest batches, counts, "
+          f"faults and injections byte-identical across the engines; B1 {lc_b1} launches == those "
+          f"{sum(lc_calls.values())} sketch calls imply ({lc_forged} of them the equivocator's "
+          f"forged codings), no other kernel, every call shape exact; epochs/s gpu "
+          f"{lc_gpu_eps:.3f}, cpu {lc_cpu_eps:.3f}; {ATTACK16_NODES} nodes, f = "
+          f"{(ATTACK16_NODES - 1) // 3}, "
+          f"{ATTACK16_EPOCHS} epochs on GpuEngine: agreement, the contract held, B1 {big_b1} "
+          f"launches == those {sum(big_calls.values())} sketch calls imply ({big_forged} forged), "
+          f"{big_s:.1f} s, injected {dict(big.scenario_log.counts)} {tag}")
+
+    # -- 29c. the dhb era switch under attack, the DKG plane forced ----------
+    def era_leg(engine, flag):
+        dkg.clear_caches()
+        scen = ScenarioSpec(name="era", seed=ERA_ATTACK_SEED,
+                            byzantine=((3, ("equivocate", "dkg_corrupt", "replay_flood")),))
+        sim = network.SimNetwork(network.SimConfig(
+            n_nodes=4, protocol="dhb", epochs=4, seed=ERA_ATTACK_SEED, engine=engine,
+            tpu_dkg=flag, scenario=scen, native_acs=False))
+        for nid in sim.honest_ids:
+            sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(sim.ids[3]))
+        t0 = time.perf_counter()
+        m = sim.run()
+        wall = time.perf_counter() - t0
+        check(m.agreement_ok and m.epochs_done == 4, f"attacked era switch: {m.epochs_done} epochs")
+        check(all(sim.nodes[nid].era > 0 for nid in sim.honest_ids),
+              "the attacked era switch did not complete")
+        sim.verify_scenario()
+        sim.shutdown()
+        rec = record(sim, m)
+        rec["eras"] = {nid: sim.nodes[nid].era for nid in sim.honest_ids}
+        rec["dhb"] = {nid: [(b.era, b.epoch, b.change) for b in sim.nodes[nid].batches]
+                      for nid in sim.honest_ids}
+        return rec, wall
+
+    zero_launches(dev)
+    e_gpu, e_gpu_s = era_leg(gpu, True)
+    e_by_kind, e_others = b2_launches(dev)
+    e_dkg = dkg_plane_launches(dict(msm_torch.calls), dict(vt.calls), dict(dkg.channel_key_calls))
+    e_cpu, e_cpu_s = era_leg("cpu", False)
+    check(e_gpu == e_cpu, "the attacked era switch on the card != the host engine's run")
+    check(all(v > 0 for v in e_by_kind.values()) and sum(e_by_kind.values()) == e_dkg > 0,
+          f"attacked era switch: B2 launches {e_by_kind} != the DKG plane's {e_dkg}")
+    check(sum(e_others.values()) == 0, f"the attacked era switch launched other kernels: {e_others}")
+    print(f"the dhb era switch under attack (4 nodes, seed {ERA_ATTACK_SEED}, the equivocating, "
+          f"keygen-corrupting, replay-flooding node voted out), the DKG plane forced: honest "
+          f"batches, eras, faults and injections byte-identical across the engines, the contract "
+          f"held; B2 launches by entry {e_by_kind} == the DKG plane's {e_dkg}, no other kernel; "
+          f"wall gpu {e_gpu_s:.2f} s, cpu {e_cpu_s:.2f} s; injected {e_gpu['injected']} {tag}")
+
+    # -- 29d. config 12: the chaos cluster on the card -----------------------
+    Rec = recording_gpu_engine(dev)
+    Rec.verifies.clear()
+    Rec.muls.clear()
+    teng._VERIFIED_FRAMES.clear()
+    dkg.clear_caches()
+    zero_launches(dev)
+    os.environ[dkg.GPU_DKG_ENV] = "1"
+    t0 = time.perf_counter()
+    try:
+        row = asyncio.run(chaos.chaos_cluster(
+            n=4, f_byz=1, epochs=CHAOS_EPOCHS, base_port=15450, crash=True, trace=True,
+            deadline_s=CHAOS_DEADLINE_S, engine="gpu-recording"))
+    finally:
+        os.environ.pop(dkg.GPU_DKG_ENV, None)
+    chaos_s = time.perf_counter() - t0
+    c_by_kind, c_others = b2_launches(dev)
+    c_dkg = dkg_plane_launches(dict(msm_torch.calls), dict(vt.calls), dict(dkg.channel_key_calls))
+    verifies, muls = list(Rec.verifies), list(Rec.muls)
+    check(row["agreement_ok"] and row["contract_ok"] and row["epochs"] >= CHAOS_EPOCHS,
+          f"chaos cluster: {row}")
+    check(row["recovery_catchup_s"] is not None, "the crashed node never caught up")
+    check(row["byz_injected"].get("sig_corrupt", 0) > 0 and row["detections"]["wire_sig_rejected"] > 0,
+          "no signature corruption injected or detected")
+    replay_on_the_host(verifies, muls, all_pass=False)
+    check(len(muls) > 0 and len(muls) + c_dkg == sum(c_by_kind.values()),
+          f"chaos cluster: B2 launches {c_by_kind} != verify batches {len(muls)} + the DKG "
+          f"plane's {c_dkg}")
+    check(sum(c_others.values()) == 0, f"the chaos cluster launched other kernels: {c_others}")
+    rejected = sum(not v for _i, vs in verifies for v in vs)
+    keys = ("commit_gap_max_s", "recovery_catchup_s", "epochs_per_sec", "wall_s", "epochs",
+            "crash_at_epoch", "epoch_critical_stage", "straggler_node", "msg_latency_p50_s",
+            "msg_latency_p99_s", "commit_spread_max_s", "epochs_attributed", "bytes_per_epoch")
+    print(f"main path: config 12's chaos cluster on the card (4 nodes, f = 1, full crypto, signed "
+          f"frames, the default wire spec, a crash {row['crash_down_s']} s down and a restart from "
+          f"a stale checkpoint, traced, {CHAOS_EPOCHS} epochs): liveness, agreement, byte-identical "
+          f"recovery and the wire contract held; {len(verifies)} verify_batch calls on the card "
+          f"({rejected} frames rejected) replayed on the host with equal verdicts, every r_i * pk_i "
+          f"== native; B2 launches by entry {c_by_kind} == {len(muls)} verify batches + the DKG "
+          f"plane's {c_dkg}, no other kernel; {json.dumps({k: row[k] for k in keys})}; injected "
+          f"{row['byz_injected']}, detections {row['detections']}; {chaos_s:.1f} s {tag}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 29: {phase_s:.1f} s {tag}")
+    b1_rec = {
+        "per": f"config 11 attacked, {ATTACK_NODES} nodes x 1 + {ATTACK_EPOCHS} epochs, lowcomm",
+        "launches": lc_b1, "sketch_calls": sum(lc_calls.values()), "forged_codings": lc_forged,
+        "gpu_epochs_per_s": lc_gpu_eps, "cpu_epochs_per_s": lc_cpu_eps,
+        "bracha": {"launches": 0, "attacked_gpu_epochs_per_s": a_gpu_eps,
+                   "attacked_cpu_epochs_per_s": a_cpu_eps, "honest_gpu_epochs_per_s": h_gpu_eps,
+                   "honest_cpu_epochs_per_s": h_cpu_eps, "attacked_over_honest": ratios,
+                   "injected": injected, "byz_faults": byz_faults},
+        "lowcomm_16": {"launches": big_b1, "sketch_calls": sum(big_calls.values()),
+                       "forged_codings": big_forged, "wall_s": big_s, "epochs_per_s": big_eps},
+    }
+    era_rec = {"per": f"the 4-node dhb era switch under attack, seed {ERA_ATTACK_SEED}",
+               "launches": sum(e_by_kind.values()), "launches_by_entry": e_by_kind,
+               "gpu_wall_s": e_gpu_s, "cpu_wall_s": e_cpu_s}
+    chaos_rec = {"per": f"config 12's chaos cluster, {CHAOS_EPOCHS} epochs under fault",
+                 "launches": sum(c_by_kind.values()), "launches_by_entry": c_by_kind,
+                 "verify_batches": len(muls), "frames_rejected": rejected, "wall_s": chaos_s,
+                 **{k: row[k] for k in keys}, "phase_s": phase_s}
+    return b1_rec, era_rec, chaos_rec, worst
 
 
 def main() -> int:
@@ -2723,6 +2998,10 @@ def main() -> int:
     # -- 28. the process tier on the card ----------------------------------
     fq_entry["resume"] = era_switch_resume(dev, tag, DKG_NODES)
     fq_entry["tcp_restart"] = tcp_restart(dev, tag)
+    # -- 29. the adversarial plane on the card ------------------------------
+    kernels[0]["attack"], fq_entry["attack_era_switch"], fq_entry["chaos_cluster"], attack_err = \
+        adversarial_plane(dev, tag)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], attack_err)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

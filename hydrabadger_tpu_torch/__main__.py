@@ -21,12 +21,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import functools
 import random
 import sys
 from typing import List
 
-from .crypto.engine import GpuEngine, register_engine
+from .crypto.engine import named_engine
 from .net.node import Config, Hydrabadger
 from .obs import logging as obs_logging
 from .utils.ids import InAddr, OutAddr
@@ -255,10 +254,7 @@ def main(argv=None) -> int:
             print(f"#{block.index} nonce={block.nonce} hash={block.hash}")
         return 0
 
-    engine = args.engine
-    if engine == "gpu" and args.device != "cuda":
-        engine = f"gpu@{args.device}"
-        register_engine(engine, functools.partial(GpuEngine, device=args.device))
+    engine = named_engine(args.engine, args.device)
     cfg = Config(
         txn_gen_count=args.txn_gen_count,
         txn_gen_interval_ms=args.txn_gen_interval,

@@ -1,6 +1,6 @@
 """Shared types for the pure sans-io consensus cores (the port's copy of
-hydrabadger_tpu/consensus/types.py, without the scenario plane's fault
-taxonomy).
+hydrabadger_tpu/consensus/types.py, the scenario plane's fault taxonomy
+included).
 
 Every protocol exposes methods returning a `Step`, the contract mirrored
 from hbbft's `CpStep`: a batch of outbound `TargetedMessage`s, any
@@ -57,6 +57,42 @@ class TargetedMessage(Generic[N]):
 class Fault(Generic[N]):
     node_id: N
     kind: str
+
+
+# -- Byzantine fault-kind taxonomy ------------------------------------------
+#
+# Canonical tokens naming each injectable fault class of the adversarial
+# scenario plane (sim/scenario.py, sim/byzantine.py, net/chaos.py).  The
+# cores' fault_log kinds stay free-form protocol strings ("broadcast: ...");
+# these tokens name the INJECTION side, and the scenario verifier
+# (sim/scenario.py:FAULT_OBSERVABLES) maps every token to the observable
+# that proves the system noticed or absorbed it.
+
+BYZ_EQUIVOCATION = "equivocation"  # conflicting RBC Value/Echo to disjoint sets
+BYZ_GARBAGE_SHARE = "garbage_share"  # attacker-chosen G1 point as a tdec share
+BYZ_WITHHELD_SHARE = "withheld_share"  # own decryption share never sent
+BYZ_DKG_CORRUPT = "dkg_corrupt"  # malformed Part/Ack in committed contributions
+BYZ_REPLAY_FLOOD = "replay_flood"  # other senders' frames replayed as our own
+BYZ_KEYGEN_WITHHOLD = "keygen_withhold"  # own DKG Parts/Acks never shipped
+BYZ_LINK_DROP = "link_drop"  # per-link loss (breaks the reliable-delivery model)
+BYZ_LINK_DUP = "link_dup"  # per-link duplication
+BYZ_LINK_DELAY = "link_delay"  # per-link hold/reorder
+BYZ_PARTITION = "partition"  # cross-group traffic held until heal
+# wire-tier-only kinds (net/chaos.py): injectable at the real socket
+# boundary, unreachable from the sim router's lossless message plane
+BYZ_LINK_RESET = "link_reset"  # connection torn down mid-stream (TCP RST)
+BYZ_SIG_CORRUPT = "sig_corrupt"  # frame signature bit-flipped in flight
+BYZ_CRASH = "crash_restart"  # validator killed and restarted from checkpoint
+# process-tier-only kind: injectable only where each validator is a real OS
+# process whose environment a supervisor owns
+BYZ_CLOCK_SKEW = "clock_skew"  # per-node wall-clock offset/drift injected
+
+BYZ_KINDS = frozenset({
+    BYZ_EQUIVOCATION, BYZ_GARBAGE_SHARE, BYZ_WITHHELD_SHARE, BYZ_DKG_CORRUPT,
+    BYZ_REPLAY_FLOOD, BYZ_KEYGEN_WITHHOLD, BYZ_LINK_DROP, BYZ_LINK_DUP,
+    BYZ_LINK_DELAY, BYZ_PARTITION, BYZ_LINK_RESET, BYZ_SIG_CORRUPT, BYZ_CRASH,
+    BYZ_CLOCK_SKEW,
+})
 
 
 @dataclass

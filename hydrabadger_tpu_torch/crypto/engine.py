@@ -40,6 +40,7 @@ without a card; the host engine, the oracle, is had only by its name.
 from __future__ import annotations
 
 import collections
+import functools
 import hashlib
 import time
 from functools import lru_cache
@@ -581,3 +582,15 @@ def register_engine(name: str, cls: type) -> None:
     """Extension point for tests and other backends."""
     _REGISTRY[name] = cls
     _INSTANCES.pop(name, None)
+
+
+def named_engine(engine: str, device: str = "cuda") -> str:
+    """The registry name of `engine` ("gpu" | "cpu") on `device`: "gpu" on
+    a card other than "cuda" registers a GpuEngine bound to it as
+    "gpu@<device>"; the host engine ignores the device."""
+    if engine == "gpu" and device != "cuda":
+        name = f"gpu@{device}"
+        if name not in _REGISTRY:
+            register_engine(name, functools.partial(GpuEngine, device=device))
+        return name
+    return engine

@@ -38,8 +38,10 @@ Its seams:
     byte for byte.  `crash()` settles the in-flight keygen flushes and
     `drain_async` and raises a device error once the sockets are closed,
     where the JAX handler discards it.
-  - Not ported yet (the process tier's chaos and SLO planes): a chaos
-    plane and `set_slo()` raise NotImplementedError.
+  - The wire chaos plane (`chaos=`, net/chaos.ChaosPlane) wraps every
+    stream the node opens in its fault injector, and `set_slo()` installs
+    a latency SLO whose violations land in the fault ring, as in the JAX
+    node.
 """
 from __future__ import annotations
 
@@ -57,7 +59,9 @@ from ..crypto import dkg as _dkg
 from ..crypto.dkg import Ack, Part, SyncKeyGen
 from ..crypto.engine import get_engine
 from ..crypto.threshold import PublicKey, SecretKey, Signature
-from ..obs.latency import STAGE_ADMITTED, STAGE_COMMITTED, STAGE_PROPOSED, TxnLifecycle, txn_id
+from ..obs.latency import (
+    STAGE_ADMITTED, STAGE_COMMITTED, STAGE_PROPOSED, SloTracker, TxnLifecycle, txn_id,
+)
 from ..obs.logging import get_logger
 from ..obs.metrics import (
     CHECKPOINT_PERSIST_FAILURES,
@@ -335,11 +339,10 @@ class Hydrabadger:
         self.rbc_variant = resolve_rbc_variant(
             getattr(self.cfg, "rbc_variant", None)
         )
-        # the wire-tier chaos plane belongs to the process tier's chaos
-        # slice, not ported yet
-        if chaos is not None:
-            raise NotImplementedError(
-                "the chaos plane (net/chaos.py) comes with the port's process-tier slice")
+        # wire-tier chaos plane (net/chaos.ChaosPlane, duck-typed so this
+        # module never imports net/chaos): when set, every stream this node
+        # opens is wrapped in the plane's fault injector
+        self.chaos = chaos
         # hbtrace: the recorder is THE stamping boundary for this node's
         # consensus cores (handler poll = one stamp); metrics registry
         # is per-node so multi-node harnesses don't cross streams
@@ -352,6 +355,8 @@ class Hydrabadger:
         # inline on wall_now() — the same skewed-wall clock every other
         # feed reads, so the aggregator's alignment genuinely applies
         self.txn_lifecycle = TxnLifecycle()
+        # SLO evaluation is opt-in per harness: install via set_slo()
+        self._slo_tracker: Optional[SloTracker] = None
         # seed=None must mean real entropy: the uid is broadcast in every
         # hello frame, so deriving the RNG (hence the identity secret key
         # and encryption randomness) from it would be publicly replayable.
@@ -524,9 +529,10 @@ class Hydrabadger:
         return True
 
     def set_slo(self, spec) -> None:
-        """Latency SLO tracking (obs/latency.SloTracker): not ported yet."""
-        raise NotImplementedError(
-            "SLO tracking (obs/latency.SloTracker) comes with the port's process-tier slice")
+        """Install a latency SLO (obs/latency.SloSpec), evaluated at every
+        committed batch; a burn-rate violation is a fault-ring entry and an
+        slo_violations count.  None removes it."""
+        self._slo_tracker = SloTracker(spec) if spec is not None else None
 
     def submit_transaction(self, txn: bytes) -> bool:
         """Inject a raw transaction (reference Transaction relay).
@@ -765,8 +771,15 @@ class Hydrabadger:
     # -- connection plumbing ------------------------------------------------
 
     def _new_stream(self, reader, writer) -> WireStream:
-        """Build this node's side of a connection."""
-        stream = WireStream(reader, writer, self.secret_key, self.cfg.wire_sign)
+        """Build this node's side of a connection: with a chaos plane
+        attached, the plane's fault injector (link drops, delays,
+        duplicates, resets, partition holds applied at THIS socket
+        boundary)."""
+        if self.chaos is not None:
+            stream = self.chaos.wrap_stream(reader, writer, self.secret_key, self.cfg.wire_sign,
+                                            self.uid.bytes)
+        else:
+            stream = WireStream(reader, writer, self.secret_key, self.cfg.wire_sign)
         # bandwidth accounting: framed bytes counted at the stream,
         # attributed to this node's registry
         stream.metrics = self.metrics
@@ -780,7 +793,9 @@ class Hydrabadger:
     def _wrap_dhb(self, dhb):
         """Hook: every path that installs a consensus core routes the
         instance through here (bootstrap DKG, observer join, checkpoint
-        restore, fast-forward).  The node is honest — identity."""
+        restore, fast-forward).  The node is honest — identity;
+        net/chaos.ByzantineHydrabadger wraps the core in the sim's
+        ByzantineNode strategy pipeline."""
         return dhb
 
     def _note_fault(self, kind: str, counter: Optional[str] = None) -> None:
@@ -2003,7 +2018,8 @@ class Hydrabadger:
         (codec-tuple contributions carry per-txn identity; opaque
         payloads close as single txns), mirror lifecycle counts and the
         txn_latency_* percentile gauges from this node's e2e sketch,
-        (SLO evaluation comes with the process tier)."""
+        and evaluate the installed SLO — a burn-rate violation is a
+        fault-ring entry, not a log line."""
         from ..utils import codec
 
         lc = self.txn_lifecycle
@@ -2020,6 +2036,7 @@ class Hydrabadger:
                 pass  # opaque payload: closes as a single txn below
             for t in txns if txns is not None else [bytes(payload)]:
                 lc.note_stage(txn_id(t), STAGE_COMMITTED)
+        before = len(lc.samples)
         lc.stamp(self.wall_now())
         # lifetime values mirrored with set, not inc: the lifecycle
         # holds the cumulative truth (the meter_bytes idiom)
@@ -2034,6 +2051,12 @@ class Hydrabadger:
             self.metrics.gauge("txn_latency_p999_s").track(
                 round(p["p999"], 6)
             )
+        if self._slo_tracker is not None:
+            for v in lc.samples[before:]:
+                self._slo_tracker.observe(v)
+            msg = self._slo_tracker.check()
+            if msg is not None:
+                self._note_fault(msg, "slo_violations")
 
     def _on_batch(self, batch: DhbBatch) -> None:
         if self.keygen_outbox and self.dhb.era != self.cfg.start_epoch:

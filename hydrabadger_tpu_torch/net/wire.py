@@ -33,9 +33,9 @@ from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 from ..crypto.threshold import PublicKey, SecretKey, Signature
+from ..obs.aggregate import consensus_tags
 from ..obs.metrics import BYTES_RX_BY_KIND_PREFIX, BYTES_RX_TOTAL, BYTES_TX_TOTAL
 from ..obs.recorder import NULL_RECORDER
-from ..sim.router import consensus_tags
 from ..utils import codec
 from ..utils.ids import Uid
 

@@ -1,9 +1,9 @@
 """Trace exporters: JSONL (one event per line) and Chrome trace events
 (the ``traceEvents`` JSON array Perfetto and chrome://tracing load).
 
-The port's copy of the writers of hydrabadger_tpu/obs/export.py (the node
-CLI's --trace); the readers and the merge gate stay with the JAX package's
-cluster aggregator.
+The port's copy of hydrabadger_tpu/obs/export.py: the writers (both CLIs'
+--trace), the readers and the merge gate of the cluster aggregator
+(obs/aggregate.py).
 
 The mapping is deliberately mechanical: a recorder event's ``name``/``phase``/``t``/attrs become the Chrome
 event's ``name``/``ph``/``ts`` (microseconds)/``args``.  Track layout:
@@ -26,19 +26,44 @@ that never reached an I/O boundary never became externally visible.
 Traces carry a **clock-domain header**: the stamping boundaries use
 different clocks (the sim router stamps ``perf_counter``, the TCP handler
 poll a — possibly skewed — wall clock), so a JSONL dump's first line is a
-``trace_meta`` metadata record declaring the domain.
+``trace_meta`` metadata record declaring the domain, and
+:func:`require_uniform_domain` is the merge gate: combining feeds from
+different domains without anchor alignment raises
+:class:`ClockDomainMismatch` instead of silently interleaving timelines
+with unrelated origins.
 """
 from __future__ import annotations
 
 import json
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
-from .recorder import Event
+from .recorder import DOMAIN_UNSPECIFIED, Event
 
 # stable thread ordering for the known stages; unknown names follow
 _STAGE_ORDER = ("epoch", "rbc", "ba", "subset", "tdec")
 
 TRACE_META = "trace_meta"
+
+
+class ClockDomainMismatch(ValueError):
+    """Feeds from different clock domains offered for an unaligned merge:
+    perf_counter origins are arbitrary per process, so the merge would be
+    meaningless."""
+
+
+def require_uniform_domain(domains: Iterable[Optional[str]]) -> str:
+    """The merge gate: every feed must declare the SAME clock domain
+    (unspecified counts as its own domain).  Returns the common domain;
+    raises :class:`ClockDomainMismatch` otherwise.  Aggregators that can
+    align feeds from committed-batch anchors (obs/aggregate.py) catch this
+    and align instead, and say so in their report."""
+    seen = {d or DOMAIN_UNSPECIFIED for d in domains}
+    if len(seen) > 1:
+        raise ClockDomainMismatch(
+            "refusing to merge traces from mixed clock domains "
+            f"{sorted(seen)} without anchor alignment"
+        )
+    return next(iter(seen)) if seen else DOMAIN_UNSPECIFIED
 
 
 def write_jsonl(
@@ -59,6 +84,29 @@ def write_jsonl(
             fh.write(json.dumps(ev.as_dict(), default=repr) + "\n")
             n += 1
     return n
+
+
+def read_jsonl(path: str) -> List[Event]:
+    return read_feed(path)[1]
+
+
+def read_feed(path: str) -> Tuple[dict, List[Event]]:
+    """Read one JSONL trace: (meta, events).  Metadata records ("M" phase)
+    fold into meta; events keep their order."""
+    meta: dict = {}
+    out: List[Event] = []
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            d = json.loads(line)
+            if d.get("ph") == "M":
+                if d.get("name") == TRACE_META:
+                    meta.update({k: v for k, v in d.items() if k not in ("name", "ph")})
+                continue
+            out.append(Event(name=d.pop("name"), phase=d.pop("ph"), t=d.pop("t"), attrs=d))
+    return meta, out
 
 
 def chrome_trace_events(events: Iterable[Event]) -> List[dict]:
@@ -135,3 +183,9 @@ def _jsonable(v):
     if isinstance(v, (str, int, float, bool)) or v is None:
         return v
     return repr(v)
+
+
+def read_chrome_trace(path: str) -> List[dict]:
+    with open(path) as fh:
+        doc = json.load(fh)
+    return doc["traceEvents"] if isinstance(doc, dict) else doc

@@ -1,20 +1,25 @@
-"""Transaction latency, submit to committed: the port's copy of the parts
-of hydrabadger_tpu/obs/latency.py that the queueing core and the sim use.
+"""Transaction latency, submit to committed: the port's copy of
+hydrabadger_tpu/obs/latency.py.
 
 * `LatencySketch`: a DDSketch-style log-bucketed quantile sketch with
   relative-error-bounded quantiles in bounded memory, mergeable by adding
-  buckets.
+  buckets; `scale()` shifts the distribution by a clock-rate factor (drift
+  alignment before a cross-node merge, `merge_sketch_dicts`).
 * `TxnLifecycle`: the per-node ledger.  The sans-io core calls
   `note_stage(txn_id, stage)` with no timestamp; the I/O boundary calls
   `submit(txn_id, t)` and `stamp(t)`, which resolves the buffered notes to
   its own moment.  A committed note closes the record into the sketches.
+* `SloSpec` / `SloTracker`: a target percentile, a threshold and a burn-rate
+  window, evaluated continuously; the caller pushes a violation into its
+  fault ring.
 """
 from __future__ import annotations
 
 import hashlib
 import math
-from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from collections import OrderedDict, deque
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 DEFAULT_REL_ERR = 0.01
 DEFAULT_MAX_BUCKETS = 2048
@@ -45,9 +50,13 @@ def txn_id(txn: bytes) -> str:
 class LatencySketch:
     """Relative-error quantile sketch: `index = ceil(log_gamma(v))` with
     `gamma = (1 + rel_err) / (1 - rel_err)`; over `max_buckets` the lowest
-    two buckets collapse."""
+    two buckets collapse.  The lowest index is cached (`_lo`, None when
+    unknown), so a full sketch absorbs a value below its lowest bucket in
+    O(1): the collapse would fold that value's new bucket straight into the
+    lowest one."""
 
     _ZERO_EPS = 1e-9
+    _lo: Optional[int] = None
 
     def __init__(self, rel_err: float = DEFAULT_REL_ERR,
                  max_buckets: int = DEFAULT_MAX_BUCKETS):
@@ -64,11 +73,16 @@ class LatencySketch:
         self.min = math.inf
         self.max = -math.inf
 
+    def _lowest(self) -> int:
+        if self._lo is None:
+            self._lo = min(self.buckets)
+        return self._lo
+
     def _trim(self) -> None:
         while len(self.buckets) > self.max_buckets:
-            spill = self.buckets.pop(min(self.buckets))
-            nxt = min(self.buckets)
-            self.buckets[nxt] = self.buckets.get(nxt, 0) + spill
+            spill = self.buckets.pop(self._lowest())
+            self._lo = nxt = min(self.buckets)
+            self.buckets[nxt] += spill
 
     def add(self, v: float, n: int = 1) -> None:
         v = float(v)
@@ -80,7 +94,16 @@ class LatencySketch:
             self.zero_count += n
             return
         idx = math.ceil(math.log(v) / self._log_gamma)
-        self.buckets[idx] = self.buckets.get(idx, 0) + n
+        b = self.buckets
+        if idx in b:
+            b[idx] += n
+            return
+        if len(b) >= self.max_buckets and idx < self._lowest():
+            b[self._lo] += n  # what the collapse of its new bucket would do
+            return
+        if self._lo is not None and idx < self._lo:
+            self._lo = idx
+        b[idx] = n
         self._trim()
 
     def merge(self, other: "LatencySketch") -> None:
@@ -93,7 +116,26 @@ class LatencySketch:
         self.max = max(self.max, other.max)
         for idx, c in other.buckets.items():
             self.buckets[idx] = self.buckets.get(idx, 0) + c
+        self._lo = None
         self._trim()
+
+    def scale(self, factor: float) -> "LatencySketch":
+        """Multiply the whole distribution by `factor`: a duration read on a
+        clock running at rate r is r times the true one, and `scale(1/r)`
+        restores it.  Log buckets make this an index shift (quantized to one
+        bucket, within `rel_err`)."""
+        if factor <= 0.0:
+            raise ValueError("scale factor must be positive")
+        if factor != 1.0 and self.buckets:
+            shift = int(round(math.log(factor) / self._log_gamma))
+            self.buckets = {idx + shift: c for idx, c in self.buckets.items()}
+            self._lo = None
+        if factor != 1.0:
+            self.sum *= factor
+            if self.count:
+                self.min = self.min * factor
+                self.max = self.max * factor
+        return self
 
     def quantile(self, q: float) -> Optional[float]:
         """The q-quantile's estimate (the bucket's geometric midpoint,
@@ -125,6 +167,89 @@ class LatencySketch:
             "max": self.max if self.count else None,
             "buckets": {str(idx): c for idx, c in sorted(self.buckets.items())},
         }
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "LatencySketch":
+        sketch = cls(rel_err=float(d.get("rel_err", DEFAULT_REL_ERR)))
+        sketch.zero_count = int(d.get("zero", 0))
+        sketch.count = int(d.get("count", 0))
+        sketch.sum = float(d.get("sum", 0.0))
+        mn, mx = d.get("min"), d.get("max")
+        sketch.min = math.inf if mn is None else float(mn)
+        sketch.max = -math.inf if mx is None else float(mx)
+        sketch.buckets = {int(idx): int(c) for idx, c in (d.get("buckets") or {}).items()}
+        sketch._lo = None
+        return sketch
+
+
+def merge_sketch_dicts(feeds: Iterable[Mapping],
+                       rates: Optional[Mapping[str, float]] = None) -> Dict[str, LatencySketch]:
+    """Fold per-node `{span: sketch_dict}` feeds (each optionally tagged with
+    its node id under "node") into one sketch per span, undoing each node's
+    clock rate first: offsets cancel inside a duration, rates scale it."""
+    merged: Dict[str, LatencySketch] = {}
+    for feed in feeds:
+        node = feed.get("node") if isinstance(feed, Mapping) else None
+        rate = float((rates or {}).get(node, 1.0)) if node is not None else 1.0
+        for span, payload in feed.items():
+            if span == "node" or not isinstance(payload, Mapping):
+                continue
+            sketch = LatencySketch.from_dict(payload)
+            if rate not in (0.0, 1.0):
+                sketch.scale(1.0 / rate)
+            if span in merged:
+                merged[span].merge(sketch)
+            else:
+                merged[span] = sketch
+    return merged
+
+
+@dataclass(frozen=True)
+class SloSpec:
+    """"The `percentile` of submit-to-committed latency stays under
+    `threshold_s`", judged over a sliding `window` of commits.  The error
+    budget is 1 - percentile; a burn rate (the windowed over-threshold
+    fraction over the budget) above 1 is a violation."""
+
+    name: str = "txn_latency"
+    percentile: float = 0.99
+    threshold_s: float = 5.0
+    window: int = 256
+    min_samples: int = 16
+
+    @property
+    def budget(self) -> float:
+        return max(1.0 - self.percentile, 1e-9)
+
+
+class SloTracker:
+    """Continuous SLO evaluation over a bounded commit window: `observe()`
+    each committed e2e latency, `check()` at the caller's cadence; a
+    non-None result is the violation message for the fault ring."""
+
+    def __init__(self, spec: SloSpec):
+        self.spec = spec
+        self._window: deque = deque(maxlen=int(spec.window))
+        self.violations = 0
+
+    def observe(self, latency_s: float) -> None:
+        self._window.append(1 if latency_s > self.spec.threshold_s else 0)
+
+    def burn_rate(self) -> float:
+        if not self._window:
+            return 0.0
+        return sum(self._window) / float(len(self._window)) / self.spec.budget
+
+    def check(self) -> Optional[str]:
+        if len(self._window) < self.spec.min_samples:
+            return None
+        rate = self.burn_rate()
+        if rate <= 1.0:
+            return None
+        self.violations += 1
+        return ("slo violation: %s p%g > %.3fs (burn rate %.1fx budget over last %d commits)"
+                % (self.spec.name, self.spec.percentile * 100.0, self.spec.threshold_s, rate,
+                   len(self._window)))
 
 
 class TxnLifecycle:
@@ -201,3 +326,16 @@ class TxnLifecycle:
         t0, t1 = rec.get(STAGE_SUBMIT), rec.get(STAGE_COMMITTED)
         if t0 is not None and t1 is not None and len(self.samples) < self.samples_cap:
             self.samples.append(max(t1 - t0, 0.0))
+
+    def e2e_percentiles(self) -> Dict[str, Optional[float]]:
+        return self.sketches["e2e"].percentiles()
+
+
+def exact_quantile(samples: List[float], q: float) -> Optional[float]:
+    """Exact nearest-rank quantile with the sketch's convention (rank =
+    floor(q * (n - 1)), not interpolated), so a comparison with the sketch
+    picks the same rank."""
+    if not samples:
+        return None
+    s = sorted(samples)
+    return s[int(math.floor(q * (len(s) - 1)))]

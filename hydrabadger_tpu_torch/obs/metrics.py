@@ -1,13 +1,19 @@
 """Process-local counters, gauges with high-water marks and fixed-edge
 histograms: the port's copy of the parts of hydrabadger_tpu/obs/metrics.py
 that the sim, the TCP node, the futures, the sketch plane, the DKG's
-planes and the checkpoint store use.  `snapshot()` returns one JSON-able dict."""
+planes, the checkpoint store and the scenario plane use.  `snapshot()`
+returns one JSON-able dict."""
 from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .latency import LatencySketch
+
+
+def _round_q(v: Optional[float]) -> Optional[float]:
+    return None if v is None else round(v, 6)
+
 
 # the futures' overlap gauges (crypto/futures.stamp_gauges)
 DEVICE_OVERLAP_RATIO = "device_overlap_ratio"
@@ -67,6 +73,18 @@ TXN_LATENCY_P999_S = "txn_latency_p999_s"
 TXN_SUBMITTED = "txn_submitted"
 TXN_RESUBMITTED = "txn_resubmitted"
 TXN_COMMITTED = "txn_committed"
+
+# the Byzantine scenario plane (sim/scenario.py): both prefixes are suffixed
+# by a consensus/types.py BYZ_* token, so the family stays bounded by the
+# fixed taxonomy whatever the injection volume.  BYZ_INJECTED_PREFIX counts
+# what the plane did; BYZ_FAULTS_PREFIX what the system observed (fault_log
+# entries folded in by the verifier, or the injection itself for the kinds
+# an asynchronous system cannot detect)
+BYZ_INJECTED_PREFIX = "byz_injected_"
+BYZ_FAULTS_PREFIX = "byz_faults_"
+
+# SloTracker burn-rate violations pushed through the fault ring
+SLO_VIOLATIONS = "slo_violations"
 
 # durable checkpoints (checkpoint.CheckpointStore and the node's cadence):
 # generations written; a corrupt generation rejected at load; a load served
@@ -189,8 +207,9 @@ class MetricsRegistry:
             "gauges": {k: {"value": g.value, "high_water": g.high_water}
                        for k, g in sorted(self._gauges.items())},
             "histograms": {k: {"edges": list(h.edges), "counts": list(h.counts), "total": h.total,
-                               "sum": round(h.sum, 6), "p50": h.quantile(0.5),
-                               "p99": h.quantile(0.99)}
+                               "sum": round(h.sum, 6), "p50": _round_q(h.quantile(0.5)),
+                               "p99": _round_q(h.quantile(0.99)),
+                               "sketch": h.sketch.to_dict()}
                            for k, h in sorted(self._histograms.items())},
         }
 

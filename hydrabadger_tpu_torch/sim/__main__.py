@@ -11,14 +11,18 @@
     python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 100 \
         --checkpoint /tmp/sim.ckpt --checkpoint-every 25
     python -m hydrabadger_tpu_torch.sim --resume /tmp/sim.ckpt --epochs 50
+    python -m hydrabadger_tpu_torch.sim --engine cpu --nodes 4 --epochs 3 --encrypt \
+        --coin threshold --verify --attack -1 --json
 
-The JAX CLI's flags except `--attack` (the scenario plane is not ported
-yet), plus `--engine {gpu,cpu}` (default gpu, which raises without a card),
+The JAX CLI's flags, plus `--engine {gpu,cpu}` (default gpu, which raises without a card),
 `--device` (the GPU engine's card) and `--gpu-dkg` / `--no-gpu-dkg` (force
 the DKG's device plane on or off for a dhb run; by default the
 environment's HYDRABADGER_GPU_DKG decides).  `--resume` runs the
 checkpointed sim as it was built: its engine, device and DKG plane with it.
-Exits 0 if and only if agreement held.
+`--attack F` runs the Byzantine scenario plane (the last F nodes run the
+attack catalog, F = -1 for (n - 1) // 3) and verifies the
+fault-observability contract at exit.  Exits 0 if and only if agreement
+held.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from .. import checkpoint as ckpt_mod
 from ..crypto.engine import GpuEngine
 from ..obs import export
 from ..obs.metrics import default_registry
+from .scenario import attack_spec
 from .network import (
     SimConfig,
     SimNetwork,
@@ -52,7 +57,7 @@ def _node_list(spec: str, n: int):
     return ids
 
 
-def _config(args, adversary) -> SimConfig:
+def _config(args, adversary, scenario) -> SimConfig:
     """The SimConfig of a fresh run from the CLI's flags."""
     engine = GpuEngine(device=args.device) if args.engine == "gpu" else "cpu"
     return SimConfig(
@@ -68,6 +73,7 @@ def _config(args, adversary) -> SimConfig:
         engine=engine,
         seed=args.seed,
         adversary=adversary,
+        scenario=scenario,
         trace=bool(args.trace),
         rbc_variant=args.rbc,
         meter_bytes=args.meter_bytes,
@@ -97,6 +103,12 @@ def main(argv=None) -> int:
                    help="fail-stop these node indices (silenced from the start)")
     p.add_argument("--byzantine", default=None, metavar="I,J,...",
                    help="these node indices replay old messages alongside real traffic")
+    p.add_argument("--attack", type=int, default=None, metavar="F",
+                   help="Byzantine scenario plane: the LAST F nodes run the attack catalog "
+                        "(equivocating RBC, withheld and garbage decryption shares, replay "
+                        "floods: sim/byzantine.py); the fault-observability contract is "
+                        "verified at exit.  Combine with --encrypt --verify so forged shares "
+                        "travel the verify plane.  --attack -1 takes F = (n-1)//3")
     p.add_argument("--trace", default=None, metavar="PATH",
                    help="record consensus spans and write them on exit: .jsonl -> one event "
                         "per line, anything else -> Chrome trace JSON")
@@ -129,7 +141,7 @@ def main(argv=None) -> int:
         if not 0.0 <= getattr(args, name) <= 1.0:
             p.error(f"--{name} must be in [0, 1]")
     faults = [f"--{n}" for n in ("drop", "dup", "delay") if getattr(args, n) > 0]
-    faults += [f"--{n}" for n in ("crash", "byzantine") if getattr(args, n) is not None]
+    faults += [f"--{n}" for n in ("crash", "byzantine", "attack") if getattr(args, n) is not None]
     if len(faults) > 1:
         p.error(f"{' and '.join(faults)} are mutually exclusive (one adversary schedule per run)")
     if args.checkpoint_every and not args.checkpoint:
@@ -139,6 +151,15 @@ def main(argv=None) -> int:
         # checkpoint's recorder bindings — a fresh recorder could not be
         # rebound into them, so the flag would silently record nothing
         p.error("--trace is not supported with --resume (trace the original run instead)")
+    if args.attack is not None and (args.resume or args.checkpoint):
+        # a ScenarioSpec compiles into node wrappers at construction time;
+        # checkpoint.sim_to_bytes refuses such a sim on the save side too
+        p.error("--attack is not supported with --resume/--checkpoint")
+    if args.attack is not None and args.encrypt and not args.verify:
+        # unverified garbage shares would be absorbed silently and the
+        # contract would fail at exit: refuse the config with its cause
+        p.error("--attack with --encrypt requires --verify (forged decryption shares must "
+                "travel the verify plane)")
     # --crash/--byzantine indices are checked against the sim that will
     # run: on --resume that is the checkpointed topology, not --nodes
     n_nodes = args.nodes
@@ -149,8 +170,11 @@ def main(argv=None) -> int:
         # (callables are not serialized)
         resumed = ckpt_mod.load_sim(args.resume, adversary="pending" if faults else None)
         n_nodes = resumed.cfg.n_nodes
-    adversary = None
+    adversary = scenario = None
     try:
+        if args.attack is not None:
+            scenario = attack_spec(args.nodes, None if args.attack < 0 else args.attack,
+                                   seed=args.seed)
         if args.drop > 0:
             adversary = drop_adversary(args.drop, args.seed)
         elif args.dup > 0:
@@ -168,7 +192,7 @@ def main(argv=None) -> int:
         net = resumed
         net.cfg.adversary = net.router.adversary = adversary
     else:
-        net = SimNetwork(_config(args, adversary))
+        net = SimNetwork(_config(args, adversary, scenario))
     if args.checkpoint and args.checkpoint_every:
         remaining = args.epochs
         while remaining > 0:
@@ -180,6 +204,12 @@ def main(argv=None) -> int:
         metrics = net.run(args.epochs)
         if args.checkpoint:
             ckpt_mod.save_sim(args.checkpoint, net)
+    if scenario is not None:
+        # the fault-observability contract: every injected kind surfaced
+        net.verify_scenario()
+        net.shutdown()
+        print("attack scenario verified: injected "
+              + json.dumps(net.scenario_log.counts, sort_keys=True), file=sys.stderr)
     if args.trace:
         meta = {"clock_domain": net.recorder.clock_domain}
         write = export.write_jsonl if args.trace.endswith(".jsonl") else export.write_chrome_trace

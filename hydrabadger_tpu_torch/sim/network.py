@@ -28,9 +28,17 @@ Each epoch scopes three planes as the JAX sim does, restoring them after:
 every node's DKG MSMs of a router tick flush as one batch).  Under "qhb"
 they change nothing.
 
-Not ported yet, and refused loudly: `scenario` (the Byzantine scenario
-plane), `native_acs=True` (the C++ ACS core) and `slo` (SLO tracking).
-The per-epoch state census and the trace timeline report are left out.
+The adversarial scenario plane: `scenario` (sim/scenario.ScenarioSpec)
+compiles into the router adversary and wraps the nodes it names in
+sim/byzantine's attack strategies; progress and agreement are judged over
+the honest nodes, and `verify_scenario()` checks the fault-observability
+contract.  `slo` (obs/latency.SloSpec) is evaluated at every epoch over
+the newly committed samples; a violation is a fault.  `timeline_report()`
+aggregates a traced run's events (obs/aggregate).  A device error inside
+an attacked run raises like any other: it is never counted as a fault.
+
+Not ported yet, and refused loudly: `native_acs=True` (the C++ ACS core).
+The per-epoch state census is left out.
 """
 from __future__ import annotations
 
@@ -46,16 +54,19 @@ import torch
 
 from ..consensus.dynamic_honey_badger import DynamicHoneyBadger
 from ..consensus.queueing import QueueingHoneyBadger
-from ..consensus.types import NetworkInfo
+from ..consensus.types import Fault, NetworkInfo
 from ..crypto import dkg, futures
 from ..crypto import threshold as th
 from ..crypto.engine import get_engine
 from ..obs import metrics as M
-from ..obs.latency import LatencySketch, TxnLifecycle, txn_id
+from ..obs.aggregate import aggregate_events
+from ..obs.latency import LatencySketch, SloTracker, TxnLifecycle, txn_id
 from ..obs.metrics import MetricsRegistry
 from ..obs.recorder import DOMAIN_PERF, NULL_RECORDER, Recorder
 from ..utils.envflags import resolve_rbc_variant
+from . import byzantine as byz
 from .router import Router
+from .scenario import ScenarioAdversary, assert_observability, fold_fault_counters
 
 
 @dataclass
@@ -76,7 +87,11 @@ class SimConfig:
     seed: int = 0
     shuffle: bool = True
     adversary: Optional[Callable] = None
-    scenario: Optional[object] = None  # waits for a later slice
+    # the adversarial scenario plane (sim/scenario.ScenarioSpec): link
+    # faults, partition windows and ByzantineNode wrappers for the nodes it
+    # names; mutually exclusive with `adversary`.  Strategies that forge
+    # decryption shares assume verify_shares=True
+    scenario: Optional[object] = None
     # router quiescence budget per epoch; None = auto (an epoch's message
     # complexity is O(N^3))
     max_messages_per_epoch: Optional[int] = None
@@ -104,7 +119,9 @@ class SimConfig:
     # per-txn submit -> committed ledgers on every node (obs/latency.py);
     # "qhb" only: the dhb workload proposes opaque concatenated payloads
     txn_latency: bool = True
-    slo: Optional[object] = None  # waits for a later slice
+    # a latency SLO (obs/latency.SloSpec) evaluated at every epoch over the
+    # newly committed e2e samples; a burn-rate violation is a fault
+    slo: Optional[object] = None
 
 
 @dataclass
@@ -197,12 +214,8 @@ def _env_flag(name: str, flag: Optional[bool]):
 def _unported(cfg: SimConfig) -> Optional[str]:
     if cfg.protocol not in ("qhb", "dhb"):
         raise ValueError(f"unknown protocol {cfg.protocol!r}")
-    if cfg.scenario is not None:
-        return "scenario (the Byzantine scenario plane)"
     if cfg.native_acs is True:
         return "native_acs=True (the native host bindings: the C++ ACS core)"
-    if cfg.slo is not None:
-        return "slo (SLO tracking)"
     return None
 
 
@@ -227,6 +240,8 @@ class SimNetwork:
         self.metrics = MetricsRegistry()
         self.lifecycles: Dict = ({nid: TxnLifecycle() for nid in self.ids}
                                  if cfg.protocol == "qhb" and cfg.txn_latency else {})
+        self.slo_tracker = SloTracker(cfg.slo) if cfg.slo is not None else None
+        self._slo_cursor: Dict = {nid: 0 for nid in self.lifecycles}
         if cfg.protocol == "qhb":
             self.nodes: Dict = {
                 nid: QueueingHoneyBadger(
@@ -261,10 +276,12 @@ class SimNetwork:
                 )
                 for idx, nid in enumerate(self.ids)
             }
+        adversary = self._compile_scenario()
+        self.honest_ids = [nid for nid in self.ids if not hasattr(self.nodes[nid], "unwrap")]
         self.router = Router(
             self.ids,
             self._handle,
-            adversary=cfg.adversary,
+            adversary=adversary,
             seed=cfg.seed + 3,
             shuffle=cfg.shuffle,
             recorder=self.recorder,
@@ -290,6 +307,27 @@ class SimNetwork:
         # the steady (no live keygen, no era flip) epoch durations
         self._era_seen = 0
         self._steady_durations: List[float] = []
+
+    def _compile_scenario(self) -> Optional[Callable]:
+        """The router's adversary: `cfg.adversary`, or the scenario compiled
+        into a ScenarioAdversary with the nodes it names wrapped in their
+        attack strategies (each seeded as the JAX sim seeds it)."""
+        self.scenario_log = None
+        scen = self.cfg.scenario
+        if scen is None:
+            return self.cfg.adversary
+        if self.cfg.adversary is not None:
+            raise ValueError("SimConfig.scenario and SimConfig.adversary are mutually exclusive")
+        adv = ScenarioAdversary(scen, self.ids, metrics=self.metrics)
+        self.scenario_log = adv.log
+        for idx, names in sorted(scen.byzantine_map().items()):
+            nid = self.ids[idx]
+            self.nodes[nid] = byz.ByzantineNode(
+                self.nodes[nid],
+                byz.build_strategies(names, random.Random(scen.seed * 7919 + 11 + idx), adv.log),
+                log=adv.log,
+            )
+        return adv
 
     def _handle(self, me, sender, message):
         if sender in self._dup_ids:
@@ -356,6 +394,18 @@ class SimNetwork:
             for name, key in ((M.TXN_LATENCY_P50_S, "p50"), (M.TXN_LATENCY_P90_S, "p90"),
                               (M.TXN_LATENCY_P99_S, "p99"), (M.TXN_LATENCY_P999_S, "p999")):
                 self.metrics.gauge(name).track(round(pcts[key], 6))
+        if self.slo_tracker is None:
+            return
+        # the SLO sees each newly committed sample once; a violation is a
+        # fault in the router's log, like a silently tolerated attack
+        for nid, lc in self.lifecycles.items():
+            for v in lc.samples[self._slo_cursor.get(nid, 0):]:
+                self.slo_tracker.observe(v)
+            self._slo_cursor[nid] = len(lc.samples)
+        msg = self.slo_tracker.check()
+        if msg is not None:
+            self.metrics.counter(M.SLO_VIOLATIONS).inc()
+            self.router.faults.append(("slo", Fault("slo", msg)))
 
     def span_sketches(self) -> Dict[str, LatencySketch]:
         """Cross-node merge of every lifecycle span sketch, fresh objects."""
@@ -375,6 +425,19 @@ class SimNetwork:
         out["submitted"] = sum(lc.submitted for lc in self.lifecycles.values())
         out["resubmitted"] = sum(lc.resubmitted for lc in self.lifecycles.values())
         return out
+
+    def exact_e2e_samples(self) -> List[float]:
+        """Every node's exact retained e2e samples (the sketches' ground
+        truth)."""
+        return [v for lc in self.lifecycles.values() for v in lc.samples]
+
+    def timeline_report(self) -> Optional[dict]:
+        """The traced run's cluster timeline (obs/aggregate): per-epoch
+        critical path and wire-event message latency over the shared
+        recorder; None when tracing is off.  One clock: no alignment."""
+        if not self.recorder.enabled:
+            return None
+        return aggregate_events(list(self.recorder.events))
 
     def _note_era_gap(self) -> None:
         """After each epoch: the committed-epoch gap across an era-switch
@@ -478,7 +541,9 @@ class SimNetwork:
         m.bytes_tx_total = self.router.bytes_tx
         m.bytes_rx_total = self.router.bytes_rx
         m.bytes_rx_by_kind = dict(self.router.bytes_rx_by_kind)
-        m.epochs_done = min(len(self._batches(nid)) for nid in self.ids)
+        # progress and agreement are judged over the honest nodes: liveness
+        # under attack is a claim about what the honest quorum commits
+        m.epochs_done = min(len(self._batches(nid)) for nid in self.honest_ids)
         m.agreement_ok = self._check_agreement()
         if self.cfg.meter_bytes:
             self.metrics.counter(M.BYTES_TX_TOTAL).value = m.bytes_tx_total
@@ -492,7 +557,7 @@ class SimNetwork:
 
             m.latency_p50_ms, m.latency_p90_ms, m.latency_p99_ms = pct(0.50), pct(0.90), pct(0.99)
         m.txn_latency = self.txn_latency_snapshot()
-        for batch in self._batches(self.ids[0]):
+        for batch in self._batches(self.honest_ids[0]):
             for _, txns in sorted(batch.contributions.items()):
                 if isinstance(txns, (list, tuple)):
                     m.txns_committed += len(txns)
@@ -500,6 +565,15 @@ class SimNetwork:
                 else:  # a dhb contribution: one opaque payload
                     m.bytes_committed += len(txns)
         return m
+
+    def verify_scenario(self) -> None:
+        """Assert the fault-observability contract (sim/scenario.py): fold
+        the run's fault log into the ``byz_faults_*`` counters, then check
+        that every injected kind surfaced."""
+        if self.scenario_log is None:
+            raise RuntimeError("no scenario attached to this SimNetwork")
+        fold_fault_counters(self.router.faults, self.metrics, injected=set(self.scenario_log.counts))
+        assert_observability(self.scenario_log, self.router.faults, self.metrics)
 
     def shutdown(self) -> None:
         """Teardown: fail loudly if any CryptoFuture was dropped."""
@@ -530,9 +604,9 @@ class SimNetwork:
                 for b in self._batches(nid)]
 
     def _check_agreement(self) -> bool:
-        seqs = {nid: [items for _e, items in self.batch_bytes(nid)] for nid in self.ids}
+        seqs = {nid: [items for _e, items in self.batch_bytes(nid)] for nid in self.honest_ids}
         shortest = min(len(s) for s in seqs.values())
-        first = seqs[self.ids[0]][:shortest]
+        first = seqs[self.honest_ids[0]][:shortest]
         return all(s[:shortest] == first for s in seqs.values())
 
 

@@ -14,6 +14,7 @@ from collections import OrderedDict, deque
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple, TypeVar
 
 from ..consensus.types import Step
+from ..obs.aggregate import consensus_tags
 from ..obs.recorder import resolve as _resolve_recorder
 from ..utils import codec
 
@@ -26,37 +27,6 @@ N = TypeVar("N", bound=Hashable)
 # such triples; the router calls it at quiescence so schedules that hold
 # messages back (delay) model reordering, never permanent loss.
 Adversary = Callable[[Any, Any, Any], Optional[List[Tuple[Any, Any, Any]]]]
-
-
-def consensus_tags(message) -> dict:
-    """Best-effort (era, epoch, instance, innermost kind) of a nested
-    consensus message tuple (hydrabadger_tpu/obs/aggregate.consensus_tags):
-    the wire events and the per-kind byte ledger are tagged with it.
-    Unknown shapes yield what was walkable; never raises."""
-    tags: dict = {}
-    depth = 0
-    try:
-        while (isinstance(message, tuple) and len(message) >= 2
-               and isinstance(message[0], str) and depth < 6):
-            depth += 1
-            tag = message[0]
-            if tag == "dhb" and len(message) >= 3:
-                tags["era"] = int(message[1])
-                message = message[2]
-            elif tag == "hb" and len(message) >= 3:
-                tags["epoch"] = int(message[1])
-                message = message[2]
-            elif tag == "cs" and len(message) == 2:
-                message = message[1]  # hb's subset envelope: ("cs", subset_msg)
-            elif tag in ("cs", "td") and len(message) >= 3:
-                tags["instance"] = int(message[1])  # (tag, idx, inner)
-                message = message[2]
-            else:
-                tags["ckind"] = tag
-                break
-    except (TypeError, ValueError):
-        pass
-    return tags
 
 
 class Router:

@@ -646,3 +646,86 @@ def test_pairing_eq_batch_on_the_card_equals_the_host(card):
              if v != before.get(k, 0)}
     assert got.tolist() == [bls.pairing_check_eq(*lane) for lane in lanes] == [True, False, False, True]
     assert delta == pt.schedule(3)
+
+
+def test_attacked_lowcomm_sim_on_the_card_equals_the_cpu(card):
+    """config 11's attack at 4 nodes with the low-comm broadcast on
+    GpuEngine: the honest batches, injections and faults of the host
+    engine's run, the contract held, B1 launched (the forged coding's
+    sketches included) and no other kernel."""
+    from hydrabadger_tpu_torch.crypto import engine
+    from hydrabadger_tpu_torch.sim import network
+    from hydrabadger_tpu_torch.sim.scenario import attack_spec
+
+    def run(spec):
+        sim = network.SimNetwork(network.SimConfig(
+            n_nodes=4, epochs=2, seed=23, encrypt=True, verify_shares=True, coin_mode="threshold",
+            rbc_variant="lowcomm", engine=spec, scenario=attack_spec(4, seed=23)))
+        return sim, sim.run()
+
+    host, hm = run("cpu")
+    before = (gf256_torch.launches, fq_torch.launches, circuit_torch.launches)
+    gpu, gm = run(engine.GpuEngine(device=card))
+    torch.cuda.synchronize()
+    assert gf256_torch.launches > before[0]
+    assert (fq_torch.launches, circuit_torch.launches) == before[1:]
+    assert gm.agreement_ok and gm.epochs_done == 2
+    assert gpu.scenario_log.counts == host.scenario_log.counts
+    assert [(s, f.kind) for s, f in gpu.router.faults] == [(s, f.kind) for s, f in host.router.faults]
+    for nid in gpu.honest_ids:
+        assert gpu.batch_bytes(nid) == host.batch_bytes(nid)
+    gpu.verify_scenario()
+    gpu.shutdown()
+
+
+def test_attacked_era_switch_on_the_card_equals_the_cpu(card):
+    """The 4-node dhb era switch voting out an equivocating, keygen-
+    corrupting, replay-flooding node (seed 9), the DKG's device plane forced
+    on the card: the host engine's batches and eras, and B2 launched."""
+    from hydrabadger_tpu_torch.crypto import dkg, engine
+    from hydrabadger_tpu_torch.sim import network
+    from hydrabadger_tpu_torch.sim.scenario import ScenarioSpec
+
+    def run(spec, flag):
+        dkg.clear_caches()
+        scen = ScenarioSpec(name="era", seed=9,
+                            byzantine=((3, ("equivocate", "dkg_corrupt", "replay_flood")),))
+        sim = network.SimNetwork(network.SimConfig(n_nodes=4, protocol="dhb", epochs=4, seed=9,
+                                                   engine=spec, tpu_dkg=flag, scenario=scen))
+        for nid in sim.honest_ids:
+            sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(sim.ids[3]))
+        return sim, sim.run()
+
+    host, hm = run("cpu", False)
+    before = fq_torch.launches
+    gpu, gm = run(engine.GpuEngine(device=card), True)
+    torch.cuda.synchronize()
+    assert fq_torch.launches > before
+    assert gm.agreement_ok and gm.epochs_done == hm.epochs_done == 4
+    for nid in gpu.honest_ids:
+        assert gpu.batch_bytes(nid) == host.batch_bytes(nid)
+        assert gpu.nodes[nid].era == host.nodes[nid].era > 0
+    gpu.verify_scenario()
+    gpu.shutdown()
+
+
+async def test_chaos_cluster_on_the_card(card):
+    """config 12's harness at the fast tier on GpuEngine with the low-comm
+    broadcast: link faults, a replay-flooding peer and a crash/restart, the
+    contract held inside the harness, and B1 launched."""
+    import os
+
+    from hydrabadger_tpu_torch.net import chaos
+
+    before = gf256_torch.launches
+    os.environ["HYDRABADGER_RBC"] = "lowcomm"
+    try:
+        row = await chaos.chaos_cluster(
+            n=4, f_byz=1, epochs=4, base_port=15270, encrypt=False, verify_shares=False,
+            coin_mode="hash", wire_sign=False, strategies=("replay_flood",), crash=True,
+            crash_down_s=1.5, deadline_s=240, engine="gpu", device=str(card))
+    finally:
+        os.environ.pop("HYDRABADGER_RBC", None)
+    assert row["agreement_ok"] and row["contract_ok"] and row["epochs"] >= 4
+    assert row["recovery_catchup_s"] is not None
+    assert gf256_torch.launches > before

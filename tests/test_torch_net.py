@@ -1,6 +1,9 @@
 """The port's TCP node tier (hydrabadger_tpu_torch/net/, __main__.py) on the CPU.
 
 Port nodes run `engine="cpu"`, the host engine; localhost ports 15200-15299.
+The process tier's node features (a chaos plane, `set_slo`, checkpoints)
+are ported: an impossible SLO on a 4-node testnet rings a fault on every
+node.
 The equivalence test of the wire tier is a mixed cluster: two port nodes
 and two JAX nodes form one 4-node TCP cluster, bootstrap through the DKG
 and commit agreed batches, at the fast tier and with every frame BLS-signed
@@ -189,18 +192,26 @@ def _restorable_checkpoint():
 
 
 def test_process_tier_features_raise_not_implemented(tmp_path):
-    """The chaos plane and SLO tracking are not ported yet and raise;
-    durable checkpoints are ported: a checkpoint path builds the node's
-    store, `from_checkpoint` restores a validator at the saved cursor,
+    """The process tier's node features are ported and none raises: a
+    chaos plane is attached (a stream the node builds is the plane's fault
+    injector), `set_slo` installs and removes a tracker, and durable
+    checkpoints work: a checkpoint path builds the node's store,
+    `from_checkpoint` restores a validator at the saved cursor,
     `checkpoint()` captures it back, and the final persist writes it."""
     from hydrabadger_tpu_torch.checkpoint import CheckpointStore
+    from hydrabadger_tpu_torch.net.chaos import ChaosPlane, ChaosWireStream, WireChaosSpec
+    from hydrabadger_tpu_torch.obs.latency import SloSpec, SloTracker
 
     addr = tids.InAddr("127.0.0.1", BASE_PORT + 43)
-    with pytest.raises(NotImplementedError, match="process-tier"):
-        tnode.Hydrabadger(addr, fast_config(tnode), seed=1, chaos=object())
+    plane = ChaosPlane(WireChaosSpec())
+    chaotic = tnode.Hydrabadger(addr, fast_config(tnode), seed=1, chaos=plane)
+    assert chaotic.chaos is plane
+    assert isinstance(chaotic._new_stream(None, None), ChaosWireStream)
     node = tnode.Hydrabadger(addr, fast_config(tnode), seed=1)
-    with pytest.raises(NotImplementedError, match="process-tier"):
-        node.set_slo(None)
+    node.set_slo(SloSpec(threshold_s=1.0))
+    assert isinstance(node._slo_tracker, SloTracker)
+    node.set_slo(None)
+    assert node._slo_tracker is None
     with pytest.raises(RuntimeError, match="not active"):
         node.checkpoint()  # no consensus core yet
     path = str(tmp_path / "node.ckpt")
@@ -214,6 +225,28 @@ def test_process_tier_features_raise_not_implemented(tmp_path):
     asyncio.run(node.stop())  # the graceful stop's final persist
     assert CheckpointStore(path).load() == cp
     assert node.metrics.counter("checkpoints_persisted").value == 1
+
+
+async def test_an_impossible_slo_on_a_testnet_is_a_fault():
+    """`set_slo` on a 4-node fast-tier testnet with a threshold no commit
+    can meet: every node counts slo_violations and rings the fault."""
+    from hydrabadger_tpu_torch.obs.latency import SloSpec
+
+    cfg = fast_config(tnode, keygen_peer_count=3)
+    nodes = [make_node(tnode, tids, BASE_PORT + 50 + i, cfg, i) for i in range(4)]
+    for n in nodes:
+        n.set_slo(SloSpec(percentile=0.5, threshold_s=1e-9, window=64, min_samples=2))
+    started = await start([(n, tids) for n in nodes], BASE_PORT + 50)
+    try:
+        await asyncio.wait_for(wait_for(lambda: all(
+            n.metrics.counter("slo_violations").value > 0 for n in started)), 60)
+        for n in started:
+            assert any(f.kind.startswith("slo violation:") for _nid, f in n.fault_log)
+            assert n._slo_tracker.violations == n.metrics.counter("slo_violations").value
+        assert_agreement(started, min(len(n.batches) for n in started))
+    finally:
+        for n in started:
+            await asyncio.wait_for(n.stop(), 30)
 
 
 def test_cli_help_and_parse_match_the_jax_cli(capsys):

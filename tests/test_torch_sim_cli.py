@@ -1,6 +1,6 @@
 """The port's sim CLI against the JAX CLI: `--crash`, `--byzantine`,
-`--meter-bytes`, `--trace`, `--metrics`, `--checkpoint`, `--checkpoint-every`
-and `--resume`.
+`--meter-bytes`, `--trace`, `--metrics`, `--checkpoint`, `--checkpoint-every`,
+`--resume` and `--attack`.
 
 Both CLIs' `main(argv)` run in-process on the host engine at 4 nodes x 2
 epochs.  Their JSON lines are equal except for the wall-clock keys, the
@@ -118,3 +118,35 @@ def test_checkpoint_and_resume_flags_equal_the_jax_cli(capsys, tmp_path):
         assert ours.value.code == theirs.value.code == 2
     err = capsys.readouterr().err
     assert "requires --checkpoint" in err and "not supported with --resume" in err
+
+
+def test_attack_json_line_equals_the_jax_cli(capsys):
+    argv = ["--engine", "cpu", "--nodes", "4", "--epochs", "2", "--encrypt", "--coin", "threshold",
+            "--verify", "--attack", "-1", "--json"]
+    lines = []
+    for main in (cli.main, jcli.main):
+        assert main(argv) == 0
+        captured = capsys.readouterr()
+        injected = [ln for ln in captured.err.splitlines() if ln.startswith("attack scenario verified")]
+        lines.append((json.loads(captured.out.strip().splitlines()[-1]), injected))
+    (ours, our_log), (theirs, their_log) = lines
+    assert _timeless(ours) == _timeless(theirs)
+    assert our_log == their_log and len(our_log) == 1
+    assert ours["epochs_done"] == 2 and ours["agreement_ok"] and ours["faults"] > 0
+
+
+def test_attack_refusals_exit_2_as_the_jax_cli(capsys, tmp_path):
+    attack = ["--encrypt", "--coin", "threshold", "--verify", "--attack", "-1"]
+    for argv in (BASE + attack + ["--crash", "1"], BASE + attack + ["--drop", "0.1"],
+                 BASE + attack + ["--checkpoint", str(tmp_path / "a.ckpt")],
+                 BASE + attack + ["--resume", str(tmp_path / "a.ckpt")],
+                 BASE + ["--encrypt", "--attack", "1"],
+                 BASE + ["--attack", "2"]):
+        with pytest.raises(SystemExit) as ours:
+            cli.main(argv)
+        with pytest.raises(SystemExit) as theirs:
+            jcli.main(argv)
+        assert ours.value.code == theirs.value.code == 2
+    err = capsys.readouterr().err
+    assert "mutually exclusive" in err and "not supported with --resume/--checkpoint" in err
+    assert "requires --verify" in err and "need 0 <= f" in err
