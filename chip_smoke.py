@@ -223,11 +223,29 @@ failure:
      and r_i * pk_i equal to the host's replay, B2's launches equal to the
      verify batches plus the DKG plane's; the commit gap, the catch-up,
      epochs/s and the timeline fields; the phase's seconds.
+ 30. the process tier, part 2, on the card: config 13 (bench.py:1228-1281,
+     `net/cluster.run_process_chaos(n=4, epochs=3, fast_crypto=False,
+     engine="gpu")`): four `python -m hydrabadger_tpu_torch --engine gpu`
+     processes with the DKG plane forced (HYDRABADGER_GPU_DKG=1, inherited),
+     node 1 SIGKILLed at +2 s and restarted from its store 3 s later, node 2
+     skewed +30 s at rate 1.25: agreement, the process-tier contract, exit 0
+     on SIGTERM with a final checkpoint, the killed incarnation's flight dump,
+     the catch-up; every node's B2 verify batches and launches > 0 read from
+     the children's feeds (the supervisor itself launches nothing), the
+     restarted incarnation's too, no B1; then the soak tiers, cut: the era
+     tier (16 nodes, 2 removal switches, 3 steady epochs an era, the DKG
+     plane forced): census flat, agreement, B2's launches by entry equal to
+     the DKG plane's; the low-comm tier (16 nodes x 2 epochs a leg): B1's
+     launches equal to those the sketch calls imply, the twin byte-equal,
+     occupancy 1.0; the TCP tier (4 nodes, full crypto, 10 epochs): its
+     bounds, B2's launches equal to the verify batches plus the DKG plane's;
+     the sim tier (4 nodes x 300 epochs, the Python cores): 0 launches.
 
 The line before the last is one JSON object {"kernels": [...]} (B3's
-entry carries `pairing`, B2's `resume`, `tcp_restart`, `attack_era_switch`
-and `chaos_cluster`, B1's `attack`); the last is {"ok": true, "device":
-{...}}.  Without a card it exits 2 and prints no result.
+entry carries `pairing`, B2's `resume`, `tcp_restart`, `attack_era_switch`,
+`chaos_cluster`, `process_cluster`, `soak_era` and `soak_tcp`, B1's
+`attack` and `soak_rbc`); the last is {"ok": true, "device": {...}}.
+Without a card it exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -267,6 +285,13 @@ ATTACK16_NODES, ATTACK16_EPOCHS = 16, 2
 ERA_ATTACK_SEED = 9
 # config 12 (bench.py:1071-1117): the chaos cluster, epochs under fault
 CHAOS_EPOCHS, CHAOS_DEADLINE_S = 6, 400.0
+# config 13 (bench.py:1228-1281): the process cluster, epochs under fault
+PROC_EPOCHS, PROC_DEADLINE_S, PROC_BASE_PORT = 3, 300.0, 15800
+# the soak tiers on the card, cut (PERF.md section 4)
+SOAK_ERA_NODES, SOAK_ERAS, SOAK_ERA_STEADY = 16, 2, 3
+SOAK_RBC_NODES, SOAK_RBC_EPOCHS = 16, 2
+SOAK_TCP_EPOCHS, SOAK_TCP_PORT = 10, 15820
+SOAK_SIM_NODES, SOAK_SIM_EPOCHS = 4, 300
 
 
 class SmokeFailure(RuntimeError):
@@ -2777,6 +2802,172 @@ def adversarial_plane(dev: torch.device, tag: str) -> tuple[dict, dict, dict, in
     return b1_rec, era_rec, chaos_rec, worst
 
 
+def process_cluster(dev: torch.device, tag: str) -> dict:
+    """Phase 30a: config 13 (bench.py:1228-1281) on the card: four port node
+    processes on GpuEngine, node 1 SIGKILLed and restarted from its store.
+    Returns the record for B2's entry (launches read from the children's
+    feeds)."""
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.net import cluster
+
+    zero_launches(dev)
+    os.environ[dkg.GPU_DKG_ENV] = "1"  # the children inherit it: bootstrap DKG on B2
+    t0 = time.perf_counter()
+    try:
+        row = cluster.run_process_chaos(
+            n=4, epochs=PROC_EPOCHS, base_port=PROC_BASE_PORT, fast_crypto=False,
+            deadline_s=PROC_DEADLINE_S, engine="gpu", device="cuda")
+    finally:
+        os.environ.pop(dkg.GPU_DKG_ENV, None)
+    wall_s = time.perf_counter() - t0
+    by_kind, others = b2_launches(dev)
+    check(sum(by_kind.values()) == 0 and sum(others.values()) == 0,
+          f"the supervisor itself launched kernels: B2 {by_kind}, others {others}")
+    check(row["agreement_ok"] and row["contract_ok"] and row["epochs"] >= PROC_EPOCHS,
+          f"config 13: agreement {row['agreement_ok']}, contract {row['contract_ok']}, "
+          f"{row['epochs']} epochs")
+    check(row["recovery_catchup_s"] is not None, "config 13: the killed node never caught up")
+    check(row["flight_dumps_found"] > 0, "config 13: no flight dump found")
+    killed = set(row["killed_pids"]["1"])
+    work = row["device_work"]
+    for node, incarnations in sorted(work.items()):
+        batches = sum(inc["verify_batches"] for inc in incarnations)
+        launches = sum(inc["launches"].get("fq_point", 0) for inc in incarnations)
+        check(batches > 0 and launches >= batches,
+              f"config 13 node {node}: {batches} verify batches, {launches} B2 launches")
+        check(all(inc["launches"].get("gf256_matmul", 0) == 0 for inc in incarnations),
+              f"config 13 node {node} launched B1: {incarnations}")
+    restarted = [inc for inc in work["1"] if inc["pid"] not in killed]
+    dead = [inc for inc in work["1"] if inc["pid"] in killed]
+    check(len(dead) == 1 and len(restarted) == 1,
+          f"config 13 node 1: incarnations {work['1']}, killed pids {sorted(killed)}")
+    check(restarted[0]["verify_batches"] > 0 and restarted[0]["launches"]["fq_point"] > 0,
+          f"config 13: the restarted incarnation made no B2 verify batch: {restarted[0]}")
+    launches = sum(inc["launches"]["fq_point"] for incs in work.values() for inc in incs)
+    batches = sum(inc["verify_batches"] for incs in work.values() for inc in incs)
+    lanes = sum(inc["verify_lanes"] for incs in work.values() for inc in incs)
+    per_node = {node: [(inc["verify_batches"], inc["verify_lanes"], inc["launches"]["fq_point"])
+                       for inc in incs] for node, incs in sorted(work.items())}
+    print(f"main path: config 13, four `python -m hydrabadger_tpu_torch --engine gpu` processes "
+          f"(full crypto, the DKG plane forced), node 1 SIGKILLed at +2 s and restarted from its "
+          f"store 3 s later, node 2 skewed +30 s at rate 1.25, {PROC_EPOCHS} epochs under fault: "
+          f"agreement, the process-tier contract, exit 0 on SIGTERM with a final checkpoint, the "
+          f"killed incarnation's flight dump; commit gap {row['commit_gap_max_s']} s, catch-up "
+          f"{row['recovery_catchup_s']} s, {row['epochs_per_sec']} epochs/s under fault, wall "
+          f"{row['wall_s']} s ({wall_s:.1f} s with start-up and checks); (verify batches, lanes, "
+          f"B2 launches) per node and incarnation {per_node} (node 1: killed, then restarted); "
+          f"gating stage {row['epoch_critical_stage']}, straggler {row['straggler_node']}, msg "
+          f"latency p99 {row['msg_latency_p99_s']} s; detections {row['detections']}; injected "
+          f"{row['byz_injected']} {tag}")
+    keys = ("commit_gap_max_s", "recovery_catchup_s", "epochs_per_sec", "wall_s", "epochs",
+            "epoch_critical_stage", "straggler_node", "msg_latency_p50_s", "msg_latency_p99_s",
+            "flight_dumps_found", "supervisor_rss_growth_mb")
+    return {"per": f"config 13: 4 node processes, {PROC_EPOCHS} epochs under a SIGKILL",
+            "launches": launches, "verify_batches": batches, "verify_lanes": lanes,
+            "per_node_incarnation": per_node, "phase_wall_s": wall_s,
+            **{k: row[k] for k in keys}}
+
+
+def soak_tiers(dev: torch.device, tag: str) -> tuple[dict, dict, dict]:
+    """Phase 30b: the soak's era, low-comm and TCP tiers on the card, cut
+    (PERF.md section 4), and the sim tier on the Python cores.  Returns the
+    records for B1's entry (rbc) and for B2's (era, tcp)."""
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.crypto import engine as teng
+    from hydrabadger_tpu_torch.ops import gf256_torch, homhash_torch, msm_torch
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+    from hydrabadger_tpu_torch.sim import soak
+
+    gpu = {"engine": "gpu", "device": "cuda"}
+    # -- the era tier: 16 nodes, 2 removal switches, the DKG plane forced ----
+    dkg.clear_caches()
+    zero_launches(dev)
+    os.environ[dkg.GPU_DKG_ENV] = "1"
+    t0 = time.perf_counter()
+    try:
+        era = soak.era_soak(n_nodes=SOAK_ERA_NODES, steady_epochs=SOAK_ERA_STEADY,
+                            eras=SOAK_ERAS, **gpu)
+    finally:
+        os.environ.pop(dkg.GPU_DKG_ENV, None)
+    era_s = time.perf_counter() - t0
+    e_by_kind, e_others = b2_launches(dev)
+    e_dkg = dkg_plane_launches(dict(msm_torch.calls), dict(vt.calls), dict(dkg.channel_key_calls))
+    check(era["census_flat"] and era["agreement_ok"] and len(era["era_switch_epochs"]) == SOAK_ERAS,
+          f"era soak: {era}")
+    check(sum(e_by_kind.values()) == e_dkg > 0,
+          f"era soak: B2 launches {e_by_kind} != the DKG plane's {e_dkg}")
+    check(sum(e_others.values()) == 0, f"era soak launched other kernels: {e_others}")
+    print(f"soak era tier ({SOAK_ERA_NODES} nodes, {SOAK_ERAS} removal switches, "
+          f"{SOAK_ERA_STEADY} steady epochs an era, the DKG plane forced) on GpuEngine: census "
+          f"flat, agreement, every switch done (epochs to switch {era['era_switch_epochs']}); B2 "
+          f"launches by entry {e_by_kind} == the DKG plane's {e_dkg}, no other kernel; era commit "
+          f"gap {era['era_commit_gap_s']} s (bound {era['era_gap_bound_s']}), steady p50 by era "
+          f"{era['era_steady_p50_s']} s, {era['epochs_per_sec']} epochs/s, {era_s:.1f} s; census "
+          f"final {era['census_final']} {tag}")
+    # -- the low-comm tier: 16 nodes, bracha vs lowcomm, the twin on B1 ------
+    homhash_torch.calls.clear()
+    zero_launches(dev)
+    t0 = time.perf_counter()
+    rbc = soak.rbc_soak(epochs=SOAK_RBC_EPOCHS, n_nodes=SOAK_RBC_NODES, **gpu)
+    rbc_s = time.perf_counter() - t0
+    r_by_kind, r_others = b2_launches(dev)
+    b1 = r_others.pop("gf256_matmul")
+    calls = dict(homhash_torch.calls)
+    implied = sum(n * len(gf256_torch.chunks(8, L)) for (_b, L), n in calls.items())
+    check(b1 > 0 and b1 == implied,
+          f"rbc soak: B1 launches {b1}, implied by the {sum(calls.values())} sketch calls {implied}")
+    check(sum(r_by_kind.values()) == 0 and sum(r_others.values()) == 0,
+          f"rbc soak launched other kernels: B2 {r_by_kind}, {r_others}")
+    check(rbc["homhash_lane_occupancy"] == 1.0, f"rbc soak occupancy {rbc['homhash_lane_occupancy']}")
+    print(f"soak low-comm tier ({SOAK_RBC_NODES} nodes x {SOAK_RBC_EPOCHS} epochs a leg) on "
+          f"GpuEngine: batches identical across bracha and lowcomm, the device twin byte-equal to "
+          f"the host sketches, occupancy 1.0; B1 {b1} launches == those {sum(calls.values())} "
+          f"sketch calls imply, no other kernel; bytes/epoch bracha {rbc['bytes_per_epoch_bracha']}"
+          f" lowcomm {rbc['bytes_per_epoch_lowcomm']} ({rbc['bytes_reduction']} cut), epochs/s "
+          f"{rbc['epochs_per_sec_bracha']} / {rbc['epochs_per_sec_lowcomm']}, {rbc_s:.1f} s {tag}")
+    # -- the TCP tier: 4 localhost nodes at full crypto, cut -----------------
+    zero_launches(dev)
+    t0 = time.perf_counter()
+    tcp = soak.tcp_soak(epochs=SOAK_TCP_EPOCHS, base_port=SOAK_TCP_PORT, **gpu)
+    tcp_s = time.perf_counter() - t0
+    t_by_kind, t_others = b2_launches(dev)
+    t_batches = sum(teng.device_verify_calls.values())
+    t_dkg = dkg_plane_launches(dict(msm_torch.calls), dict(vt.calls), dict(dkg.channel_key_calls))
+    check(tcp["epochs"] >= SOAK_TCP_EPOCHS, f"tcp soak: {tcp['epochs']} epochs")
+    check(t_batches > 0 and sum(t_by_kind.values()) == t_batches + t_dkg,
+          f"tcp soak: B2 launches {t_by_kind} != {t_batches} verify batches + the DKG plane's "
+          f"{t_dkg}")
+    check(sum(t_others.values()) == 0, f"tcp soak launched other kernels: {t_others}")
+    print(f"soak TCP tier (4 localhost nodes, full crypto, {SOAK_TCP_EPOCHS} epochs) on GpuEngine: "
+          f"queue and RSS bounds held (peaks {tcp['queue_peaks']}, RSS +{tcp['rss_growth_mb']} MB); "
+          f"B2 launches {sum(t_by_kind.values())} == {t_batches} verify batches + the DKG plane's "
+          f"{t_dkg}, no other kernel; {tcp['epochs_per_sec']} epochs/s, {tcp_s:.1f} s {tag}")
+    # -- the sim tier: the Python cores, no device call ----------------------
+    zero_launches(dev)
+    t0 = time.perf_counter()
+    sim = soak.sim_soak(epochs=SOAK_SIM_EPOCHS, n_nodes=SOAK_SIM_NODES, **gpu)
+    sim_s = time.perf_counter() - t0
+    s_by_kind, s_others = b2_launches(dev)
+    check(sim["agreement_ok"] and sim["epochs"] >= SOAK_SIM_EPOCHS, f"sim soak: {sim['epochs']}")
+    check(sum(s_by_kind.values()) == 0 and sum(s_others.values()) == 0,
+          f"the sim soak (bracha, hash coin) launched kernels: {s_by_kind}, {s_others}")
+    print(f"soak sim tier ({sim['tier']}, {SOAK_SIM_NODES} nodes x {sim['epochs']} epochs) on "
+          f"GpuEngine: agreement, RSS +{sim['rss_growth_mb']} MB, throughput stable, 0 launches; "
+          f"{sim['epochs_per_sec']} epochs/s, {sim_s:.1f} s {tag}")
+    b1_rec = {"per": f"soak low-comm tier, {SOAK_RBC_NODES} nodes x {SOAK_RBC_EPOCHS} epochs",
+              "launches": b1, "sketch_calls": sum(calls.values()), "wall_s": rbc_s,
+              "bytes_reduction": rbc["bytes_reduction"]}
+    era_rec = {"per": f"soak era tier, {SOAK_ERA_NODES} nodes x {SOAK_ERAS} switches",
+               "launches": sum(e_by_kind.values()), "launches_by_entry": e_by_kind,
+               "era_commit_gap_s": era["era_commit_gap_s"],
+               "era_steady_p50_s": era["era_steady_p50_s"], "wall_s": era_s}
+    tcp_rec = {"per": f"soak TCP tier, 4 nodes x {SOAK_TCP_EPOCHS} epochs",
+               "launches": sum(t_by_kind.values()), "verify_batches": t_batches,
+               "epochs_per_sec": tcp["epochs_per_sec"], "wall_s": tcp_s,
+               "sim_tier_epochs_per_sec": sim["epochs_per_sec"]}
+    return b1_rec, era_rec, tcp_rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -3002,6 +3193,11 @@ def main() -> int:
     kernels[0]["attack"], fq_entry["attack_era_switch"], fq_entry["chaos_cluster"], attack_err = \
         adversarial_plane(dev, tag)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], attack_err)
+    # -- 30. the process tier, part 2: config 13 and the soak tiers ---------
+    t30 = time.perf_counter()
+    fq_entry["process_cluster"] = process_cluster(dev, tag)
+    kernels[0]["soak_rbc"], fq_entry["soak_era"], fq_entry["soak_tcp"] = soak_tiers(dev, tag)
+    print(f"phase 30: {time.perf_counter() - t30:.1f} s {tag}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

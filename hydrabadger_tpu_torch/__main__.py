@@ -340,11 +340,20 @@ def main(argv=None) -> int:
 
     def summary_line(final: bool) -> dict:
         """One machine-readable fault/metrics summary.  ``t`` is the
-        NODE's wall clock (wall_now), ``t_host`` the honest host clock."""
+        NODE's wall clock (wall_now), ``t_host`` the honest host clock.
+        The counters carry the process registry's too (the device
+        batches of the wire-signature checks and the DKG plane's lanes),
+        and ``launches`` this process's kernel launches so far, so a
+        supervisor reads the device work of every incarnation."""
         import os as _os
         import time as _t
 
+        from .obs.metrics import default_registry
+        from .ops import fq_torch, gf256_torch
+
         snap = node.metrics.snapshot()
+        counters = dict(default_registry().snapshot()["counters"])
+        counters.update(snap["counters"])
         return {
             "t": node.wall_now(),
             "t_host": _t.time(),
@@ -355,9 +364,13 @@ def main(argv=None) -> int:
             "state": node.state,
             "final": final,
             "reason": stop_reason["why"] if final else None,
-            "counters": snap["counters"],
+            "counters": counters,
             "gauges": {
                 k: g["high_water"] for k, g in snap["gauges"].items()
+            },
+            "launches": {
+                "fq_point": fq_torch.launches,
+                "gf256_matmul": gf256_torch.launches,
             },
             "faults": [f.kind for _nid, f in node.fault_log],
             # per-span latency sketches, mergeable across nodes

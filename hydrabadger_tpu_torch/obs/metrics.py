@@ -74,6 +74,10 @@ TXN_SUBMITTED = "txn_submitted"
 TXN_RESUBMITTED = "txn_resubmitted"
 TXN_COMMITTED = "txn_committed"
 
+# the per-epoch state census (obs/census.py): one gauge per declared
+# "Class.attr" container, a fixed keyspace
+STATE_CENSUS_PREFIX = "state_census_"
+
 # the Byzantine scenario plane (sim/scenario.py): both prefixes are suffixed
 # by a consensus/types.py BYZ_* token, so the family stays bounded by the
 # fixed taxonomy whatever the injection volume.  BYZ_INJECTED_PREFIX counts

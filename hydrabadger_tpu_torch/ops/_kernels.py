@@ -10,7 +10,10 @@ The file name carries a hash of the sources and flags, so an edit to a
 source rebuilds it and an unchanged source loads the library already
 built.  Nothing here runs at import: the first CUDA launch builds what it
 needs (`load`), and `build` builds a set of libraries in parallel, one
-nvcc each, all started together.
+nvcc each, all started together.  A file lock (`build/torch_kernels/
+build.lock`, fcntl.flock) makes one process build while the others wait
+and then load its libraries: node processes started together on one card
+each run nvcc on nothing.
 
 Every pointer and the stream cross as `c_void_p`, 64-bit integers as
 `c_longlong`.  Each C launch entry returns `cudaGetLastError()`, and
@@ -19,6 +22,7 @@ Every pointer and the stream cross as `c_void_p`, 64-bit integers as
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -142,10 +146,17 @@ def build(names=None) -> dict[str, tuple[float, str]]:
     memory per kernel).  Raises RuntimeError naming each failed build.
     """
     names = list(LIBRARIES) if names is None else list(names)
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
+    if all(library_path(n).exists() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        # another process may have built them while we waited
+        todo = [n for n in names if not library_path(n).exists()]
+        return _build_locked(todo) if todo else {}
+
+
+def _build_locked(todo: list) -> dict[str, tuple[float, str]]:
     nvcc = nvcc_path()
     procs = {}
     for name in todo:

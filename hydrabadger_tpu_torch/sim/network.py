@@ -37,8 +37,11 @@ the newly committed samples; a violation is a fault.  `timeline_report()`
 aggregates a traced run's events (obs/aggregate).  A device error inside
 an attacked run raises like any other: it is never counted as a fault.
 
+The state census (obs/census.py) is sampled at every epoch boundary into
+`census`, its `state_census_*` gauges into `metrics`; a sim snapshot
+(checkpoint.save_sim) carries it.
+
 Not ported yet, and refused loudly: `native_acs=True` (the C++ ACS core).
-The per-epoch state census is left out.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ from ..crypto import threshold as th
 from ..crypto.engine import get_engine
 from ..obs import metrics as M
 from ..obs.aggregate import aggregate_events
+from ..obs.census import StateCensus, node_objects
 from ..obs.latency import LatencySketch, SloTracker, TxnLifecycle, txn_id
 from ..obs.metrics import MetricsRegistry
 from ..obs.recorder import DOMAIN_PERF, NULL_RECORDER, Recorder
@@ -307,6 +311,8 @@ class SimNetwork:
         # the steady (no live keygen, no era flip) epoch durations
         self._era_seen = 0
         self._steady_durations: List[float] = []
+        # the per-epoch state census: every declared container's size
+        self.census = StateCensus(metrics=self.metrics)
 
     def _compile_scenario(self) -> Optional[Callable]:
         """The router's adversary: `cfg.adversary`, or the scenario compiled
@@ -508,6 +514,21 @@ class SimNetwork:
             self._propose_qhb()
         self.router.run(cfg.max_messages_per_epoch or max(1_000_000, 60 * cfg.n_nodes**3))
         self.epoch_durations.append(time.perf_counter() - t0)
+        self._census_sample()
+
+    def _census_sample(self) -> None:
+        """One state-census row per epoch: every node's consensus core
+        (unwrapped from any Byzantine shim), the network, the router and
+        the latency plane's ledgers."""
+        objs: list = [self, self.router]
+        for nid in self.ids:
+            node = self.nodes[nid]
+            unwrap = getattr(node, "unwrap", None)
+            if unwrap is not None:
+                node = unwrap()
+            objs.extend(node_objects(node))
+        objs.extend(self.lifecycles.values())
+        self.census.sample(objs, label=len(self.epoch_durations))
 
     def _propose_qhb(self) -> None:
         for nid in self.ids:

@@ -729,3 +729,25 @@ async def test_chaos_cluster_on_the_card(card):
     assert row["agreement_ok"] and row["contract_ok"] and row["epochs"] >= 4
     assert row["recovery_catchup_s"] is not None
     assert gf256_torch.launches > before
+
+
+def test_process_cluster_on_the_card(card, tmp_path):
+    """config 13's harness: four `python -m hydrabadger_tpu_torch --engine gpu`
+    processes at full crypto, node 1 SIGKILLed and restarted from its store;
+    agreement and the process-tier contract held inside the harness, and
+    every node's incarnations (the restarted one included) ran wire-signature
+    batches on kernel B2, read from the children's feeds."""
+    from hydrabadger_tpu_torch.net import cluster
+
+    row = cluster.run_process_chaos(n=4, epochs=2, base_port=15850, workdir=str(tmp_path),
+                                    fast_crypto=False, deadline_s=300.0, engine="gpu",
+                                    device=str(card) if card.index else "cuda")
+    assert row["agreement_ok"] and row["contract_ok"] and row["epochs"] >= 2
+    assert row["recovery_catchup_s"] is not None
+    killed = set(row["killed_pids"]["1"])
+    for node, incarnations in row["device_work"].items():
+        assert sum(inc["verify_batches"] for inc in incarnations) > 0, node
+        assert sum(inc["launches"]["fq_point"] for inc in incarnations) > 0, node
+    restarted = [inc for inc in row["device_work"]["1"] if inc["pid"] not in killed]
+    assert restarted and restarted[0]["verify_batches"] > 0
+    assert restarted[0]["launches"]["fq_point"] >= restarted[0]["verify_batches"]

@@ -4,7 +4,8 @@
 
 Both CLIs' `main(argv)` run in-process on the host engine at 4 nodes x 2
 epochs.  Their JSON lines are equal except for the wall-clock keys, the
-`--metrics` files hold equal queue peaks and sim counters, and the
+`--metrics` files hold equal queue peaks, sim counters, gauge names and
+state census gauges, and the
 `--trace` files hold the same number of events of the same kinds, as
 JSON lines and as Chrome trace JSON.  The fault flags exclude each other
 as the JAX CLI's do.
@@ -72,6 +73,10 @@ def test_cli_flags_equal_the_jax_cli(flags, trace_ext, capsys, tmp_path):
     assert met["queue_peaks"] == jmet["queue_peaks"]
     assert met["queue_peaks"]["router_queue"] > 0
     assert met["sim"]["counters"] == jmet["sim"]["counters"]
+    # the state census rides both sims: the same gauge names, census included
+    assert sorted(met["sim"]["gauges"]) == sorted(jmet["sim"]["gauges"])
+    census = {k: g for k, g in met["sim"]["gauges"].items() if k.startswith("state_census_")}
+    assert census == {k: jmet["sim"]["gauges"][k] for k in census} and len(census) >= 17
     assert kinds == jkinds and len(kinds) > 0
     assert meta[0]["clock_domain"] == jmeta[0]["clock_domain"]
     if "--meter-bytes" in flags:
