@@ -9,10 +9,11 @@ failure:
 
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel from csrc/ (one nvcc per source, in parallel) and,
-     beside them, the native host library (g++ of native/bls12_381.cpp,
-     host C++, not a kernel; its seconds printed): each kernel's registers
-     and spills (ptxas), and B1's matrix instructions in its SASS
-     (cuobjdump);
+     beside them, the four host libraries (utils/host_native: g++ of
+     native/bls12_381.cpp, gf256_rs.cpp and acs_engine.cpp, gcc of the
+     codec's C twin native/hb_codec.c; host code, not kernels; each build's
+     seconds printed): each kernel's registers and spills (ptxas), and B1's
+     matrix instructions in its SASS (cuobjdump);
   3. kernel B1 (gf256_matmul, the bit product on the int8 tensor cores)
      against its plain PyTorch version on the card, exact bytes, at the
      main path's shapes (the encode into the codeword's parity rows, the
@@ -239,11 +240,28 @@ failure:
      launches equal to those the sketch calls imply, the twin byte-equal,
      occupancy 1.0; the TCP tier (4 nodes, full crypto, 10 epochs): its
      bounds, B2's launches equal to the verify batches plus the DKG plane's;
-     the sim tier (4 nodes x 300 epochs, the Python cores): 0 launches.
+     the sim tier (4 nodes x 300 epochs, the native ACS core): 0 launches.
+ 31. the native host cores on the card: config 5 as bench.py runs it
+     (bench.py:491-652) at 64 nodes on the native ACS core with the DKG
+     plane forced on `GpuEngine`: a bootstrap epoch, a removal vote for the
+     last node from every other, epochs until every survivor is in era 1
+     (at most 8), 2 steady epochs; agreement, the victim gone from every
+     survivor's validator set, the faults by kind; counters set to 0 just
+     before and read just after: B2's launches by entry equal to the DKG
+     plane's MSMs, folds and channel keys, no other kernel; every MSM sum,
+     fold and channel key the card computed replayed on the host's native
+     routes; B2's device ms (CUDA events around each launch), the card's
+     busy share, the bound, the walls (bootstrap, each era epoch, the
+     switch, steady epochs/s, the era commit gap) and the host builds'
+     seconds.  Then the same leg at 16 nodes on `GpuEngine` (plane forced)
+     and the host engine in turns, byte-identical; then config 2's native
+     tier (bench.py:468-488: 16 nodes x 20 epochs) on both engines in turns:
+     the same batches, 0 launches, epochs/s and queue peaks.
 
 The line before the last is one JSON object {"kernels": [...]} (B3's
 entry carries `pairing`, B2's `resume`, `tcp_restart`, `attack_era_switch`,
-`chaos_cluster`, `process_cluster`, `soak_era` and `soak_tcp`, B1's
+`chaos_cluster`, `process_cluster`, `soak_era`, `soak_tcp` and
+`config5_64node`, B1's
 `attack` and `soak_rbc`); the last is {"ok": true, "device": {...}}.
 Without a card it exits 2 and prints no result.
 """
@@ -276,6 +294,11 @@ FC_SIM_NODES, FC_SIM_EPOCHS = 4, 2  # the full crypto tier (pure-Python BLS on t
 SKETCH_K, SKETCH_COLS = (1, 5, 6, 97, 257, 300), (1, 4, 9, 13, 16, 64)
 # config 5's Python-core leg (bench.py:539-541): the DHB era switch
 DKG_NODES, DKG_SEED, DKG_TXNS = 16, 7, 4
+# config 5 at bench.py's 64 nodes on the native ACS core (bench.py:491-652,
+# run at 64 nodes): 4096 // 64 two-byte txns a node, seed 0, at most 8 era
+# epochs, 2 steady epochs; and config 2's native tier (bench.py:468-488)
+C5_NODES, C5_SEED, C5_TXNS, C5_ERA_EPOCHS, C5_STEADY = 64, 0, 4096 // 64, 8, 2
+C2_NODES, C2_EPOCHS = 16, 20
 # config 7 (bench.py:705-760, run at 1024): verified decryption shares
 PAIR_BATCH, PAIR_FORGED, PAIR_SIG = 1024, 8, 64
 # config 11 (bench.py:985-1068): the attacked sim, 4 nodes x (1 warm + 6
@@ -1335,18 +1358,19 @@ def sim_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
     }, worst
 
 
-def voted_sim(engine, nodes: int, **kw):
-    """Config 5's Python-core leg at `nodes` up to its vote: the process-wide
-    DKG caches cleared (so every run derives its folds and keys itself), a
-    bootstrap epoch, then a removal vote for the last node from every
-    other.  Returns (sim, the time it started)."""
+def voted_sim(engine, nodes: int, native_acs: bool = False, **kw):
+    """Config 5's leg at `nodes` up to its vote, on the Python cores (or the
+    native ACS core): the process-wide DKG caches cleared (so every run
+    derives its folds and keys itself), a bootstrap epoch, then a removal
+    vote for the last node from every other.  Returns (sim, the time it
+    started)."""
     from hydrabadger_tpu_torch.crypto import dkg
     from hydrabadger_tpu_torch.sim import network
 
     dkg.clear_caches()
     sim = network.SimNetwork(network.SimConfig(
         n_nodes=nodes, protocol="dhb", txns_per_node_per_epoch=DKG_TXNS, txn_bytes=2,
-        seed=DKG_SEED, native_acs=False, engine=engine, **kw))
+        seed=DKG_SEED, native_acs=native_acs, engine=engine, **kw))
     t0 = time.perf_counter()
     sim.run(1)
     victim = sim.ids[-1]
@@ -1356,9 +1380,9 @@ def voted_sim(engine, nodes: int, **kw):
 
 
 def era_switch(engine, nodes: int, **kw):
-    """Config 5's Python-core leg at `nodes` (`voted_sim`), then epochs
-    until every survivor is in the new era, then two steady epochs.
-    Returns (sim, metrics, wall s)."""
+    """Config 5's leg at `nodes` (`voted_sim`), then epochs until every
+    survivor is in the new era, then two steady epochs.  Returns (sim,
+    metrics, wall s)."""
     sim, t0 = voted_sim(engine, nodes, **kw)
     for _ in range(8):
         sim.run(1)
@@ -2870,7 +2894,7 @@ def process_cluster(dev: torch.device, tag: str) -> dict:
 
 def soak_tiers(dev: torch.device, tag: str) -> tuple[dict, dict, dict]:
     """Phase 30b: the soak's era, low-comm and TCP tiers on the card, cut
-    (PERF.md section 4), and the sim tier on the Python cores.  Returns the
+    (PERF.md section 4), and the sim tier on the native ACS core.  Returns the
     records for B1's entry (rbc) and for B2's (era, tcp)."""
     from hydrabadger_tpu_torch.crypto import dkg
     from hydrabadger_tpu_torch.crypto import engine as teng
@@ -2942,7 +2966,7 @@ def soak_tiers(dev: torch.device, tag: str) -> tuple[dict, dict, dict]:
           f"queue and RSS bounds held (peaks {tcp['queue_peaks']}, RSS +{tcp['rss_growth_mb']} MB); "
           f"B2 launches {sum(t_by_kind.values())} == {t_batches} verify batches + the DKG plane's "
           f"{t_dkg}, no other kernel; {tcp['epochs_per_sec']} epochs/s, {tcp_s:.1f} s {tag}")
-    # -- the sim tier: the Python cores, no device call ----------------------
+    # -- the sim tier: the native ACS core, no device call -------------------
     zero_launches(dev)
     t0 = time.perf_counter()
     sim = soak.sim_soak(epochs=SOAK_SIM_EPOCHS, n_nodes=SOAK_SIM_NODES, **gpu)
@@ -2968,16 +2992,330 @@ def soak_tiers(dev: torch.device, tag: str) -> tuple[dict, dict, dict]:
     return b1_rec, era_rec, tcp_rec
 
 
+class DkgPlaneRecord:
+    """Records the DKG plane's device results while installed: every MSM
+    batch (its jobs and sums), commitment fold (its matrix, points and
+    folds) and channel-key batch (points, scalars, products), the MSM
+    digits for the bound, and CUDA events around each kernel B2 launch.
+    `install()` wraps the ops-level entry points the DKG calls;
+    `uninstall()` restores them."""
+
+    def __init__(self):
+        self.msms, self.folds, self.keys, self.msm_digits, self.events = [], [], [], [], []
+        self._saved = []
+
+    def install(self) -> "DkgPlaneRecord":
+        from hydrabadger_tpu_torch.ops import bls_torch, fq_torch, msm_torch
+        from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+
+        rec = self
+        msm_submit, msm_call = msm_torch.g1_msm_batch_submit, msm_torch.msm
+        fold, key_batch, launch = vt.fold_points_batch, bls_torch.g1_scalar_mul_batch, fq_torch._launch
+
+        def g1_msm_batch_submit(jobs, device="cuda", use_kernel=True):
+            finish = msm_submit(jobs, device, use_kernel)
+
+            def finished():
+                sums = finish()
+                rec.msms.append(([(list(p), list(k)) for p, k in jobs], sums))
+                return sums
+            return finished
+
+        def msm(points, digits, b, s, use_kernel=True):
+            rec.msm_digits.append((digits.cpu().numpy(), b, s))
+            return msm_call(points, digits, b, s, use_kernel)
+
+        def fold_points_batch(C, xs, use_kernel=True):
+            out = fold(C, xs, use_kernel)
+            rec.folds.append((C.cpu().numpy(), list(xs), out.cpu().numpy()))
+            return out
+
+        def g1_scalar_mul_batch(points, scalars, device="cuda", use_kernel=True):
+            out = key_batch(points, scalars, device, use_kernel)
+            rec.keys.append((list(points), list(scalars), out))
+            return out
+
+        def timed_launch(*a, **kw):
+            before = fq_torch.launches
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = launch(*a, **kw)
+            end.record()
+            if fq_torch.launches != before:
+                rec.events.append((start, end))
+            return out
+
+        for mod, name, fn in ((msm_torch, "g1_msm_batch_submit", g1_msm_batch_submit),
+                              (msm_torch, "msm", msm), (vt, "fold_points_batch", fold_points_batch),
+                              (bls_torch, "g1_scalar_mul_batch", g1_scalar_mul_batch),
+                              (fq_torch, "_launch", timed_launch)):
+            self._saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+        return self
+
+    def uninstall(self) -> None:
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved.clear()
+
+    def device_ms(self) -> float:
+        """Kernel B2's device ms: the sum of its launches' event pairs."""
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+    def bound(self) -> tuple[float, str]:
+        """The least time for the recorded B2 work: each MSM's plan from its
+        digits, each fold's, each channel-key batch's GLV plan."""
+        from hydrabadger_tpu_torch.ops import bls_torch
+
+        rows = []
+        for d, b, s in self.msm_digits:
+            rows += msm_plan(d, b, s)
+        for C, xs, _out in self.folds:
+            rows += fold_plan(C.shape[2], C.shape[3], xs)
+        for pts, ks, _out in self.keys:
+            _p, digits = bls_torch.scalar_mul_operands(pts, ks, "cpu")
+            rows += bls_torch.glv_plan(digits.numpy())
+        return roofline.bound_ms(*plan_bound(rows))
+
+    def replay_on_the_host(self) -> dict:
+        """Every recorded result against the host's native routes: each MSM
+        sum against native `g1_msm`, each fold against the native Horner
+        fold (`g1_fold_pow`) of the same matrix, each channel-key product
+        against native `g1_mul_batch`; the native calls spread over the
+        host's cores (ctypes releases the interpreter lock).  Returns the
+        counts replayed."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from hydrabadger_tpu_torch.crypto import bls12_381 as bls
+        from hydrabadger_tpu_torch.crypto import native_bls as nb
+        from hydrabadger_tpu_torch.ops import limbs
+
+        with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+            for batch, sums in self.msms:
+                check(len(batch) == len(sums), "an MSM batch returned a sum per job")
+            jobs = [job for batch, _sums in self.msms for job in batch]
+            got = [p for _batch, sums in self.msms for p in sums]
+            want = pool.map(lambda job: nb.g1_msm(*job), jobs)
+            check(all(bls.eq(a, b) for a, b in zip(got, want)), "an MSM on the card != native g1_msm")
+            folds = []
+            for C, xs, out in self.folds:
+                J, K = C.shape[2], C.shape[3]
+                raw = b"".join(nb._g1_to_raw(p) for p in limbs.limbs_to_points(C))
+                pts = limbs.limbs_to_points(out)
+                shape = [[None] * K for _ in range(J)]
+                folds += [(shape, x, raw, pts[mi * K:(mi + 1) * K]) for mi, x in enumerate(xs)]
+            want = pool.map(lambda f: nb.g1_fold_pow(f[0], f[1], 0, raw96=f[2]), folds)
+            check(all(len(w) == len(f[3]) and all(bls.eq(a, b) for a, b in zip(f[3], w))
+                      for f, w in zip(folds, want)), "a fold on the card != native g1_fold_pow")
+            want = pool.map(lambda k: nb.g1_mul_batch(k[0], k[1]), self.keys)
+            check(all(len(w) == len(k[2]) and all(bls.eq(a, b) for a, b in zip(k[2], w))
+                      for k, w in zip(self.keys, want)),
+                  "a channel-key batch on the card != native g1_mul_batch")
+        return {"msm_jobs": len(jobs), "msm_batches": len(self.msms), "fold_points": len(folds),
+                "fold_calls": len(self.folds), "channel_keys": sum(len(k[0]) for k in self.keys),
+                "channel_key_batches": len(self.keys)}
+
+
+def msm_plan(d: np.ndarray, b: int, s: int) -> list:
+    """The B2 launches of one MSM batch (ops/msm_torch) from its digits: the
+    GLV ladder and its tree for 33 digit rows, else the windowed sum."""
+    from hydrabadger_tpu_torch.ops import bls_torch
+
+    if d.shape[-2] == 33:
+        return bls_torch.glv_plan(d) + [row for row in bls_torch.weighted_sum_plan(
+            np.zeros((1, b * s), np.int32), s) if row.part == "tree"]
+    return bls_torch.weighted_sum_plan(d, s)
+
+
+def c5_era_switch(engine, nodes: int, **kw) -> tuple:
+    """Config 5 as bench.py runs it (bench.py:554-600) on the native ACS
+    core: a bootstrap epoch, a removal vote for the last node from every
+    other, epochs until every survivor is in era 1 (at most C5_ERA_EPOCHS),
+    then C5_STEADY steady epochs, each timed on the host clock.  Returns
+    (sim, metrics, walls)."""
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.sim import network
+
+    dkg.clear_caches()
+    sim = network.SimNetwork(network.SimConfig(
+        n_nodes=nodes, protocol="dhb", txns_per_node_per_epoch=C5_TXNS, txn_bytes=2, seed=C5_SEED,
+        native_acs=True, engine=engine, **kw))
+    check(sim._native_eligible(), "config 5 is not eligible for the native ACS core")
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    sim.run(1)
+    walls = {"bootstrap_s": time.perf_counter() - t0, "era_epoch_s": []}
+    victim = sim.ids[-1]
+    survivors = sim.ids[:-1]
+    for nid in survivors:
+        sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(victim))
+    for _ in range(C5_ERA_EPOCHS):
+        t0 = time.perf_counter()
+        sim.run(1)
+        walls["era_epoch_s"].append(time.perf_counter() - t0)
+        if all(sim.nodes[nid].era > 0 for nid in survivors):
+            break
+    check(all(sim.nodes[nid].era > 0 for nid in survivors),
+          f"config 5: the era switch did not complete in {C5_ERA_EPOCHS} epochs")
+    check(all(victim not in sim.nodes[nid].netinfo.node_ids for nid in survivors),
+          "config 5: the removed node is still in a survivor's validator set")
+    t0 = time.perf_counter()
+    m = sim.run(C5_STEADY)
+    walls["steady_s"] = time.perf_counter() - t0
+    walls["switch_s"] = sum(walls["era_epoch_s"])
+    walls["total_s"] = time.perf_counter() - t_all
+    check(m.agreement_ok, "config 5: agreement failed")
+    return sim, m, walls
+
+
+def faults_by_kind(sim) -> dict:
+    out: dict = {}
+    for _s, f in sim.router.faults:
+        out[f.kind] = out.get(f.kind, 0) + 1
+    return out
+
+
+def native_cores(dev: torch.device, tag: str) -> dict:
+    """Phase 31: the native host cores on the card.  31a, config 5's 64-node
+    era switch on the native ACS core with the DKG plane forced on kernel
+    B2, every recorded device result replayed on the host; 31b, the same
+    leg at 16 nodes on GpuEngine and the host engine in turns, byte for
+    byte; 31c, config 2's native tier on both engines in turns.  Returns the
+    64-node record for B2's entry of the `kernels` line."""
+    from hydrabadger_tpu_torch.crypto import dkg
+    from hydrabadger_tpu_torch.crypto.engine import GpuEngine
+    from hydrabadger_tpu_torch.obs import metrics as M
+    from hydrabadger_tpu_torch.ops import msm_torch
+    from hydrabadger_tpu_torch.ops import vandermonde_torch as vt
+    from hydrabadger_tpu_torch.sim import network
+    from hydrabadger_tpu_torch.utils import host_native
+
+    gpu = GpuEngine(device=dev)
+    builds = {lib.label: lib.build_seconds for lib in host_native.LIBRARIES}
+    # -- 31a. config 5 at 64 nodes on the card -------------------------------
+    reg = M.default_registry()
+    flushes0 = reg.counter(M.MSM_COALESCE_FLUSHES).value
+    rec = DkgPlaneRecord()
+    zero_launches(dev)
+    rec.install()
+    try:
+        sim, m, walls = c5_era_switch(gpu, C5_NODES, tpu_dkg=True)
+    finally:
+        rec.uninstall()
+    by_kind, others = b2_launches(dev)
+    msm_calls, fold_calls, key_calls = dict(msm_torch.calls), dict(vt.calls), dict(dkg.channel_key_calls)
+    dev_ms = rec.device_ms()
+    width = reg.gauge(M.MSM_COALESCE_WIDTH).high_water
+    flushes = reg.counter(M.MSM_COALESCE_FLUSHES).value - flushes0
+    check(sum(others.values()) == 0, f"config 5 launched B1, B3 or B4: {others}")
+    for entry in ("windowed_ladder", "glv_ladder", "add", "dbl", "ladd"):
+        check(by_kind.get(entry, 0) > 0, f"config 5 launched B2's {entry} no time: {by_kind}")
+    implied = dkg_plane_launches(msm_calls, fold_calls, key_calls)
+    check(sum(by_kind.values()) == implied == len(rec.events),
+          f"config 5: B2 launches {by_kind} != the DKG plane's {implied} (events {len(rec.events)})")
+    faults = faults_by_kind(sim)
+    eras = sorted({sim.nodes[nid].era for nid in sim.ids[:-1]})
+    print(f"main path: config 5 at {C5_NODES} nodes (seed {C5_SEED}, {C5_TXNS} x 2-byte txns a "
+          f"node, the native ACS core, the DKG plane forced) on GpuEngine: agreement, survivors' "
+          f"eras {eras}, {sim.ids[-1]} gone from every survivor's validators; "
+          f"{m.messages_delivered} messages, faults by kind {faults}; B2 launches by entry "
+          f"{by_kind} == the DKG plane's {implied}, no other kernel; coalescer {flushes} flushes, "
+          f"widest {width}; MSM batches {sum(msm_calls.values())} over {len(msm_calls)} shapes, "
+          f"folds {sum(fold_calls.values())} over {len(fold_calls)} shapes, channel-key batches "
+          f"{sum(key_calls.values())}")
+    t0 = time.perf_counter()
+    replayed = rec.replay_on_the_host()
+    replay_s = time.perf_counter() - t0
+    bound, bound_by = rec.bound()
+    busy = dev_ms / 1e3 / walls["total_s"]
+    gap = sim.era_gap_snapshot()["era_commit_gap_s"]
+    steady_eps = C5_STEADY / walls["steady_s"]
+    print(f"config 5's DKG plane on the card == the host's native routes: {replayed} "
+          f"({replay_s:.1f} s to replay)")
+    print(f"config 5 at {C5_NODES} nodes: bootstrap {walls['bootstrap_s']:.3f} s, era epochs "
+          f"{[round(w, 3) for w in walls['era_epoch_s']]} s (the switch {walls['switch_s']:.2f} s), "
+          f"{C5_STEADY} steady epochs {steady_eps:.3f} epochs/s, era_commit_gap_s {gap}, whole "
+          f"run {walls['total_s']:.2f} s; B2 {dev_ms:.2f} device ms by events over "
+          f"{len(rec.events)} launches (the card busy {100 * busy:.3f}% of the run), bound "
+          f"{bound:.5f} ms ({bound_by}); host builds {builds} {tag}")
+    record = {
+        "per": f"config 5's era switch at {C5_NODES} nodes on the native ACS core (bench.py:491-652): "
+               f"a bootstrap epoch, the removal, {len(walls['era_epoch_s'])} era epochs, "
+               f"{C5_STEADY} steady; every B2 launch timed by its own CUDA events",
+        "launches": sum(by_kind.values()), "launches_by_entry": by_kind, "ms": dev_ms,
+        "bound_ms": bound, "bound_by": bound_by, "busy_share": busy,
+        "bootstrap_s": walls["bootstrap_s"], "era_epoch_s": walls["era_epoch_s"],
+        "switch_s": walls["switch_s"], "steady_epochs_per_sec": steady_eps,
+        "era_commit_gap_s": gap, "total_s": walls["total_s"], "faults_by_kind": faults,
+        "messages_delivered": m.messages_delivered, "coalesce_flushes": flushes,
+        "coalesce_width": width, "replayed": replayed, "replay_s": replay_s,
+        "host_build_s": builds,
+    }
+    del sim, rec
+
+    # -- 31b. the native core against the host engine, in turns -------------
+    runs = []
+    for spec, flag in (("cpu", False), (gpu, True), (gpu, True), ("cpu", False)):
+        zero_launches(dev)
+        t0 = time.perf_counter()
+        leg, leg_m, _s = era_switch(spec, DKG_NODES, tpu_dkg=flag, native_acs=True)
+        wall = time.perf_counter() - t0
+        kinds, rest = b2_launches(dev)
+        calls = dkg_plane_launches(dict(msm_torch.calls), dict(vt.calls),
+                                   dict(dkg.channel_key_calls))
+        check(sum(rest.values()) == 0, f"31b launched B1, B3 or B4: {rest}")
+        if flag:
+            check(sum(kinds.values()) == calls > 0, f"31b: B2 launches {kinds} != the DKG plane's {calls}")
+        else:
+            check(sum(kinds.values()) == 0, f"31b: the host engine launched B2: {kinds}")
+        runs.append(("gpu" if flag else "cpu", dhb_record(leg, leg_m), wall, kinds,
+                     faults_by_kind(leg)))
+    want = runs[0][1]
+    check(all(r[1] == want for r in runs),
+          "31b: the native-core era switch on the card != the host engine's (batches, eras, key "
+          "sets, validators, counts or faults)")
+    print(f"31b: config 5's leg at {DKG_NODES} nodes on the native ACS core, in turns (cpu, gpu, "
+          f"gpu, cpu): byte-identical batches, eras, key sets, {want['counts'][1]} messages, faults "
+          f"by kind {runs[0][4]}; walls {[(r[0], round(r[2], 3)) for r in runs]} s; B2 launches "
+          f"{[sum(r[3].values()) for r in runs]} {tag}")
+
+    # -- 31c. config 2's native tier, in turns --------------------------------
+    c2 = []
+    for spec in ("cpu", gpu, gpu, "cpu"):
+        zero_launches(dev)
+        net = network.SimNetwork(network.SimConfig(n_nodes=C2_NODES, protocol="qhb", seed=0,
+                                                   engine=spec))
+        check(net._native_eligible(), "config 2 is not eligible for the native ACS core")
+        c2m = net.run(C2_EPOCHS)
+        kinds, rest = b2_launches(dev)
+        check(c2m.agreement_ok and c2m.epochs_done == C2_EPOCHS, f"config 2 native: {c2m.as_dict()}")
+        check(sum(kinds.values()) + sum(rest.values()) == 0,
+              f"config 2's native tier launched kernels: {kinds}, {rest}")
+        c2.append(("cpu" if spec == "cpu" else "gpu", [net.batch_bytes(nid) for nid in net.ids],
+                   c2m.epochs_per_sec, net.queue_peaks(), c2m.messages_delivered))
+    check(all(r[1] == c2[0][1] and r[4] == c2[0][4] for r in c2),
+          "31c: config 2's native tier on the card != the host engine's batches")
+    print(f"31c: config 2's native tier ({C2_NODES} nodes x {C2_EPOCHS} epochs), in turns: the same "
+          f"batches on every node, {c2[0][4]} messages, 0 launches; epochs/s "
+          f"{[(r[0], round(r[2], 2)) for r in c2]}, queue_peaks {c2[0][3]} {tag}")
+    record["sim16_walls_s"] = [(r[0], r[2]) for r in runs]
+    record["config2_native_epochs_per_sec"] = [(r[0], r[2]) for r in c2]
+    record["config2_queue_peaks"] = c2[0][3]
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
         return 2
 
-    from hydrabadger_tpu_torch.crypto import gf256, native_bls
+    from hydrabadger_tpu_torch.crypto import gf256
     from hydrabadger_tpu_torch.crypto.rs import decode_matrix, encode_matrix
     from hydrabadger_tpu_torch.ops import _kernels, circuit_torch, fq_torch, gf256_torch
     from hydrabadger_tpu_torch.sim import tensor as ts
+    from hydrabadger_tpu_torch.utils import host_native
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2996,9 +3334,9 @@ def main() -> int:
     t0 = time.perf_counter()
     host_error: list = []
 
-    def build_host_native():  # g++ beside the nvcc builds
+    def build_host_native():  # g++ and gcc beside the nvcc builds
         try:
-            native_bls.build_library()
+            host_native.build_all()
         except Exception as exc:  # re-raised below, on the main thread
             host_error.append(exc)
 
@@ -3009,9 +3347,11 @@ def main() -> int:
     if host_error:
         raise host_error[0]
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built) or 'none (cached)'}")
-    gxx_s = native_bls.build_seconds
-    print("  native/bls12_381.cpp (host C++, build/host_native/libbls381.so): "
-          + (f"g++ {gxx_s:.2f} s" if gxx_s is not None else "an earlier build, reused"))
+    for lib in host_native.LIBRARIES:
+        print(f"  {lib.sources[0].relative_to(host_native.ROOT)} (host code, "
+              f"{lib.dest.relative_to(host_native.ROOT)}): "
+              + (f"{lib.cc()} {lib.build_seconds:.2f} s" if lib.build_seconds is not None
+                 else "an earlier build, reused"))
     for name, (seconds, output) in built.items():
         print(f"  {name}: nvcc {seconds:.2f} s")
         for entry, regs, stores, loads in ptxas_report(output):
@@ -3198,6 +3538,10 @@ def main() -> int:
     fq_entry["process_cluster"] = process_cluster(dev, tag)
     kernels[0]["soak_rbc"], fq_entry["soak_era"], fq_entry["soak_tcp"] = soak_tiers(dev, tag)
     print(f"phase 30: {time.perf_counter() - t30:.1f} s {tag}")
+    # -- 31. the native host cores: config 5 at 64 nodes, config 2's native tier
+    t31 = time.perf_counter()
+    fq_entry["config5_64node"] = native_cores(dev, tag)
+    print(f"phase 31: {time.perf_counter() - t31:.1f} s {tag}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

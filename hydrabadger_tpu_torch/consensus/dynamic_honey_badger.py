@@ -27,11 +27,11 @@ the contribution that carried them (each slot is bound to its proposer by
 Broadcast), plus an explicit signature on votes so they cannot be forged
 by a relaying proposer.
 
-Left out with what they serve, which the port has not yet: the native ACS
-entry points (`external_contribution`, `apply_external_batch`).  Of the
-checkpoint pickling hooks only `__getstate__` is kept (it settles the
-in-flight keygen flush); the JAX `__setstate__` filled in fields that older
-JAX snapshots lacked, and the port loads no JAX snapshot.
+The native ACS core (sim/native_acs) drives an epoch through
+`external_contribution` and `apply_external_batch`.  Of the checkpoint
+pickling hooks only `__getstate__` is kept (it settles the in-flight keygen
+flush); the JAX `__setstate__` filled in fields that older JAX snapshots
+lacked, and the port loads no JAX snapshot.
 """
 from __future__ import annotations
 
@@ -331,6 +331,23 @@ class DynamicHoneyBadger:
         )
         step = self.hb.propose(internal, rng)
         return self._filter(step)
+
+    def external_contribution(self, contribution: bytes) -> bytes:
+        """The internal payload propose() would feed the ACS (user bytes,
+        pending votes and keygen messages), for an external (native) ACS run
+        that bypasses the message plane."""
+        self._settle_keygen_inflight()  # acks ride this snapshot
+        votes = []
+        if self.our_vote is not None and self.votes.get(self.our_id) != self.our_vote:
+            sig = self.our_sk.sign(self._vote_doc(self.our_vote))
+            votes.append((self.our_id, self.our_vote, sig.to_bytes()))
+        return codec.encode((bytes(contribution), tuple(votes), tuple(self.pending_kg)))
+
+    def apply_external_batch(self, contributions: dict) -> Step:
+        """Apply an externally agreed epoch: the whole DHB batch pipeline
+        (vote commits, the keygen transcript, era switches) runs in
+        _filter's _on_batch as for a message-plane epoch."""
+        return self._filter(self.hb.apply_external_batch(contributions))
 
     @guarded_handler("dhb")
     def handle_message(self, sender, message) -> Step:

@@ -97,6 +97,21 @@ class HoneyBadger:
         step.extend(self._progress(epoch))
         return step
 
+    def apply_external_batch(self, contributions: dict) -> Step:
+        """Install the current epoch's result from an external ACS run (the
+        native core, sim/native_acs.py): advance the epoch and emit the Batch
+        as _progress would.  The unencrypted tier only: the external run
+        agrees on plaintext contributions, so there is no decrypt stage."""
+        if self.encrypt:
+            raise RuntimeError("apply_external_batch requires encrypt=False")
+        epoch = self.epoch
+        step = Step()
+        step.output.append(Batch(epoch, {p: bytes(v) for p, v in sorted(contributions.items())}))
+        self.epoch = epoch + 1
+        self.epochs.pop(epoch, None)
+        self.has_input.pop(epoch, None)
+        return step
+
     @guarded_handler("hb")
     def handle_message(self, sender, message) -> Step:
         if not self.netinfo.is_validator(sender):

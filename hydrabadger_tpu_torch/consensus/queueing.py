@@ -78,6 +78,15 @@ class QueueingHoneyBadger:
         """Propose for the current epoch even if the queue is empty."""
         return self._filter(self._propose(rng))
 
+    def external_contribution(self, rng) -> bytes:
+        """The payload this node would propose, for an external (native) ACS
+        run that bypasses the message plane."""
+        return codec.encode(tuple(self._sample(rng)))
+
+    def apply_external_batch(self, contributions: dict) -> Step:
+        """Apply an externally agreed epoch (the native ACS core)."""
+        return self._filter(self.hb.apply_external_batch(contributions))
+
     # -- internals ----------------------------------------------------------
 
     def _sample(self, rng) -> List[bytes]:

@@ -11,7 +11,8 @@ never the safety anchor: the low-comm Broadcast re-derives the SHA-256
 payload hash and commitment from every decoded payload.
 
 This module is the host engine's path and the oracle of the device twin
-(ops/homhash_torch, kernel B1); its products are `gf256.matmul`.
+(ops/homhash_torch, kernel B1); its products run in the host GF(2^8)
+library (`crypto/_native`), as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-from . import gf256
+from . import _native
 
 # sketch width in GF(2^8) symbols: 2^-64 per random forgery
 SKETCH_BYTES = 8
@@ -59,7 +60,7 @@ def sketch_batch_np(shards: np.ndarray, seed: bytes) -> np.ndarray:
         raise ValueError(f"expected [B, L] shards, got {shards.shape}")
     if shards.shape[1] == 0:
         return np.zeros((shards.shape[0], SKETCH_BYTES), dtype=np.uint8)
-    out = gf256.matmul(matrix_T(seed, shards.shape[1]), np.ascontiguousarray(shards.T))
+    out = _native.gf_matmul(matrix_T(seed, shards.shape[1]), np.ascontiguousarray(shards.T))
     return np.ascontiguousarray(out.T)
 
 

@@ -9,13 +9,11 @@ the `_py_*` oracles.
 
 The port builds its own library from the repo's source: at first use, g++
 (or $CXX) compiles native/bls12_381.cpp with native/Makefile's flags into
-build/host_native/libbls381.so, under a file lock (several test workers may
-start at once) and renamed into place, with a stamp beside it of the source,
-the compiler, the flags and the CPU features `-march=native` resolves to on
-this host; a changed stamp rebuilds (a library built for another CPU is
-never loaded).  There is no
-silent fallback: a build that fails, a library that does not load or
-reports another ABI version raises, with the compiler's output.
+build/host_native/libbls381.so through utils/host_native (a file lock, a
+stamp of the source, compiler, flags and CPU features; a changed stamp
+rebuilds).  There is no silent fallback: a build that fails, a library that
+does not load or reports another ABI version raises, with the compiler's
+output.
 HYDRABADGER_NO_NATIVE_BLS=1 at import, or set_enabled(False), selects the
 pure-Python path.
 
@@ -26,78 +24,30 @@ Point interchange format (the C ABI):
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
-import subprocess
-import time
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
-ROOT = Path(__file__).resolve().parents[2]
-SOURCES = (ROOT / "native" / "bls12_381.cpp", ROOT / "native" / "bls381_constants.h")
-LIB_PATH = ROOT / "build" / "host_native" / "libbls381.so"
-CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
+from ..utils import host_native
+
+LIBRARY = host_native.BLS
+LIB_PATH = LIBRARY.dest
 ABI_VERSION = 1
 
 _LIB = None
 _ENABLED = os.environ.get("HYDRABADGER_NO_NATIVE_BLS", "") != "1"
-# seconds of this process's g++ build; None when an earlier build was reused
-build_seconds: Optional[float] = None
 
 
 def _stamp(cxx: str) -> str:
-    """Digest of the sources, the compiler and flags, and the target
-    features `-march=native` means on this host."""
-    try:
-        target = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
-                                capture_output=True, text=True).stdout
-    except OSError as exc:
-        raise RuntimeError(f"native BLS build: cannot run {cxx!r}: {exc}") from exc
-    h = hashlib.sha256(" ".join((cxx,) + CXXFLAGS).encode() + target.encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    return h.hexdigest()
+    return LIBRARY.stamp(cxx)
 
 
 def build_library(dest: Path = None) -> Path:
     """The built library at `dest` (default LIB_PATH), compiling it when its
-    stamp does not match.  Raises RuntimeError with the compiler's output
-    when the build fails."""
-    global build_seconds
-    dest = Path(dest or LIB_PATH)
-    cxx = os.environ.get("CXX") or "g++"
-    stamp = _stamp(cxx)
-    stamp_path = dest.with_name(dest.name + ".stamp")
-
-    def current() -> bool:
-        return dest.exists() and stamp_path.exists() and stamp_path.read_text() == stamp
-
-    if current():
-        return dest
-    dest.parent.mkdir(parents=True, exist_ok=True)
-    with open(dest.with_name(dest.name + ".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if current():  # another process built it while we waited
-            return dest
-        tmp = dest.with_name(f".{dest.name}.{os.getpid()}.tmp")
-        cmd = [cxx, *CXXFLAGS, "-o", str(tmp), str(SOURCES[0])]
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as exc:
-            raise RuntimeError(f"native BLS build: cannot run {cxx!r}: {exc}") from exc
-        if proc.returncode != 0 or not tmp.exists():
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"native BLS build failed ({' '.join(cmd)}: exit {proc.returncode}):\n"
-                f"{proc.stderr}{proc.stdout}")
-        os.replace(tmp, dest)
-        tmp_stamp = stamp_path.with_name(f".{stamp_path.name}.{os.getpid()}.tmp")
-        tmp_stamp.write_text(stamp)
-        os.replace(tmp_stamp, stamp_path)
-        build_seconds = time.perf_counter() - t0
-    return dest
+    stamp does not match (utils/host_native); `LIBRARY.build_seconds` is
+    this process's compile time.  Raises RuntimeError with the compiler's
+    output when the build fails."""
+    return LIBRARY.build(dest or LIB_PATH)
 
 
 def _load():

@@ -10,12 +10,12 @@ consensus cores' Broadcast calls them.
 Encoding matrix: Vandermonde V[n, k] normalised so the top k x k block is
 the identity (systematic), so every k x k submatrix is invertible.
 
-Left out on purpose, since no path of the port reaches them: the
-ctypes C++ library (`crypto/_native`) and the additive-FFT routing
-(`ops/rs_fft`).  Every product here is `gf256.matmul`, which both of those
-equal byte for byte.  This module builds the encode and decode matrices
-that the device path (ops/rs_torch.py) uploads, and it is the oracle of
-`sim/tensor.cpu_fast_path_epoch`.
+Every encode and reconstruct product runs in the host GF(2^8) library
+(`crypto/_native`, native/gf256_rs.cpp), as the JAX package's does; the
+matrices themselves come from `gf256`.  Left out until the port has it: the
+additive-FFT routing (`ops/rs_fft`).  This module builds the encode and
+decode matrices that the device path (ops/rs_torch.py) uploads, and it is
+the oracle of `sim/tensor.cpu_fast_path_epoch`.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from . import gf256
+from . import _native, gf256
 
 
 class ReedSolomonError(ValueError):
@@ -65,7 +65,7 @@ class ReedSolomon:
         self.matrix = encode_matrix(self.data_shards, self.parity_shards)
 
     def _parity_of(self, data: np.ndarray) -> np.ndarray:
-        return gf256.matmul(self.matrix[self.data_shards :], data)
+        return _native.gf_matmul(self.matrix[self.data_shards :], data)
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         """data: [k, shard_len] uint8 -> [n, shard_len] (data rows + parity)."""
@@ -120,7 +120,7 @@ class ReedSolomon:
             rows = tuple(present[: self.data_shards])
             inv = decode_matrix(self.data_shards, self.parity_shards, rows)
             stacked = np.stack([arrs[i] for i in rows])  # [k, L]
-            recovered = gf256.matmul(inv[missing_data], stacked)
+            recovered = _native.gf_matmul(inv[missing_data], stacked)
             for row, i in enumerate(missing_data):
                 out[i] = recovered[row]
         if not data_only:
@@ -129,7 +129,7 @@ class ReedSolomon:
             ]
             if missing_parity:
                 data = np.stack(out[: self.data_shards])
-                recovered = gf256.matmul(self.matrix[missing_parity], data)
+                recovered = _native.gf_matmul(self.matrix[missing_parity], data)
                 for row, i in enumerate(missing_parity):
                     out[i] = recovered[row]
         return [o for o in out if o is not None] if data_only else out  # type: ignore

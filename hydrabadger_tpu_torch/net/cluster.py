@@ -331,20 +331,21 @@ class ClusterSupervisor:
         return cmd + ["--engine", self.engine, "--device", self.device]
 
     def prepare(self) -> None:
-        """Build what every child loads, once, before any spawns: with the
-        gpu engine, the node's kernels (B2 for the signature batches and
-        the DKG plane, B1 for the sketches) and the native host library.
+        """Build what every child loads, once, before any spawns: the host
+        libraries (native BLS, the GF(2^8) library, the ACS core, the codec
+        twin) and, with the gpu engine on a card, the node's kernels (B2 for
+        the signature batches and the DKG plane, B1 for the sketches).
         Children started together then each load the built files.  A gpu
-        engine on the CPU runs the plain versions: nothing to build."""
-        if self.engine != "gpu" or self.device.split(":")[0] != "cuda":
-            return
-        from ..crypto import native_bls
-        from ..ops import _kernels
+        engine on the CPU runs the plain versions: no kernel to build."""
+        from ..utils import host_native
 
         t0 = time.monotonic()
-        _kernels.build(["fq_point", "gf256_matmul"])
-        native_bls.build_library()
-        log.info("child kernels ready in %.1fs", time.monotonic() - t0)
+        host_native.build_all()
+        if self.engine == "gpu" and self.device.split(":")[0] == "cuda":
+            from ..ops import _kernels
+
+            _kernels.build(["fq_point", "gf256_matmul"])
+        log.info("child libraries ready in %.1fs", time.monotonic() - t0)
 
     def spawn(self, i: int) -> None:
         child = self.children[i]

@@ -5,8 +5,8 @@ The port's copy of hydrabadger_tpu/sim/network.py: N QueueingHoneyBadger
 deterministic router, a seeded transaction workload, and first-class
 metrics (epochs/s, messages/epoch, committed transactions, agreement).
 The same `SimConfig` gives, on the host engine, the same batches, message
-counts and faults as the JAX package's `SimNetwork(engine="cpu",
-native_acs=False)`: the same `trusted_setup` keys, the same draws from
+counts and faults as the JAX package's `SimNetwork(engine="cpu")` on the
+same core (Python or native): the same `trusted_setup` keys, the same draws from
 every `random.Random` (a DHB node's DKG draws from its own
 `random.Random(seed * 1_000_003 + 2 + index)`), the same delivery order.
 
@@ -41,7 +41,16 @@ The state census (obs/census.py) is sampled at every epoch boundary into
 `census`, its `state_census_*` gauges into `metrics`; a sim snapshot
 (checkpoint.save_sim) carries it.
 
-Not ported yet, and refused loudly: `native_acs=True` (the C++ ACS core).
+The native ACS core (sim/native_acs, host C++): as in the JAX package, an
+eligible config (no adversary or scenario, no encryption, the hash coin, no
+byte metering, no tracing) runs each epoch's Subset storm in one `acs_run`
+call and applies the agreed batch to every core in Python (votes, the DKG
+transcript and era switches included).  `native_acs=None` takes it where
+eligible unless HYDRABADGER_NO_NATIVE_ACS opts out; True raises where the
+config is ineligible or the core is opted out; False runs the Python cores.
+The broadcast variant does not enter eligibility (as in the JAX package):
+an eligible low-comm config runs the native Bracha core and computes no
+sketch.
 """
 from __future__ import annotations
 
@@ -69,6 +78,7 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.recorder import DOMAIN_PERF, NULL_RECORDER, Recorder
 from ..utils.envflags import resolve_rbc_variant
 from . import byzantine as byz
+from . import native_acs
 from .router import Router
 from .scenario import ScenarioAdversary, assert_observability, fold_fault_counters
 
@@ -99,7 +109,8 @@ class SimConfig:
     # router quiescence budget per epoch; None = auto (an epoch's message
     # complexity is O(N^3))
     max_messages_per_epoch: Optional[int] = None
-    # None or False: the Python cores; True (the C++ ACS core) waits
+    # the native ACS core (sim/native_acs): None = where eligible and not
+    # opted out; True = required (raises where ineligible); False = never
     native_acs: Optional[bool] = None
     # the DKG's device plane (crypto/dkg, HYDRABADGER_GPU_DKG), on the
     # engine's device: None = inherit the environment; True/False = force
@@ -215,22 +226,13 @@ def _env_flag(name: str, flag: Optional[bool]):
             os.environ[name] = prev
 
 
-def _unported(cfg: SimConfig) -> Optional[str]:
-    if cfg.protocol not in ("qhb", "dhb"):
-        raise ValueError(f"unknown protocol {cfg.protocol!r}")
-    if cfg.native_acs is True:
-        return "native_acs=True (the native host bindings: the C++ ACS core)"
-    return None
-
-
 class SimNetwork:
     # per-(receiver, sender) duplicate-frame LRU depth
     DUP_LRU_PER_SENDER = 128
 
     def __init__(self, cfg: SimConfig):
-        missing = _unported(cfg)
-        if missing is not None:
-            raise NotImplementedError(f"{missing} is not ported yet: a later slice of the port")
+        if cfg.protocol not in ("qhb", "dhb"):
+            raise ValueError(f"unknown protocol {cfg.protocol!r}")
         self.cfg = cfg
         self.ids, self.netinfos, self.id_sks = trusted_setup(cfg.n_nodes, cfg.seed)
         self.rng = random.Random(cfg.seed + 1)
@@ -355,6 +357,74 @@ class SimNetwork:
         prefix = self._txn_counter.to_bytes(4, "big")
         pad = max(0, self.cfg.txn_bytes - 4)
         return prefix + bytes(self.rng.getrandbits(8) for _ in range(pad))
+
+    def _native_eligible(self) -> bool:
+        cfg = self.cfg
+        if cfg.native_acs is False:
+            return False
+        ok = (
+            cfg.adversary is None
+            and cfg.scenario is None
+            and not cfg.encrypt
+            and cfg.coin_mode == "hash"
+            # the native core has no message plane to meter
+            and not cfg.meter_bytes
+            # nor the consensus spans and wire events a traced run wants
+            and not self.recorder.enabled
+        )
+        if cfg.native_acs is True:
+            if not ok:
+                raise ValueError("native_acs=True requires fast tier, hash coin, no adversary, "
+                                 "no byte metering, no tracing")
+            if not native_acs.available():
+                raise RuntimeError("native_acs=True, but HYDRABADGER_NO_NATIVE_ACS opts out of the "
+                                   "native ACS core")
+            return True
+        return ok and native_acs.available()
+
+    def _run_epoch_native(self) -> None:
+        """One epoch through the native ACS core: gather the contributions,
+        agree natively, apply the batch to every core's QHB/DHB pipeline
+        (votes, era switches and queue pruning run in Python as on the
+        message plane)."""
+        cfg = self.cfg
+        if cfg.protocol == "qhb":
+            for nid in self.ids:
+                lc = self.lifecycles.get(nid)
+                for _ in range(cfg.txns_per_node_per_epoch):
+                    txn = self._gen_txn()
+                    if lc is not None and not lc.submit(txn_id(txn), time.perf_counter()):
+                        self.metrics.counter(M.TXN_RESUBMITTED).inc()
+                    self.nodes[nid].push_transaction(txn)
+            validators = list(self.ids)
+            payloads = [self.nodes[nid].external_contribution(self.rng) for nid in validators]
+        else:
+            validators = [nid for nid in self.ids if self.nodes[nid].is_validator]
+            payloads = [
+                self.nodes[nid].external_contribution(
+                    b"".join(self._gen_txn() for _ in range(cfg.txns_per_node_per_epoch)))
+                for nid in validators
+            ]
+        hb = self.nodes[validators[0]].hb
+        if list(hb.netinfo.node_ids) != validators:
+            raise RuntimeError(f"validator order drift: {hb.netinfo.node_ids} != {validators}")
+        sid = hb.session_id + b"/" + str(hb.epoch).encode()
+        mask, stats = native_acs.acs_run(payloads, hb.netinfo.num_faulty, sid,
+                                         shuffle=cfg.shuffle, seed=cfg.seed * 1_000_003 + hb.epoch)
+        contributions = {nid: payloads[i] for i, nid in enumerate(validators) if mask[i]}
+        self.router.delivered += stats.delivered
+        for nid in self.ids:
+            step = self.nodes[nid].apply_external_batch(dict(contributions))
+            if step.messages:  # era-switch follow-up traffic, if any
+                self.router.dispatch_step(nid, step)
+        if self.lifecycles:
+            # no per-delivery boundary here: the batch application is the
+            # epoch's commit moment
+            now = time.perf_counter()
+            for lc in self.lifecycles.values():
+                lc.stamp(now)
+        if self.router.queue:
+            self.router.run(cfg.max_messages_per_epoch or max(1_000_000, 60 * cfg.n_nodes**3))
 
     def _planes(self) -> ExitStack:
         """The epoch's scoped planes: the DKG's device plane and its device,
@@ -504,6 +574,11 @@ class SimNetwork:
     def _run_epoch_inner(self) -> None:
         t0 = time.perf_counter()
         cfg = self.cfg
+        if self._native_eligible():
+            self._run_epoch_native()
+            self.epoch_durations.append(time.perf_counter() - t0)
+            self._census_sample()
+            return
         if cfg.protocol == "dhb":
             for nid in self.ids:
                 node = self.nodes[nid]

@@ -8,9 +8,8 @@ regimen (run to epoch 1000 and exit) as a reproducible, ASSERTING run:
     `future_msgs`, and (TCP) the wire-retry and epoch-outbox rings,
   - throughput does not decay (last-quartile epochs/s vs first).
 
-Tiers: `sim_soak` (in-process SimNetwork epochs on the Python cores; the
-JAX package's native ACS core is not ported, so the row is labelled
-"sim_python_cores"), `byz_soak` (the attacked full-crypto sim),
+Tiers: `sim_soak` (in-process SimNetwork epochs on the native ACS core,
+"sim_native_acs"), `byz_soak` (the attacked full-crypto sim),
 `era_soak` (dhb era switches with the state-census flatness check),
 `wire_chaos_soak` (net/chaos), `process_chaos_soak` (net/cluster: real OS
 processes, a real SIGKILL), `tcp_soak` (a 4-node localhost cluster at full
@@ -72,7 +71,7 @@ def sim_soak(epochs: int = 1000, n_nodes: int = 16, rss_budget_mb: float = 256.0
         SimConfig(n_nodes=n_nodes, protocol="qhb", txns_per_node_per_epoch=5, txn_bytes=8,
                   seed=11, engine=named_engine(engine, device))
     )
-    net.run(10)  # warmup (allocator pools, codec caches)
+    net.run(10)  # warmup (allocator pools, codec caches, native libs)
     rss0 = rss_mb()
     max_deferred = 0
     trimmed = 0
@@ -105,9 +104,7 @@ def sim_soak(epochs: int = 1000, n_nodes: int = 16, rss_budget_mb: float = 256.0
     peaks = dict(net.queue_peaks())
     peaks["deferred"] = max(peaks["deferred"], max_deferred)
     return {
-        # the Python consensus cores: the JAX package's native ACS core is
-        # not ported, so this row never calls itself "sim_native_acs"
-        "tier": "sim_python_cores",
+        "tier": "sim_native_acs",
         "epochs": committed,
         "epochs_per_sec": round(committed / net.total_wall_s, 2),
         "rss_start_mb": round(rss0, 1),

@@ -1,9 +1,15 @@
 """Deterministic binary codec for consensus messages and signing.
 
-The port's copy of the pure-Python half of hydrabadger_tpu/utils/codec.py:
-every message is serialised to a canonical byte string, so two engines
-produce identical bytes for identical values.  The JAX package's C twin
-(native/hb_codec.so) writes the same bytes; the port has only this one.
+The port's copy of hydrabadger_tpu/utils/codec.py: every message is
+serialised to a canonical byte string, so two engines produce identical
+bytes for identical values.  Two twins write the same bytes: the pure
+Python below (`_py_encode` / `_py_decode`, the oracle) and the C twin,
+native/hb_codec.c, a CPython extension that utils/host_native builds
+against this interpreter's headers into build/host_native/.  `encode` and
+`decode` bind at their first call: the C twin, after a self-check against
+the Python twin, or the Python twin where HB_NATIVE_CODEC is set to
+anything but "1".  A twin that does not build, load or pass the check
+raises; the JAX package drops it quietly instead.
 
 Self-describing tagged format, canonical by construction:
   N            -> None
@@ -16,7 +22,10 @@ Self-describing tagged format, canonical by construction:
 """
 from __future__ import annotations
 
+import os
 from typing import Any
+
+from . import host_native
 
 # both packages reject the same adversarial nesting with the same error
 _MAX_DEPTH = 500
@@ -94,7 +103,7 @@ def _encode_into(out: bytearray, value: Any, depth: int = 0) -> None:
         raise TypeError(f"codec cannot encode {type(value).__name__}")
 
 
-def encode(value: Any) -> bytes:
+def _py_encode(value: Any) -> bytes:
     out = bytearray()
     _encode_into(out, value)
     return bytes(out)
@@ -150,8 +159,54 @@ def _decode_at(buf: bytes, pos: int, depth: int = 0) -> tuple[Any, int]:
     raise ValueError(f"unknown tag byte {tag!r}")
 
 
-def decode(buf: bytes) -> Any:
+def _py_decode(buf: bytes) -> Any:
     value, pos = _decode_at(bytes(buf), 0)
     if pos != len(buf):
         raise ValueError(f"{len(buf) - pos} trailing bytes")
     return value
+
+
+_native = None  # the loaded C twin, once bound to it
+_bound = False
+
+
+def load_native():
+    """The C twin's module, built and loaded, after the JAX package's
+    self-check against the Python twin; raises if any step fails."""
+    import importlib.util
+
+    path = host_native.CODEC.build()
+    spec = importlib.util.spec_from_file_location("hb_codec", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    probe = (1, -(2**381), b"x", "s", {3: (None, True)}, 2**64)
+    if mod.encode(probe) != _py_encode(probe) or mod.decode(mod.encode(probe)) != probe:
+        raise RuntimeError(f"codec C twin {path} failed its self-check against the Python twin")
+    return mod
+
+
+def _bind() -> None:
+    """Point `encode` / `decode` at the selected twin."""
+    global _native, _bound, encode, decode
+    _native = load_native() if os.environ.get("HB_NATIVE_CODEC", "1") == "1" else None
+    encode, decode = (_native.encode, _native.decode) if _native else (_py_encode, _py_decode)
+    _bound = True
+
+
+def encode(value: Any) -> bytes:
+    if not _bound:
+        _bind()
+    return encode(value)
+
+
+def decode(buf: bytes) -> Any:
+    if not _bound:
+        _bind()
+    return decode(buf)
+
+
+def native_active() -> bool:
+    """True when `encode` / `decode` are the C twin's (binding them first)."""
+    if not _bound:
+        _bind()
+    return _native is not None

@@ -400,7 +400,7 @@ def test_timeline_report_equals_the_jax_report_on_the_same_events():
     (aligned and not) give equal reports; the JAX sim's own trace of the
     same config gives the same event, wire and pair counts."""
     kw = dict(n_nodes=4, protocol="qhb", epochs=2, seed=3, trace=True)
-    net = SimNetwork(SimConfig(engine="cpu", **kw))
+    net = SimNetwork(SimConfig(engine="cpu", native_acs=False, **kw))
     net.run()
     events = list(net.recorder.events)
     jevents = [jrecorder.Event(e.name, e.phase, dict(e.attrs), e.t) for e in events]

@@ -105,7 +105,7 @@ def test_census_rows_equal_the_jax_sim(protocol, epochs):
     """The port sim samples the census every epoch, and each row equals the
     JAX sim's at the same seed (dhb: through a removal era switch)."""
     kw = dict(n_nodes=4, protocol=protocol, txns_per_node_per_epoch=2, txn_bytes=2, seed=3)
-    ours = SimNetwork(SimConfig(engine="cpu", **kw))
+    ours = SimNetwork(SimConfig(engine="cpu", native_acs=False, **kw))
     theirs = JSimNetwork(JSimConfig(engine="cpu", native_acs=False, **kw))
     if protocol == "dhb":
         _vote_out_last(ours)

@@ -53,7 +53,7 @@ def _dhb_sim(n=4, epochs=1, seed=7, net_mod=None):
     if net_mod is jnet:
         net = jnet.SimNetwork(jnet.SimConfig(native_acs=False, **cfg))
     else:
-        net = SimNetwork(SimConfig(**cfg))
+        net = SimNetwork(SimConfig(native_acs=False, **cfg))
     net.run(epochs)
     return net
 
@@ -240,7 +240,7 @@ def _voted_sim(seed=19, net_mod=None):
         net = jnet.SimNetwork(jnet.SimConfig(native_acs=False, **cfg))
         joiner_pk = jth.SecretKey.random(random.Random(77)).public_key()
     else:
-        net = SimNetwork(SimConfig(**cfg))
+        net = SimNetwork(SimConfig(native_acs=False, **cfg))
         joiner_pk = th.SecretKey.random(random.Random(77)).public_key()
     net.run(1)
     for nid in net.ids:
@@ -360,7 +360,7 @@ def test_resumed_port_sim_commits_the_uninterrupted_jax_sims_bytes(case):
         cfg = dict(n_nodes=4, protocol="qhb", seed=3, engine="cpu")
         straight = jnet.SimNetwork(jnet.SimConfig(native_acs=False, **cfg))
         straight.run(6)
-        interrupted = SimNetwork(SimConfig(**cfg))
+        interrupted = SimNetwork(SimConfig(native_acs=False, **cfg))
         interrupted.run(3)
         rest = 3
     else:
@@ -383,7 +383,7 @@ def test_a_jax_sim_file_and_a_sim_holding_a_tensor_are_refused():
     net.run(1)
     with pytest.raises(ckpt.CheckpointError, match="JAX package"):
         ckpt.sim_from_bytes(jckpt.sim_to_bytes(net))
-    ours = SimNetwork(SimConfig(n_nodes=4, seed=3, engine="cpu"))
+    ours = SimNetwork(SimConfig(n_nodes=4, seed=3, engine="cpu", native_acs=False))
     ours.run(1)
     ours.nodes[ours.ids[1]].stash = {"limbs": torch.zeros(3, dtype=torch.int32)}
     with pytest.raises(ckpt.CheckpointError, match=r"sim\.nodes\['n001'\]\.stash\['limbs'\]"):

@@ -410,7 +410,7 @@ def test_lowcomm_sim_on_the_card_equals_the_cpu(card):
     from hydrabadger_tpu_torch.crypto import engine
     from hydrabadger_tpu_torch.sim import network
 
-    kw = dict(n_nodes=4, epochs=3, seed=0, rbc_variant="lowcomm")
+    kw = dict(n_nodes=4, epochs=3, seed=0, rbc_variant="lowcomm", native_acs=False)
     host = network.SimNetwork(network.SimConfig(engine="cpu", **kw))
     host.run()
     before = gf256_torch.launches
@@ -493,7 +493,7 @@ def test_dhb_era_switch_on_the_card_equals_the_cpu(card):
     def run(spec, flag):
         dkg.clear_caches()
         sim = network.SimNetwork(network.SimConfig(n_nodes=4, protocol="dhb", seed=7, engine=spec,
-                                                   tpu_dkg=flag))
+                                                   tpu_dkg=flag, native_acs=False))
         sim.run(1)
         for nid in sim.ids[:-1]:
             sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(sim.ids[-1]))
@@ -515,6 +515,44 @@ def test_dhb_era_switch_on_the_card_equals_the_cpu(card):
         assert gpu.nodes[nid].netinfo.pk_set.to_bytes() == host.nodes[nid].netinfo.pk_set.to_bytes()
 
 
+def test_native_core_era_switch_on_the_card_equals_the_cpu(card):
+    """Config 5's leg at 16 nodes on the native ACS core: a removal era
+    switch with the DKG's device plane forced on the card commits the host
+    engine's batches, eras, key sets, messages and faults, and launches
+    kernel B2 and no other kernel."""
+    from hydrabadger_tpu_torch.crypto import dkg, engine
+    from hydrabadger_tpu_torch.sim import network
+
+    def run(spec, flag):
+        dkg.clear_caches()
+        sim = network.SimNetwork(network.SimConfig(
+            n_nodes=16, protocol="dhb", txns_per_node_per_epoch=4, txn_bytes=2, seed=7,
+            engine=spec, tpu_dkg=flag, native_acs=True))
+        sim.run(1)
+        for nid in sim.ids[:-1]:
+            sim.router.dispatch_step(nid, sim.nodes[nid].vote_to_remove(sim.ids[-1]))
+        for _ in range(8):
+            sim.run(1)
+            if all(sim.nodes[nid].era > 0 for nid in sim.ids[:-1]):
+                break
+        return sim, sim.run(2)
+
+    host, hm = run("cpu", False)
+    before = (fq_torch.launches, gf256_torch.launches, circuit_torch.launches, fq2_torch.launches)
+    gpu, gm = run(engine.GpuEngine(device=card), True)
+    torch.cuda.synchronize()
+    assert fq_torch.launches > before[0]
+    assert (gf256_torch.launches, circuit_torch.launches, fq2_torch.launches) == before[1:]
+    assert gm.agreement_ok and (gm.epochs_done, gm.messages_delivered, gm.faults) == (
+        hm.epochs_done, hm.messages_delivered, hm.faults)
+    assert [(s, f.node_id, f.kind) for s, f in gpu.router.faults] == [
+        (s, f.node_id, f.kind) for s, f in host.router.faults]
+    for nid in gpu.ids:
+        assert gpu.batch_bytes(nid) == host.batch_bytes(nid)
+        assert gpu.nodes[nid].era == host.nodes[nid].era > 0
+        assert gpu.nodes[nid].netinfo.pk_set.to_bytes() == host.nodes[nid].netinfo.pk_set.to_bytes()
+
+
 def test_dhb_era_switch_resumed_on_the_card_equals_the_uninterrupted_run(card, tmp_path):
     """A 4-node removal era switch on the card, snapshotted with save_sim
     while the DKG is live (the caches then cleared, as in a fresh process),
@@ -526,6 +564,7 @@ def test_dhb_era_switch_resumed_on_the_card_equals_the_uninterrupted_run(card, t
     def voted():
         dkg.clear_caches()
         sim = network.SimNetwork(network.SimConfig(n_nodes=4, protocol="dhb", seed=7, tpu_dkg=True,
+                                                   native_acs=False,
                                                    engine=engine.GpuEngine(device=card)))
         sim.run(1)
         for nid in sim.ids[:-1]:

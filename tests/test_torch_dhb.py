@@ -46,7 +46,7 @@ CFG = dict(n_nodes=4, protocol="dhb", txns_per_node_per_epoch=4, txn_bytes=2, se
 def era_switch(net_mod, **kw):
     """Bootstrap, a removal vote for the last node, epochs until every
     survivor switched era, then one steady epoch."""
-    sim = net_mod.SimNetwork(net_mod.SimConfig(engine="cpu", **CFG, **kw))
+    sim = net_mod.SimNetwork(net_mod.SimConfig(engine="cpu", native_acs=False, **CFG, **kw))
     sim.run(1)
     victim = sim.ids[-1]
     for nid in sim.ids[:-1]:
@@ -76,7 +76,7 @@ def record(sim, m):
 
 @pytest.fixture(scope="module")
 def jax_record():
-    return record(*era_switch(jnet, native_acs=False))
+    return record(*era_switch(jnet))
 
 
 @pytest.fixture(scope="module")

@@ -370,7 +370,7 @@ def test_sim_exact_e2e_samples_equal_the_jax_count():
     from hydrabadger_tpu_torch.sim import network
 
     kw = dict(n_nodes=4, protocol="qhb", epochs=3, txns_per_node_per_epoch=5, txn_bytes=8, seed=13)
-    net = network.SimNetwork(network.SimConfig(engine="cpu", **kw))
+    net = network.SimNetwork(network.SimConfig(engine="cpu", native_acs=False, **kw))
     m = net.run()
     jsim = jnet.SimNetwork(jnet.SimConfig(engine="cpu", native_acs=False, **kw))
     jsim.run()

@@ -47,7 +47,7 @@ def one_thread():
 
 
 def cfg(**kw):
-    return SimConfig(engine="cpu", **kw)
+    return SimConfig(engine="cpu", native_acs=False, **kw)
 
 
 # -- injection mechanics -----------------------------------------------------

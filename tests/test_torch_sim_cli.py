@@ -98,9 +98,8 @@ def test_fault_flags_exclude_each_other_and_indices_are_checked(capsys):
 def test_checkpoint_and_resume_flags_equal_the_jax_cli(capsys, tmp_path):
     """Each CLI checkpoints every epoch of a 2-epoch run and resumes its own
     file for 2 more: the same epochs done (2, then 4), agreement, committed
-    transactions, bytes and faults.  (Message counts differ: without a
-    fault flag the JAX CLI takes its native ACS core where it is built.)
-    `--checkpoint-every` without `--checkpoint`, and `--trace` with
+    transactions, bytes, faults and messages (both CLIs take their native
+    ACS core here, having no fault flag).  `--checkpoint-every` without `--checkpoint`, and `--trace` with
     `--resume`, are refused by both."""
     lines = {}
     for tag, main in (("port", cli.main), ("jax", jcli.main)):
@@ -109,7 +108,8 @@ def test_checkpoint_and_resume_flags_equal_the_jax_cli(capsys, tmp_path):
         first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert main(["--resume", path, "--epochs", "2", "--json", "--engine", "cpu"]) == 0
         lines[tag] = (first, json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
-    keys = ("epochs_done", "agreement_ok", "txns_committed", "bytes_committed", "faults")
+    keys = ("epochs_done", "agreement_ok", "txns_committed", "bytes_committed", "faults",
+            "messages_delivered")
     for ours, theirs in zip(lines["port"], lines["jax"]):
         assert {k: ours[k] for k in keys} == {k: theirs[k] for k in keys}
     assert lines["port"][0]["epochs_done"] == 2 and lines["port"][1]["epochs_done"] == 4

@@ -1,15 +1,16 @@
 """The port's QueueingHoneyBadger simulator against the JAX package's.
 
-`SimNetwork(engine="cpu")` in the port and JAX `SimNetwork(engine="cpu",
-native_acs=False)` on the same config commit the same batches on every
+`SimNetwork(engine="cpu", native_acs=False)` in the port and in the JAX
+package, on the same config, commit the same batches on every
 node, byte for byte, with equal `messages_delivered`, `txns_committed` and
 `faults`: the protocol tier (both broadcast variants, two seeds), the full
 crypto tier (threshold encryption and the threshold coin, shares verified
 and not), and a drop adversary.  The GPU engine on the CPU (kernel B1's
 plain version for the low-comm sketches) equals the host engine.  Entry
-points default to the card and raise without one; what is not ported yet
-raises NotImplementedError (DynamicHoneyBadger is tests/test_torch_dhb.py's);
-the CLI's JSON line has the JAX CLI's keys.
+points default to the card and raise without one; `native_acs=True` on a
+config the native core cannot run raises the JAX sim's ValueError (the
+native core is tests/test_torch_native_acs.py's, DynamicHoneyBadger
+tests/test_torch_dhb.py's); the CLI's JSON line has the JAX CLI's keys.
 """
 import json
 
@@ -41,7 +42,8 @@ def jax_batches(net, nid):
 def run_both(engine_spec="cpu", jax_adversary=None, adversary=None, **kw):
     jsim = jnet.SimNetwork(jnet.SimConfig(engine="cpu", native_acs=False, adversary=jax_adversary, **kw))
     jm = jsim.run()
-    sim = network.SimNetwork(network.SimConfig(engine=engine_spec, adversary=adversary, **kw))
+    sim = network.SimNetwork(network.SimConfig(engine=engine_spec, native_acs=False,
+                                               adversary=adversary, **kw))
     m = sim.run()
     return jsim, jm, sim, m
 
@@ -70,7 +72,7 @@ def test_full_crypto_tier_commits_the_jax_batches(verify):
 
 
 def test_gpu_engine_on_the_cpu_equals_the_host_engine():
-    kw = dict(n_nodes=4, epochs=2, seed=3, rbc_variant="lowcomm")
+    kw = dict(n_nodes=4, epochs=2, seed=3, rbc_variant="lowcomm", native_acs=False)
     host = network.SimNetwork(network.SimConfig(engine="cpu", **kw))
     host.run()
     before = sum(homhash_torch.calls.values())
@@ -117,8 +119,13 @@ def test_the_card_is_the_default_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [("native_acs", True)])
 def test_what_is_not_ported_raises(field, value):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        network.SimNetwork(network.SimConfig(engine="cpu", **{field: value}))
+    """native_acs=True on a config the native core cannot run (encryption)
+    raises the JAX sim's ValueError at the first epoch, in both packages."""
+    kw = dict(n_nodes=4, encrypt=True, **{field: value})
+    for sim in (network.SimNetwork(network.SimConfig(engine="cpu", **kw)),
+                jnet.SimNetwork(jnet.SimConfig(engine="cpu", **kw))):
+        with pytest.raises(ValueError, match="native_acs=True requires fast tier"):
+            sim.run(1)
 
 
 def test_cli_json_line_has_the_jax_cli_keys(capsys):

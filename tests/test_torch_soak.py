@@ -3,10 +3,10 @@ package's at the same arguments, on the host engine at small sizes.
 
 Each tier's deterministic fields equal the JAX soak's: bytes per epoch and
 by kind, the state census rows at era 0 and at the end, injections and
-observed faults, epochs, queue peaks and agreement.  The JAX sim tiers run
-with their native ACS core off (the port runs the Python cores; its sim
-tier says so in its label).  The CLI writes its `--out`, by default
-SOAK_torch.json, and never SOAK.json.
+observed faults, epochs, queue peaks and agreement.  The sim and era tiers
+run on the native ACS core in both packages, the JAX soak's on its host
+engine.  The CLI writes its `--out`, by default SOAK_torch.json, and never
+SOAK.json.
 """
 import functools
 import json
@@ -31,10 +31,9 @@ def one_thread():
 
 
 @pytest.fixture
-def jax_python_cores(monkeypatch):
-    """The JAX soak's sims on their Python cores and the host engine."""
-    monkeypatch.setattr(jnetwork, "SimConfig",
-                        functools.partial(jnetwork.SimConfig, native_acs=False, engine="cpu"))
+def jax_host_engine(monkeypatch):
+    """The JAX soak's sims on the host engine."""
+    monkeypatch.setattr(jnetwork, "SimConfig", functools.partial(jnetwork.SimConfig, engine="cpu"))
 
 
 def _pick(row: dict, keys) -> dict:
@@ -53,7 +52,7 @@ def test_rbc_soak_equals_the_jax_soak():
     assert ours["homhash_lane_occupancy"] == 1.0
 
 
-def test_era_soak_equals_the_jax_soak(jax_python_cores):
+def test_era_soak_equals_the_jax_soak(jax_host_engine):
     kw = dict(n_nodes=4, steady_epochs=2, eras=1)
     ours = soak.era_soak(**kw, **CPU)
     theirs = jsoak.era_soak(**kw)
@@ -65,10 +64,10 @@ def test_era_soak_equals_the_jax_soak(jax_python_cores):
     assert ours["device_backend"] == "none"  # a CPU run never claims a card
 
 
-def test_sim_soak_equals_the_jax_soak(jax_python_cores):
+def test_sim_soak_equals_the_jax_soak(jax_host_engine):
     ours = soak.sim_soak(epochs=10, n_nodes=4, **CPU)
     theirs = jsoak.sim_soak(epochs=10, n_nodes=4)
-    assert ours["tier"] == "sim_python_cores" and theirs["tier"] == "sim_native_acs"
+    assert ours["tier"] == theirs["tier"] == "sim_native_acs"
     keys = ("epochs", "max_deferred", "queue_peaks", "agreement_ok")
     assert _pick(ours, keys) == _pick(theirs, keys)
     assert ours["metrics"]["counters"] == theirs["metrics"]["counters"]
