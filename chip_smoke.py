@@ -201,7 +201,7 @@ failure:
      checkpoints persisted and the wall from the restart to the first batch.
  29. the adversarial plane on the card: config 11 (bench.py:985-1068,
      `attack_spec(4, seed=23)`: qhb, encryption and share checks, seed 23,
-     a warm epoch and 6 timed) attacked and its honest twin, each on
+     a warm epoch and 3 timed) attacked and its honest twin, each on
      `GpuEngine` and the host engine: honest batches, counts, faults,
      injections and byz_* counters byte-identical across the engines,
      `verify_scenario` held, attacked/honest epochs/s >= 0.5 on each
@@ -238,7 +238,7 @@ failure:
      plane forced): census flat, agreement, B2's launches by entry equal to
      the DKG plane's; the low-comm tier (16 nodes x 2 epochs a leg): B1's
      launches equal to those the sketch calls imply, the twin byte-equal,
-     occupancy 1.0; the TCP tier (4 nodes, full crypto, 10 epochs): its
+     occupancy 1.0; the TCP tier (4 nodes, full crypto, 3 epochs): its
      bounds, B2's launches equal to the verify batches plus the DKG plane's;
      the sim tier (4 nodes x 300 epochs, the native ACS core): 0 launches.
  31. the native host cores on the card: config 5 as bench.py runs it
@@ -257,12 +257,40 @@ failure:
      and the host engine in turns, byte-identical; then config 2's native
      tier (bench.py:468-488: 16 nodes x 20 epochs) on both engines in turns:
      the same batches, 0 launches, epochs/s and queue peaks.
+ 32. the generic full-crypto epoch, the WIN_CIRCUIT=0 path and the FFT
+     route of RS on the card: (a) `FullCryptoConfig(n_nodes=64,
+     instances=64, share_chunks=16)` (bench.py:792) with
+     HYDRABADGER_DECRYPT_T=0, and the decrypt engine resumed from its
+     start and keys: a warm epoch on each, U_next projectively equal on
+     all 4096 lanes, instance 0's 64 ciphertexts through the plain
+     versions on the card equal limb for limb; 3 counted epochs (counters
+     set to 0 just before, read just after): the check, B2's launches by
+     entry equal to `launch_counts` (32 `glv_ladder` x 5888 lanes, 22
+     `add`, 3 `mul` an epoch), no other kernel, sampled lanes against the
+     host oracle; epochs/s of both engines in turns, each launch shape's
+     device ms beside its bound; (b) decrypt_T's HYDRABADGER_WIN_CIRCUIT=0
+     path at 64 x 64 from the same start: U_next projectively equal to the
+     circuit path's, counted: 0 B3 launches and B2's by entry equal to
+     `launch_counts` (1,575: 22 `win6` x 94,208 lanes, 64 `dblk4`, 1,482
+     `ladd` (the tables' 74, the combine's 1,408), 2 `dbl`, 4 `mul`, 1
+     `add`), B2's `win6` at 94,208 lanes equal to its plain version on GLV
+     windows 0 and 1 of the epoch's gathered operands, its epochs/s and
+     launch shapes' device ms; (c) `GpuEngine.rs_encode_batch` / `rs_reconstruct_batch` with
+     HYDRABADGER_NTT_MIN_SHARDS=64 at config 6's geometry (k = 22, p = 42,
+     1024 instances, 12-byte shards): bytes equal to the B1 route and the
+     host codec, no B1 launch on the route; config 10's RS sweep (k =
+     n - 2f, p = 2f at n in 16..255, L = 1024): the FFT route on the host and
+     with its transform on the card equal to the matrix route, each timed;
+     ops/afft_torch on the card byte-equal to the numpy twins for m = 1..8,
+     its device ms at the route's shapes beside the twin's and the bytes
+     bound.
 
 The line before the last is one JSON object {"kernels": [...]} (B3's
 entry carries `pairing`, B2's `resume`, `tcp_restart`, `attack_era_switch`,
-`chaos_cluster`, `process_cluster`, `soak_era`, `soak_tcp` and
-`config5_64node`, B1's
-`attack` and `soak_rbc`); the last is {"ok": true, "device": {...}}.
+`chaos_cluster`, `process_cluster`, `soak_era`, `soak_tcp`,
+`config5_64node`, `generic_epoch` and `win_circuit0_epoch`, B1's
+`attack`, `soak_rbc` and `rs_fft_route`); the last is {"ok": true,
+"device": {...}}.
 Without a card it exits 2 and prints no result.
 """
 from __future__ import annotations
@@ -301,9 +329,10 @@ C5_NODES, C5_SEED, C5_TXNS, C5_ERA_EPOCHS, C5_STEADY = 64, 0, 4096 // 64, 8, 2
 C2_NODES, C2_EPOCHS = 16, 20
 # config 7 (bench.py:705-760, run at 1024): verified decryption shares
 PAIR_BATCH, PAIR_FORGED, PAIR_SIG = 1024, 8, 64
-# config 11 (bench.py:985-1068): the attacked sim, 4 nodes x (1 warm + 6
-# timed epochs) and 16 nodes x 2 epochs; the attacked era switch's seed
-ATTACK_NODES, ATTACK_SEED, ATTACK_EPOCHS = 4, 23, 6
+# config 11 (bench.py:985-1068): the attacked sim, 4 nodes x (1 warm + 3
+# timed epochs, cut: PERF.md section 4) and 16 nodes x 2 epochs; the
+# attacked era switch's seed
+ATTACK_NODES, ATTACK_SEED, ATTACK_EPOCHS = 4, 23, 3
 ATTACK16_NODES, ATTACK16_EPOCHS = 16, 2
 ERA_ATTACK_SEED = 9
 # config 12 (bench.py:1071-1117): the chaos cluster, epochs under fault
@@ -313,8 +342,13 @@ PROC_EPOCHS, PROC_DEADLINE_S, PROC_BASE_PORT = 3, 300.0, 15800
 # the soak tiers on the card, cut (PERF.md section 4)
 SOAK_ERA_NODES, SOAK_ERAS, SOAK_ERA_STEADY = 16, 2, 3
 SOAK_RBC_NODES, SOAK_RBC_EPOCHS = 16, 2
-SOAK_TCP_EPOCHS, SOAK_TCP_PORT = 10, 15820
+SOAK_TCP_EPOCHS, SOAK_TCP_PORT = 3, 15820
 SOAK_SIM_NODES, SOAK_SIM_EPOCHS = 4, 300
+# phase 32: config 8's generic epoch as bench.py calls it (bench.py:792,
+# share_chunks=16), a warm epoch and 3 timed; the RS FFT route at config 6's
+# geometry and config 10's RS sweep (bench.py:843, L = 1024)
+GEN_CHUNKS, GEN_EPOCHS = 16, 3
+RS_K, RS_P, RS_BATCH, RS_SWEEP_N, RS_SWEEP_L = 22, 42, 1024, (16, 32, 64, 128, 192, 255), 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -3305,6 +3339,323 @@ def native_cores(dev: torch.device, tag: str) -> dict:
     return record
 
 
+def point_shape_rows(shapes, u: torch.Tensor, tag: str) -> list:
+    """Each B2 launch shape of an epoch (ops/decrypt_torch.Launch rows):
+    its device ms per launch at its lanes by CUDA events over back-to-back
+    launches, beside its bound (`fq_torch.products` per lane, each element
+    read or written once).  Operands are points of `u` repeated to the
+    shape's lanes; a `mul` takes the shape's operand form."""
+    from hydrabadger_tpu_torch.ops import fq_torch as fq, limbs
+
+    n = u.shape[-1]
+    beta = torch.as_tensor(limbs.BETA_MONT, device=u.device)[:, None]
+    rows = []
+    for r in shapes:
+        k = -(-r.lanes // n)
+        a = u.repeat(1, 1, k)[..., :r.lanes].contiguous()
+        b = fq.jac_double_plain(a).roll(1, -1).contiguous()
+        if r.name == "mul":
+            other = {"a*b": b[1], "a*a": a[0], "a*const": beta}[r.form]
+            fn = lambda: fq.fq_mul(a[0], other)  # noqa: E731
+        elif r.name.startswith("win"):
+            c = a.roll(3, -1).contiguous()
+            fn = lambda: fq.window_step(a, b, c, int(r.name[3:]))  # noqa: E731
+        elif r.name.startswith("dblk"):
+            fn = lambda: fq.jac_double_k(a, int(r.name[4:]))  # noqa: E731
+        else:
+            entry = fq.ENTRIES[r.name][0]
+            fn = (lambda: entry(a, b)) if r.name in ("add", "ladd") else (lambda: entry(a))
+        ms = launch_ms(fn)
+        prods = fq.products(r.name)
+        o, by = roofline.product_ms(prods * r.lanes, r.elements * r.lanes)
+        bound, what = roofline.bound_ms(o, by)
+        rows.append({"entry": r.name, "form": r.form, "lanes": r.lanes, "per_epoch": r.count,
+                     "products_per_lane": prods, "ms": ms, "bound_ms": bound, "bound_by": what})
+        print(f"  fq_point {r.name}{' ' + r.form if r.form else ''} x {r.lanes} lanes "
+              f"({r.count}/epoch): {ms:.4f} ms per launch, bound {bound:.5f} ms ({what}), "
+              f"{ms / bound:.0f}x {tag}")
+    return rows
+
+
+def generic_epoch_plane(dev: torch.device, tag: str) -> tuple[dict, dict]:
+    """Phase 32a-b: config 8's generic full-crypto epoch and decrypt_T's
+    WIN_CIRCUIT=0 path on kernel B2.  Returns the records for B2's entry."""
+    from hydrabadger_tpu_torch.crypto import bls12_381 as bls
+    from hydrabadger_tpu_torch.ops import bls_torch, limbs
+    from hydrabadger_tpu_torch.ops import decrypt_torch as dt, fq_torch as fq
+    from hydrabadger_tpu_torch.sim import tensor as ts
+
+    # -- 32a. the generic epoch at bench.py's call ---------------------------
+    cfg = ts.FullCryptoConfig(n_nodes=FC_NODES, instances=FC_INSTANCES, share_chunks=GEN_CHUNKS)
+    n, q = cfg.instances * cfg.n_nodes, cfg.threshold + 1
+    t0 = time.perf_counter()
+    os.environ["HYDRABADGER_DECRYPT_T"] = "0"
+    try:
+        gen = ts.FullCryptoTensorSim(cfg, device=dev)
+    finally:
+        os.environ.pop("HYDRABADGER_DECRYPT_T", None)
+    check(gen.generic and "glv_ladder" in gen.epoch.launch_counts()["fq_point"],
+          "HYDRABADGER_DECRYPT_T=0 did not select the generic epoch")
+    u0 = gen._U.clone()
+    dec = ts.FullCryptoTensorSim.from_jax(gen.state(), gen._sks, gen._master, gen._quorum,
+                                          device=dev)
+    check(not dec.generic and dec.epoch.win_circuit, "unset did not select the decrypt engine")
+    print(f"32a: generic epoch set-up {time.perf_counter() - t0:.2f} s: {cfg}, "
+          f"{n} ciphertexts x {q + 1} lanes, {GEN_CHUNKS} chunks of "
+          f"{n * (q + 1) // GEN_CHUNKS} lanes a stage")
+
+    def same_points(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+        check(bool(dt.jac_eq(a, b, fq.fq_mul_plain)), f"{what}: not projectively equal")
+        lanes = [0, 1, n // 2, n - 1]
+        pa = limbs.limbs_to_points(a[..., lanes].cpu().numpy())
+        pb = limbs.limbs_to_points(b[..., lanes].cpu().numpy())
+        check(all(bls.eq(x, y) for x, y in zip(pa, pb)), f"{what}: sampled lanes differ")
+
+    t0 = time.perf_counter()
+    check(gen.run(1), "generic warm epoch: the check failed")
+    warm_s = time.perf_counter() - t0
+    check(dec.run(1), "decrypt engine's warm epoch: the check failed")
+    same_points(gen._U, dec._U, "generic vs decrypt engine after the warm epoch")
+    print(f"32a: warm epoch {warm_s:.3f} s; U_next projectively equal to the decrypt "
+          f"engine's on all {n} lanes (plain products on the card) and on sampled lanes "
+          f"(host points)")
+    plain = ts.build_full_crypto_epoch(1, cfg.n_nodes, cfg.threshold, 1, dev, use_kernel=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_next, p_ok = plain(u0[..., :cfg.n_nodes].contiguous(), *gen._windows)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max_abs_err(p_next, gen._U[..., :cfg.n_nodes])
+    check(bool(p_ok) and err == 0,
+          f"instance 0 through the plain versions != the kernel path (max err {err})")
+    print(f"32a: instance 0 ({cfg.n_nodes} ciphertexts) through the plain versions on the card "
+          f"== the kernel path, limb for limb ({plain_s:.2f} s)")
+
+    want = gen.epoch.launch_counts()
+    zero_launches(dev)
+    t0 = time.perf_counter()
+    ok = gen.run(GEN_EPOCHS)  # one host sync, at the end
+    gen_s = [time.perf_counter() - t0]
+    by_kind, others = b2_launches(dev)
+    check(ok, "generic main path: the check failed")
+    expect = {k: v * GEN_EPOCHS for k, v in want["fq_point"].items()}
+    check(by_kind == expect, f"generic epoch: B2 launches {by_kind}, launch_counts imply {expect}")
+    check(sum(others.values()) == 0, f"generic epoch launched other kernels: {others}")
+    sample = [0, n // 3, n - 1]
+    check(gen.oracle_check(sample), "generic epoch: sampled lanes != the host oracle")
+    print(f"32a: main path, {GEN_EPOCHS} epochs ok; B2 launches by entry {by_kind} == "
+          f"{GEN_EPOCHS} x launch_counts {want['fq_point']}, no other kernel; lanes {sample} == "
+          f"U + sum lam_i (U sk_i) (host oracle)")
+    dec_s = []
+    for sim, walls in ((dec, dec_s), (dec, dec_s), (gen, gen_s)):  # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(sim.run(GEN_EPOCHS), "timed run: the check failed")
+        walls.append(time.perf_counter() - t0)
+    same_points(gen._U, dec._U, "generic vs decrypt engine after the timed epochs")
+    gen_eps = [GEN_EPOCHS / w for w in gen_s]
+    dec_eps = [GEN_EPOCHS / w for w in dec_s]
+    print(f"32a: epochs/s at {FC_NODES} x {FC_INSTANCES}: generic {[round(e, 3) for e in gen_eps]}, "
+          f"decrypt engine {[round(e, 3) for e in dec_eps]} (in turns) {tag}")
+    # each launch shape's device ms: the ladder at a chunk of each stage's
+    # real digits, its bound from the whole stage's digits (bls_torch.glv_plan)
+    s1 = torch.cat([gen._windows[0][:, :, :q], gen._windows[2]], 2)
+    s2 = torch.cat([gen._windows[1], gen.epoch._one], 2)
+    m = n * (q + 1) // GEN_CHUNKS
+    lanes0 = u0[:, :, :, None].expand(3, limbs.N_LIMBS, n, q + 1).reshape(3, limbs.N_LIMBS, -1)
+    x = lanes0[..., :m].contiguous()
+    glv_ms, glv_ops, glv_bytes = [], 0.0, 0.0
+    for stage in (s1, s2):
+        d = gen.epoch.lane_digits(stage)
+        dm = d[..., :m].contiguous()
+        glv_ms.append(launch_ms(lambda: fq.glv_ladder(x, dm), reps=5, batches=3))
+        o, by = bls_torch.glv_plan(d.cpu().numpy())[0].bound()
+        glv_ops, glv_bytes = glv_ops + o, glv_bytes + by
+    glv_bound, glv_by = roofline.bound_ms(glv_ops, glv_bytes)
+    print(f"  fq_point glv_ladder x {m} lanes ({2 * GEN_CHUNKS}/epoch): stage 1 {glv_ms[0]:.4f}, "
+          f"stage 2 {glv_ms[1]:.4f} ms per launch; both stages' bound {glv_bound:.5f} ms "
+          f"({glv_by}) {tag}")
+    rows = [{"entry": "glv_ladder", "lanes": m, "per_epoch": 2 * GEN_CHUNKS,
+             "ms_stage1": glv_ms[0], "ms_stage2": glv_ms[1],
+             "epoch_ms": GEN_CHUNKS * sum(glv_ms), "epoch_bound_ms": glv_bound,
+             "bound_by": glv_by}]
+    rest = point_shape_rows([r for r in gen.epoch.launch_shapes() if r.name != "glv_ladder"],
+                            u0, tag)
+    rows += rest
+    dev_ms = rows[0]["epoch_ms"] + sum(r["ms"] * r["per_epoch"] for r in rest)
+    bound = glv_bound + sum(r["bound_ms"] * r["per_epoch"] for r in rest)
+    print(f"32a: generic epoch {1e3 / float(np.median(gen_eps)):.2f} ms wall; B2 {dev_ms:.3f} "
+          f"device ms an epoch by shape ({sum(r['per_epoch'] for r in rows)} launches), bound "
+          f"{bound:.4f} ms {tag}")
+    generic = {"per": f"config 8's generic epoch (bench.py:792), {FC_NODES} x {FC_INSTANCES}, "
+                      f"share_chunks={GEN_CHUNKS}",
+               "launches": sum(by_kind.values()), "launches_by_entry": by_kind,
+               "epochs_per_s": gen_eps, "decrypt_engine_epochs_per_s": dec_eps,
+               "device_ms_per_epoch": dev_ms, "bound_ms_per_epoch": bound,
+               "plain_instance_s": plain_s, "shapes": rows}
+
+    # -- 32b. decrypt_T's WIN_CIRCUIT=0 path ---------------------------------
+    os.environ["HYDRABADGER_WIN_CIRCUIT"] = "0"
+    try:
+        win = dt.build_epoch(n, [dec._sks[i] for i in dec._quorum], dec._lam, dec._mp1,
+                             device=dev)
+    finally:
+        os.environ.pop("HYDRABADGER_WIN_CIRCUIT", None)
+    check(not win.win_circuit and win.straus is None, "WIN_CIRCUIT=0 did not select the path")
+    ref, ok_ref = dec.epoch(u0)
+    check(bool(ok_ref), "circuit path: the check failed")
+    w_next, ok_w = win(u0)  # warm
+    check(bool(ok_w), "WIN_CIRCUIT=0 warm epoch: the check failed")
+    want_w = win.launch_counts()
+    zero_launches(dev)
+    t0 = time.perf_counter()
+    w_next, ok_w = win(u0)
+    check(bool(ok_w), "WIN_CIRCUIT=0 epoch: the check failed")
+    win_s = [time.perf_counter() - t0]
+    w_kind, w_others = b2_launches(dev)
+    check(w_others["circuit"] == 0 and sum(w_others.values()) == 0,
+          f"WIN_CIRCUIT=0 epoch launched other kernels: {w_others}")
+    check(w_kind == want_w["fq_point"] and want_w["circuit"] == {},
+          f"WIN_CIRCUIT=0 epoch: B2 launches {w_kind}, launch_shapes imply {want_w}")
+    same_points(w_next, ref, "WIN_CIRCUIT=0 vs the circuit path")
+    limb_equal = torch.equal(w_next, ref)
+    # B2's win6 at this path's width against its plain version, exactly:
+    # GLV windows 0 (the accumulator at infinity) and 1 of the epoch's
+    # ladder segments, on the operands the epoch gathers
+    S = q + 1
+    t1, t2 = win.dual_table(u0)
+    acc = fq.jac_infinity(S * n, dev).reshape(3, limbs.N_LIMBS, S, n)
+    win6_err = 0
+    for j in range(2):
+        s1, s2 = win.window_operands(t1, t2, j)
+        got = fq.window_step(acc, s1, s2, dt.W1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fq.window_step_plain(acc, s1, s2, dt.W1)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        win6_err = max(win6_err, err)
+        check(torch.equal(got, want),
+              f"fq_point != plain at win6 [3, 12, {S}, {n}] window {j} (max err {err})")
+        print(f"kernel == plain, exact: fq_point win6 [3, 12, {S}, {n}] ({S * n} lanes), GLV "
+              f"window {j} of the WIN_CIRCUIT=0 epoch (plain {time.perf_counter() - t0:.2f} s)")
+        acc = got
+    del t1, t2, acc, got, want
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(bool(win(u0)[1]), "timed WIN_CIRCUIT=0 epoch: the check failed")
+        win_s.append(time.perf_counter() - t0)
+    win_eps = [1 / w for w in win_s]
+    print(f"32b: WIN_CIRCUIT=0 epoch at {FC_NODES} x {FC_INSTANCES}: U_next projectively equal "
+          f"to the circuit path's on all {n} lanes (limb for limb: {limb_equal}); 0 B3 launches, "
+          f"B2 {sum(w_kind.values())} by entry {w_kind} == launch_counts; epochs/s "
+          f"{[round(e, 3) for e in win_eps]} {tag}")
+    w_rows = point_shape_rows(win.launch_shapes(), u0, tag)
+    w_ms = sum(r["ms"] * r["per_epoch"] for r in w_rows)
+    w_bound = sum(r["bound_ms"] * r["per_epoch"] for r in w_rows)
+    print(f"32b: WIN_CIRCUIT=0 epoch: B2 {w_ms:.3f} device ms by shape, bound {w_bound:.4f} ms "
+          f"{tag}")
+    win_rec = {"per": f"decrypt_T's WIN_CIRCUIT=0 epoch, {FC_NODES} x {FC_INSTANCES}",
+               "launches": sum(w_kind.values()), "launches_by_entry": w_kind,
+               "epochs_per_s": win_eps, "device_ms_per_epoch": w_ms,
+               "bound_ms_per_epoch": w_bound, "limb_equal_to_circuit_path": limb_equal,
+               "win6_max_abs_err": win6_err, "shapes": w_rows}
+    return generic, win_rec
+
+
+def rs_fft_plane(dev: torch.device, tag: str) -> dict:
+    """Phase 32c: the FFT route of RS on GpuEngine, config 10's RS sweep and
+    the AFFT on the card.  Returns the record for B1's entry."""
+    from hydrabadger_tpu_torch.crypto import _native
+    from hydrabadger_tpu_torch.crypto.engine import CpuEngine, GpuEngine
+    from hydrabadger_tpu_torch.crypto.rs import encode_matrix
+    from hydrabadger_tpu_torch.ops import afft_torch, gf256_torch, ntt_torch, rs_fft
+
+    rng = np.random.default_rng(32)
+    eng, host = GpuEngine(device=dev), CpuEngine()
+    k, p = RS_K, RS_P
+    n = k + p
+    data = rng.integers(0, 256, (RS_BATCH, k, SHARD_LEN), dtype=np.uint8)
+    rows = list(range(p, n))  # the main path's parity quorum
+    check(not eng._rs_route_ntt(k, p), "the GPU engine routed RS without the opt-in")
+    zero_launches(dev)
+    b1_enc = eng.rs_encode_batch(data, k, p)
+    b1_rec = eng.rs_reconstruct_batch(b1_enc[:, p:n], rows, k, p)
+    _, b1_others = b2_launches(dev)
+    check(b1_others["gf256_matmul"] > 0, "the B1 route made no B1 launch")
+    os.environ["HYDRABADGER_NTT_MIN_SHARDS"] = str(N_NODES)
+    try:
+        check(eng._rs_route_ntt(k, p), "HYDRABADGER_NTT_MIN_SHARDS did not route the engine")
+        eng.rs_encode_batch(data, k, p)  # warm: plans, tables on the card
+        zero_launches(dev)
+        t0 = time.perf_counter()
+        fft_enc = eng.rs_encode_batch(data, k, p)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fft_rec = eng.rs_reconstruct_batch(fft_enc[:, p:n], rows, k, p)
+        rec_s = time.perf_counter() - t0
+        _, f_others = b2_launches(dev)
+    finally:
+        os.environ.pop("HYDRABADGER_NTT_MIN_SHARDS", None)
+    check(sum(f_others.values()) == 0, f"the FFT route launched kernels: {f_others}")
+    host_enc = host.rs_encode_batch(data, k, p)
+    host_rec = host.rs_reconstruct_batch(host_enc[:, p:n], rows, k, p)
+    check(np.array_equal(fft_enc, b1_enc) and np.array_equal(fft_enc, host_enc),
+          "FFT-route encode != the B1 route / the host codec")
+    check(np.array_equal(fft_rec, b1_rec) and np.array_equal(fft_rec, host_rec)
+          and np.array_equal(fft_rec, data), "FFT-route reconstruct != B1 / host / the data")
+    print(f"32c: GpuEngine RS FFT route (HYDRABADGER_NTT_MIN_SHARDS={N_NODES}) at ({k}, {p}) x "
+          f"{RS_BATCH} instances x {SHARD_LEN} B: encode {1e3 * enc_s:.2f} ms, reconstruct from "
+          f"rows {p}..{n - 1} {1e3 * rec_s:.2f} ms (wall); bytes == the B1 route == the host "
+          f"codec, no kernel launch on the route {tag}")
+
+    sweep = []
+    for nn in RS_SWEEP_N:
+        f = (nn - 1) // 3
+        kk, pp = nn - 2 * f, 2 * f
+        d = rng.integers(0, 256, (kk, RS_SWEEP_L), dtype=np.uint8)
+        mat = np.asarray(encode_matrix(kk, pp))[kk:]
+        want = _native.gf_matmul(mat, d)
+        got_host = rs_fft.encode_parity(d, kk, pp)
+        got_card = rs_fft.encode_parity(d, kk, pp, dev)
+        check(np.array_equal(got_host, want) and np.array_equal(got_card, want),
+              f"config 10 sweep: the FFT route != the matrix route at n = {nn}")
+        row = {"n": nn, "k": kk, "parity": pp,
+               "matrix_native_ms": wall_ms(lambda: _native.gf_matmul(mat, d)),
+               "fft_host_ms": wall_ms(lambda: rs_fft.encode_parity(d, kk, pp)),
+               "fft_card_afft_ms": wall_ms(lambda: rs_fft.encode_parity(d, kk, pp, dev))}
+        sweep.append(row)
+    print(f"32c: config 10's RS sweep (broadcast geometry, L = {RS_SWEEP_L}), FFT == matrix at "
+          f"every n; wall ms (median of 5): {sweep} {tag}")
+
+    for m in range(1, 9):
+        c = rng.integers(0, 256, (1 << m, 64, 12), dtype=np.uint8)
+        fwd = afft_torch.afft_fwd(torch.from_numpy(c).to(dev), m)
+        check(np.array_equal(fwd.cpu().numpy(), ntt_torch.gf_afft(c, m)),
+              f"AFFT on the card != the numpy twin at m = {m}")
+        inv = afft_torch.afft_inv(fwd, m)
+        check(np.array_equal(inv.cpu().numpy(), c), f"AFFT inverse on the card at m = {m}")
+    print("32c: ops/afft_torch on the card == ntt_torch.gf_afft / gf_iafft, byte for byte, "
+          "m = 1..8")
+    afft = []
+    for label, tail in (("config 6 route", RS_BATCH * SHARD_LEN), ("config 10 sweep", RS_SWEEP_L)):
+        c = rng.integers(0, 256, (256, tail), dtype=np.uint8)
+        x = torch.from_numpy(c).to(dev)
+        ms = timed_ms(lambda: afft_torch.afft_fwd(x, 8), 10)
+        t0 = time.perf_counter()
+        ntt_torch.gf_afft(c, 8)
+        twin_ms = 1e3 * (time.perf_counter() - t0)
+        _, by = roofline.ops_bytes_ms(0, 2 * c.size)
+        afft.append({"shape": f"[256, {tail}]", "per": label, "ms": ms, "numpy_twin_ms": twin_ms,
+                     "bound_ms": by, "bound_by": "bytes"})
+        print(f"32c: afft_fwd m = 8 x {tail} lanes ({label}): {ms:.4f} device ms (CUDA events), "
+              f"numpy twin {twin_ms:.2f} ms, bound {by:.5f} ms (bytes) {tag}")
+    return {"per": f"GpuEngine RS FFT route at ({k}, {p}) x {RS_BATCH} x {SHARD_LEN}",
+            "encode_ms": 1e3 * enc_s, "reconstruct_ms": 1e3 * rec_s, "b1_launches_on_route": 0,
+            "config10_sweep": sweep, "afft": afft}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -3542,6 +3893,13 @@ def main() -> int:
     t31 = time.perf_counter()
     fq_entry["config5_64node"] = native_cores(dev, tag)
     print(f"phase 31: {time.perf_counter() - t31:.1f} s {tag}")
+    # -- 32. the generic full-crypto epoch, WIN_CIRCUIT=0, the RS FFT route --
+    t32 = time.perf_counter()
+    fq_entry["generic_epoch"], fq_entry["win_circuit0_epoch"] = generic_epoch_plane(dev, tag)
+    fq_entry["max_abs_err"] = max(fq_entry["max_abs_err"],
+                                  fq_entry["win_circuit0_epoch"]["win6_max_abs_err"])
+    kernels[0]["rs_fft_route"] = rs_fft_plane(dev, tag)
+    print(f"phase 32: {time.perf_counter() - t32:.1f} s {tag}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

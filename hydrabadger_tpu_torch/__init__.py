@@ -44,8 +44,13 @@ consensus/, obs/, utils/, the sim's router and network).
     ops/fq2_torch        Fp2 and Jacobian G2 ops: kernel B4 and its plain version
     ops/bls_g2_torch     batched G2 ladders: sign shares, Lagrange combines
     ops/fp_probe_torch   the Fp probes' kernel and its plain versions
+    ops/ntt_torch        the GF(2^8) additive FFT's plan and numpy twins, the
+                         Fr NTT's names
+    ops/afft_torch       the additive FFT as torch ops on the tensor's device
+    ops/rs_fft           RS by interpolate-and-evaluate (the FFT route)
     sim/tensor.py        the fast-path epoch (TensorSim) and the
-                         threshold-decrypt plane (FullCryptoTensorSim)
+                         threshold-decrypt plane (FullCryptoTensorSim: the
+                         decrypt engine or the generic epoch)
     sim/coin.py          one common-coin round for every ABA instance
                          (CoinRound) through GpuEngine
     sim/decrypt.py       one epoch's threshold decryption (DecryptRound)

@@ -32,6 +32,18 @@ def _load():
     return _LIB
 
 
+def native_available() -> bool:
+    """Is the host library built and loaded (building it here if needed)?
+    crypto/rs keys its FFT-route threshold on this, as the JAX package
+    keys it on its native library; a failed build answers False here and
+    still raises at the first product."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def gf_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """[m, k] x [k, n] GF(2^8) matmul in the host library."""
     a = np.ascontiguousarray(a, dtype=np.uint8)

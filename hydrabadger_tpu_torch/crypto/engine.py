@@ -14,12 +14,16 @@ touching protocol logic.  Two engines:
   and combines, per-frame `sign` / `verify` with a process-wide verdict
   cache) and the batch entries (`g1_msm_batch`: the host MSM per job;
   `verify_batch`: the TCP tier's wire signatures as one random linear
-  combination, its r_i * pk_i terms on the native host ladder).
+  combination, its r_i * pk_i terms on the native host ladder;
+  `fr_poly_eval_batch`, the DKG's share rows, host work on both engines,
+  with immediate `submit_*` twins as `submit_verify_decryption_shares_batch`).
 * `GpuEngine` ("gpu", `device="cuda"`) overrides, as the JAX TpuEngine
   does, only batch entries: `homhash_batch` on kernel B1
   (ops/homhash_torch, the low-comm broadcast's shard sketches, the one
   device call the consensus cores make), `rs_encode_batch` /
-  `rs_reconstruct_batch` on kernel B1 (ops/rs_torch), `sign_share_batch`
+  `rs_reconstruct_batch` on kernel B1 (ops/rs_torch; with
+  HYDRABADGER_NTT_MIN_SHARDS set, from that many shards, the FFT route of
+  ops/rs_fft with its forward transform on the engine's device), `sign_share_batch`
   and `combine_signature_shares_batch` on kernel B4 (ops/bls_g2_torch),
   `decrypt_share_batch` and `combine_decryption_shares_batch` on kernel B2
   (ops/bls_torch), `g1_msm_batch` (the DKG's batched MSMs) on kernel B2
@@ -42,6 +46,7 @@ from __future__ import annotations
 import collections
 import functools
 import hashlib
+import os
 import time
 from functools import lru_cache
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -51,12 +56,13 @@ import torch
 
 from ..device import resolve_device
 from ..obs import metrics as M
-from ..ops import bls_g2_torch, bls_torch, homhash_torch, limbs, msm_torch, pairing_torch, rs_torch
+from ..ops import (bls_g2_torch, bls_torch, homhash_torch, limbs, msm_torch, pairing_torch, rs_fft,
+                   rs_torch)
 from ..utils.lru import DigestLRU
 from . import bls12_381 as bls
 from . import futures, homhash
 from . import threshold as th
-from .rs import ReedSolomon
+from .rs import ReedSolomon, ntt_enabled
 
 
 @lru_cache(maxsize=256)
@@ -351,6 +357,28 @@ class CpuEngine:
     def submit_g1_msm_batch(self, jobs) -> futures.CryptoFuture:
         return futures.immediate(self.g1_msm_batch(jobs), "g1_msm_batch")
 
+    # -- Fr multipoint evaluation (the DKG's share rows) --------------------
+
+    def fr_poly_eval_batch(self, rows: Sequence[Sequence[int]], xs: Sequence[int]
+                           ) -> List[List[int]]:
+        """Every coefficient row at every point in one call: the host route
+        of both engines (crypto/dkg.fr_eval_points_batch: Horner below the
+        size threshold, ops/fr_poly's Newton/NTT convolution above it, the
+        same residues either way)."""
+        from .dkg import fr_eval_points_batch
+
+        return fr_eval_points_batch(rows, xs)
+
+    def submit_fr_poly_eval_batch(self, rows: Sequence[Sequence[int]], xs: Sequence[int]
+                                  ) -> futures.CryptoFuture:
+        """Host work on every engine, so the future is immediate."""
+        return futures.immediate(self.fr_poly_eval_batch(rows, xs), "fr_poly_eval_batch")
+
+    def submit_verify_decryption_shares_batch(self, pk_shares, shares, ct
+                                              ) -> futures.CryptoFuture:
+        return futures.immediate(self.verify_decryption_shares_batch(pk_shares, shares, ct),
+                                 "verify_dec_shares")
+
     def __repr__(self) -> str:
         return f"<{type(self).__name__}>"
 
@@ -415,17 +443,40 @@ class GpuEngine(CpuEngine):
     def homhash_batch(self, shards: Sequence[bytes], seed: bytes) -> List[bytes]:
         return self.submit_homhash_batch(shards, seed).result()
 
-    # -- Reed-Solomon on kernel B1 ------------------------------------------
+    # -- Reed-Solomon on kernel B1, or the FFT route on opt-in -------------
+
+    @staticmethod
+    def _rs_route_ntt(data_shards: int, parity_shards: int) -> bool:
+        """The batch entries' FFT route: explicit opt-in only.  The host
+        codec's default threshold (crypto/rs._ntt_min_shards) is keyed on
+        the host library, the wrong signal for this engine, whose baseline
+        is one B1 launch per batch; so the route fires only where
+        HYDRABADGER_NTT_MIN_SHARDS is set (and HYDRABADGER_NTT is not 0)."""
+        env = os.environ.get("HYDRABADGER_NTT_MIN_SHARDS", "")
+        return (bool(env) and parity_shards > 0
+                and data_shards + parity_shards >= int(env) and ntt_enabled())
 
     def _upload(self, x) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(self.device)
 
     def submit_rs_encode_batch(self, data, data_shards: int, parity_shards: int):
+        if self._rs_route_ntt(data_shards, parity_shards):
+            # interpolation is host work and the result comes back to the
+            # host, so the future is immediate; the forward transform runs
+            # on this engine's device (ops/afft_torch)
+            return futures.immediate(
+                rs_fft.encode_batch(data, data_shards, parity_shards, self.device),
+                "rs_encode_batch")
         out = rs_torch.rs_encode_batch(self._upload(data), data_shards, parity_shards,
                                        use_kernel=self.use_kernel)
         return futures.submit(lambda: out.cpu().numpy(), "rs_encode_batch")
 
     def submit_rs_reconstruct_batch(self, surviving, rows, data_shards: int, parity_shards: int):
+        if self._rs_route_ntt(data_shards, parity_shards):
+            rec = rs_fft.reconstruct_rows(
+                np.moveaxis(np.asarray(surviving, dtype=np.uint8), 1, 0), rows,
+                range(data_shards), data_shards, parity_shards, self.device)
+            return futures.immediate(np.moveaxis(rec, 0, 1), "rs_reconstruct_batch")
         out = rs_torch.rs_reconstruct_batch(self._upload(surviving), rows, data_shards,
                                             parity_shards, use_kernel=self.use_kernel)
         return futures.submit(lambda: out.cpu().numpy(), "rs_reconstruct_batch")

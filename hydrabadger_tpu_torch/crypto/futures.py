@@ -14,6 +14,11 @@ Copy of the contract of hydrabadger_tpu/crypto/futures.py:
   protocol effect that never happened: `__del__` warns loudly
   (`DroppedFutureWarning`) and remembers its label, which
   `check_dropped` raises at the sim's tick boundary.
+* Every future counts itself in the process registry under JAX's names:
+  `crypto_futures_submitted` when made, `crypto_futures_fetched` when its
+  `result()` first runs (an immediate future counts both at once) and
+  `crypto_futures_dropped` when it dies unfetched; each fetch stamps the
+  overlap gauges there too.
 * Submitted futures keep the overlap accounting `stamp_gauges` writes: of
   the wall between a submit and its `result()`, the share the host spent
   elsewhere (`device_overlap_ratio`), and the wall with nothing in flight
@@ -136,6 +141,7 @@ class CryptoFuture:
             _idle_s += self._submit_t - _idle_since
             _idle_since = None
         _inflight += 1
+        M.default_registry().counter(M.CRYPTO_FUTURES_SUBMITTED).inc()
 
     @property
     def done(self) -> bool:
@@ -159,6 +165,9 @@ class CryptoFuture:
                 _overlap_s += t0 - self._submit_t
                 _block_s += now - t0
                 _leave(now)
+                reg = M.default_registry()
+                reg.counter(M.CRYPTO_FUTURES_FETCHED).inc()
+                stamp_gauges(reg)
         if self._exc is not None:
             raise self._exc
         return self._value
@@ -168,6 +177,7 @@ class CryptoFuture:
             try:
                 _leave(time.perf_counter())
                 _dropped.append(self.label)
+                M.default_registry().counter(M.CRYPTO_FUTURES_DROPPED).inc()
             except Exception:
                 pass  # interpreter teardown: the module may be gone
             warnings.warn(
@@ -183,10 +193,14 @@ class CryptoFuture:
 
 def immediate(value: Any, label: str = "immediate") -> CryptoFuture:
     """A future that already holds its value (the CPU engine's submit_*),
-    outside the overlap accounting: nothing was deferred."""
+    outside the overlap accounting: nothing was deferred.  It counts as
+    submitted and fetched at once."""
     fut = CryptoFuture.__new__(CryptoFuture)
     fut._fn, fut._value, fut._exc, fut._done, fut.label = None, value, None, True, label
     fut._submit_t = 0.0
+    reg = M.default_registry()
+    reg.counter(M.CRYPTO_FUTURES_SUBMITTED).inc()
+    reg.counter(M.CRYPTO_FUTURES_FETCHED).inc()
     return fut
 
 

@@ -73,6 +73,12 @@ def inv(a) -> np.ndarray:
     return EXP_TABLE[255 - LOG_TABLE[a.astype(np.int32)]].astype(np.uint8)
 
 
+def div(a, b) -> np.ndarray:
+    """Element-wise quotient a / b over GF(2^8); b = 0 raises."""
+    b = np.asarray(b, dtype=np.uint8)
+    return mul(a, inv(b))
+
+
 def pow_(a: int, n: int) -> int:
     if n == 0:
         return 1
@@ -100,6 +106,11 @@ def matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     prod = EXP_TABLE[la[:, :, None] + lb[None, :, :]]  # [m, k, n]
     prod = np.where((a[:, :, None] == 0) | (b[None, :, :] == 0), 0, prod)
     return np.bitwise_xor.reduce(prod.astype(np.uint8), axis=1)
+
+
+def matvec(a: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """[m, k] x [k] -> [m]: the matrix product with one column."""
+    return matmul(a, v[:, None])[:, 0]
 
 
 def mat_inv(m: np.ndarray) -> np.ndarray:

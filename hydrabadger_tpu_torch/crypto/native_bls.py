@@ -267,6 +267,13 @@ def g1_mul_batch(points: Sequence, scalars: Sequence[int]) -> List:
     return [g1_mul_sub(p, s) for p, s in zip(points, scalars)]
 
 
+def g2_mul_batch(points: Sequence, scalars: Sequence[int]) -> List:
+    """Batch of independent G2 scalar muls via the GLS ladder.
+
+    Scalars are reduced mod r — callers pass subgroup points only."""
+    return [g2_mul_sub(p, s) for p, s in zip(points, scalars)]
+
+
 def g1_fold_pow(
     point_matrix: Sequence[Sequence], base: int, axis: int, raw96=None
 ) -> List:

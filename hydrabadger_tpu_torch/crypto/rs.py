@@ -10,15 +10,24 @@ consensus cores' Broadcast calls them.
 Encoding matrix: Vandermonde V[n, k] normalised so the top k x k block is
 the identity (systematic), so every k x k submatrix is invertible.
 
-Every encode and reconstruct product runs in the host GF(2^8) library
-(`crypto/_native`, native/gf256_rs.cpp), as the JAX package's does; the
-matrices themselves come from `gf256`.  Left out until the port has it: the
-additive-FFT routing (`ops/rs_fft`).  This module builds the encode and
-decode matrices that the device path (ops/rs_torch.py) uploads, and it is
-the oracle of `sim/tensor.cpu_fast_path_epoch`.
+Every encode and reconstruct product of the matrix route runs in the host
+GF(2^8) library (`crypto/_native`, native/gf256_rs.cpp), as the JAX
+package's does; the matrices themselves come from `gf256`.  This module
+builds the encode and decode matrices that the device path (ops/rs_torch.py)
+uploads, and it is the oracle of `sim/tensor.cpu_fast_path_epoch`.
+
+The FFT route (JAX `crypto/rs._route_ntt`): from `_ntt_min_shards()` total
+shards the encode, reconstruct and verify maps run through the additive
+FFT plane (ops/rs_fft, host numpy here: the host route never touches a
+card), byte-identical to the matrix route.  The threshold is keyed on the
+host library as JAX keys it on its native library: where the library is
+built the route never fires by default (the matrix route wins at every
+n <= 255); without it, from 128 shards.  `HYDRABADGER_NTT_MIN_SHARDS`
+overrides the threshold and `HYDRABADGER_NTT=0` pins the matrix route.
 """
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from typing import Optional, Sequence
 
@@ -29,6 +38,20 @@ from . import _native, gf256
 
 class ReedSolomonError(ValueError):
     pass
+
+
+_NTT_OFF_THRESHOLD = 1 << 30  # never routes: n is capped at 255
+
+
+def ntt_enabled() -> bool:
+    return os.environ.get("HYDRABADGER_NTT", "1") != "0"
+
+
+def _ntt_min_shards() -> int:
+    env = os.environ.get("HYDRABADGER_NTT_MIN_SHARDS", "")
+    if env:
+        return int(env)
+    return 128 if not _native.native_available() else _NTT_OFF_THRESHOLD
 
 
 @lru_cache(maxsize=256)
@@ -64,7 +87,20 @@ class ReedSolomon:
         self.total_shards = self.data_shards + self.parity_shards
         self.matrix = encode_matrix(self.data_shards, self.parity_shards)
 
+    def _route_ntt(self) -> bool:
+        """Route this codec's geometry through the FFT plane?"""
+        return (
+            self.parity_shards > 0
+            and self.total_shards >= _ntt_min_shards()
+            and ntt_enabled()
+        )
+
     def _parity_of(self, data: np.ndarray) -> np.ndarray:
+        """[k, L] -> [p, L] parity rows; both routes give the same bytes."""
+        if self._route_ntt():
+            from ..ops import rs_fft
+
+            return rs_fft.encode_parity(data, self.data_shards, self.parity_shards)
         return _native.gf_matmul(self.matrix[self.data_shards :], data)
 
     def encode(self, data: np.ndarray) -> np.ndarray:
@@ -115,6 +151,25 @@ class ReedSolomon:
         out: list[Optional[np.ndarray]] = [
             arrs.get(i) for i in range(self.total_shards)
         ]
+        if self._route_ntt():
+            # one interpolation and one forward transform recover every
+            # missing row, data and parity, as the matrix route's bytes
+            from ..ops import rs_fft
+
+            missing = [
+                i
+                for i in range(self.data_shards if data_only else self.total_shards)
+                if out[i] is None
+            ]
+            if missing:
+                rows = present[: self.data_shards]
+                stacked = np.stack([arrs[i] for i in rows])  # [k, L]
+                recovered = rs_fft.reconstruct_rows(
+                    stacked, rows, missing, self.data_shards, self.parity_shards
+                )
+                for row, i in enumerate(missing):
+                    out[i] = recovered[row]
+            return [o for o in out if o is not None] if data_only else out  # type: ignore
         missing_data = [i for i in range(self.data_shards) if out[i] is None]
         if missing_data:
             rows = tuple(present[: self.data_shards])
@@ -145,7 +200,8 @@ class ReedSolomon:
         return joined[4 : 4 + length]
 
     def verify(self, shards: Sequence[np.ndarray]) -> bool:
-        """Check parity rows match the data rows."""
+        """Check parity rows match the data rows (the parity recomputed on
+        the route encode takes)."""
         data = np.stack(
             [np.asarray(s, dtype=np.uint8) for s in shards[: self.data_shards]]
         )

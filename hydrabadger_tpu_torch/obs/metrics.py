@@ -19,6 +19,11 @@ def _round_q(v: Optional[float]) -> Optional[float]:
 DEVICE_OVERLAP_RATIO = "device_overlap_ratio"
 DEVICE_IDLE_S = "device_idle_s"
 DEVICE_OVERLAP_HAS_DEVICE = "device_overlap_has_device"
+# every future made (crypto/futures): submitted and fetched (an immediate
+# future counts as both at once), and dropped without result()
+CRYPTO_FUTURES_SUBMITTED = "crypto_futures_submitted"
+CRYPTO_FUTURES_FETCHED = "crypto_futures_fetched"
+CRYPTO_FUTURES_DROPPED = "crypto_futures_dropped"
 
 # the router's byte meter, mirrored by SimNetwork.run; on the TCP tier the
 # framed bytes at each node's streams (net/wire.WireStream), received bytes
@@ -58,6 +63,11 @@ MSM_COALESCE_WIDTH = "msm_coalesce_width"
 FR_NTT_BATCH_LANES = "fr_ntt_batch_lanes"
 FR_NTT_PAD_LANES = "fr_ntt_pad_lanes"
 FR_NTT_REAL_LANES = "fr_ntt_real_lanes"
+# the GF(2^8) additive-FFT plane (ops/ntt_torch): lanes per transform, the
+# zero padding to the 2^m grid and the real coefficient rows' lanes
+NTT_BATCH_LANES = "ntt_batch_lanes"
+NTT_PAD_LANES = "ntt_pad_lanes"
+NTT_REAL_LANES = "ntt_real_lanes"
 
 # the shadow-DKG era cutover (sim/network.py): the high-water wall between
 # committed batches across an era-switch window, and the epochs since a

@@ -33,9 +33,19 @@ each lane computes:
     (`circuit_torch.CircuitChain`, JAX's `lax.scan`): its steps, table
     entries and glue are fixed by the Lagrange digits at construction,
     and the accumulator stays on the card's SMs between steps.
+
+`HYDRABADGER_WIN_CIRCUIT=0` (read at construction, as JAX reads it when
+it traces) selects decrypt_T's other window path, B2's point entries in
+place of B3's circuits: stage 1 is one `win6` launch per GLV window over
+all S*n_ct lanes (6 doublings and two ladder adds of the gathered entries,
+the accumulator starting at infinity: `fq_T.window_step_T`), and the
+Straus combine per window one `dblk4` and then q `ladd`s of the w=4 tables'
+entries.  It makes no B3 launch; its U_next equals the circuit path's
+projectively (JAX's contract, tests/test_decrypt_T.py).
 """
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from typing import Dict, List, NamedTuple, Sequence
 
@@ -163,22 +173,42 @@ class Launch(NamedTuple):
     products: int = 0  # B3: Montgomery products per lane of one launch
 
 
-class _Ops:
-    """The B2 entries and circuit calls an engine uses: the kernels'
-    wrappers, or the plain versions on any device (use_kernel=False)."""
-
-    def __init__(self, use_kernel: bool):
-        col = 0 if use_kernel else 1
-        e = fq_torch.ENTRIES
-        self.mul, self.dbl = e["mul"][col], e["dbl"][col]
-        self.add, self.ladd = e["add"][col], e["ladd"][col]
-        self.use_kernel = use_kernel
+class _Ops(fq_torch.PointOps):
+    """The B2 entries and the circuit calls the decrypt engine uses: the
+    kernels' wrappers, or the plain versions on any device
+    (use_kernel=False)."""
 
     def circuit(self, circ: CircuitExec, x: torch.Tensor) -> torch.Tensor:
         return circ(x) if self.use_kernel else circ.plain(x)
 
     def chain(self, chain: CircuitChain, acc: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         return chain(acc, table) if self.use_kernel else chain.plain(acc, table)
+
+
+def _use_win_circuit() -> bool:
+    return os.environ.get("HYDRABADGER_WIN_CIRCUIT", "1") != "0"
+
+
+def jac_eq(a: torch.Tensor, b: torch.Tensor, mul) -> torch.Tensor:
+    """Projective equality of [3, 12, n] points on every lane -> 0-d
+    bool: X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3, in three batched
+    calls of `mul` (B2's product or its plain version)."""
+    n = a.shape[-1]
+    x1, y1, z1 = a
+    x2, y2, z2 = b
+    zs = torch.cat([z1, z2], 1)
+    zz = mul(zs, zs)
+    z1s, z2s = zz[:, :n], zz[:, n:]
+    m = mul(torch.cat([x1, x2, y1, y2], 1), torch.cat([z2s, z1s, z2s, z1s], 1))
+    yy = mul(m[:, 2 * n:], torch.cat([z2, z1], 1))
+    x_ok = (m[:, :n] == m[:, n:2 * n]).all(0)
+    y_ok = (yy[:, :n] == yy[:, n:]).all(0)
+    return (x_ok & y_ok).all()
+
+
+# the three product launches of jac_eq: (lanes per ciphertext, elements per
+# lane, operand form)
+JAC_EQ_MULS = ((2, 2, "a*a"), (4, 3, "a*b"), (2, 3, "a*b"))
 
 
 def _build_table(pt: torch.Tensor, order: int, ops: _Ops) -> torch.Tensor:
@@ -227,12 +257,14 @@ class DecryptEpoch:
         ]
         self._masks: Dict[tuple, torch.Tensor] = {}
         self._beta = torch.as_tensor(BETA_MONT, device=dev)[:, None]  # one element, every lane
+        self.win_circuit = _use_win_circuit()
         self.circ_da1 = _dblk_add_circuit(W1)
         self.circ_a = _add_circuit()
         self.circ_da2 = _dblk_add_circuit(W2)
         self._plan1 = self._stage1_plan()
-        self.straus = CircuitChain([self.circ_da2, self.circ_a],
-                                   _chain_steps(self._straus_plan(), q), 3, "straus")
+        self.straus = (CircuitChain([self.circ_da2, self.circ_a],
+                                    _chain_steps(self._straus_plan(), q), 3, "straus")
+                       if self.win_circuit else None)
 
     # -- the static plan ----------------------------------------------------
 
@@ -282,15 +314,24 @@ class DecryptEpoch:
             Launch("fq_point", "dbl", q * n, 1, 6),  # the Straus tables
             Launch("fq_point", "ladd", q * n, (1 << W2) - 3, 9),
             Launch("fq_point", "add", n, 1, 9),  # the final complete add
-            Launch("fq_point", "mul", 2 * n, 1, 2, "a*a"),  # the check: Z^2
-            Launch("fq_point", "mul", 4 * n, 1, 3, "a*b"),  # X Z^2, Y Z^2
-            Launch("fq_point", "mul", 2 * n, 1, 3, "a*b"),  # Y Z^2 * Z
-            Launch("circuit", da1.name, S * n, sum(p[1] for p in stage1),
-                   da1.n_inputs + da1.n_outputs, products=da1.n_products),
-            Launch("circuit", a.name, S * n, sum(p[3] for p in stage1),
-                   a.n_inputs + a.n_outputs, products=a.n_products),
-            Launch("circuit", straus.name, n, 1, straus.elements(), products=straus.products),
+            *(Launch("fq_point", "mul", k * n, 1, el, form) for k, el, form in JAC_EQ_MULS),
         ]
+        if self.win_circuit:
+            rows += [
+                Launch("circuit", da1.name, S * n, sum(p[1] for p in stage1),
+                       da1.n_inputs + da1.n_outputs, products=da1.n_products),
+                Launch("circuit", a.name, S * n, sum(p[3] for p in stage1),
+                       a.n_inputs + a.n_outputs, products=a.n_products),
+                Launch("circuit", straus.name, n, 1, straus.elements(),
+                       products=straus.products),
+            ]
+        else:
+            n_win2 = self.lam_d.shape[1]
+            rows += [
+                Launch("fq_point", f"win{W1}", S * n, self.glv_d.shape[-1], 12),
+                Launch("fq_point", f"dblk{W2}", n, n_win2, 6),
+                Launch("fq_point", "ladd", n, n_win2 * q, 9),
+            ]
         return [r for r in rows if r.count]
 
     def launch_counts(self) -> Dict[str, Dict[str, int]]:
@@ -316,24 +357,20 @@ class DecryptEpoch:
             out = torch.where(mask, cands[v], out)
         return out
 
-    def _jac_eq(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Projective equality of [3, 12, n] points on every lane -> 0-d
-        bool: X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3, three batched
-        product launches."""
-        n = a.shape[-1]
-        mul = self.ops.mul
-        x1, y1, z1 = a
-        x2, y2, z2 = b
-        zs = torch.cat([z1, z2], 1)
-        zz = mul(zs, zs)
-        z1s, z2s = zz[:, :n], zz[:, n:]
-        m = mul(torch.cat([x1, x2, y1, y2], 1), torch.cat([z2s, z1s, z2s, z1s], 1))
-        yy = mul(m[:, 2 * n:], torch.cat([z2, z1], 1))
-        x_ok = (m[:, :n] == m[:, n:2 * n]).all(0)
-        y_ok = (yy[:, :n] == yy[:, n:]).all(0)
-        return (x_ok & y_ok).all()
-
     # -- the epoch ----------------------------------------------------------
+
+    def dual_table(self, U: torch.Tensor):
+        """Stage 1's shared W1 GLV dual table of U [3, 12, n] and its
+        beta-twisted copy: two [3, 12, 2^W1, n] tables."""
+        t1 = _build_table(U, 1 << W1, self.ops)
+        bx = self.ops.mul(t1[0].reshape(N_LIMBS, -1), self._beta)
+        return t1, torch.cat([bx.reshape(1, *t1.shape[1:]), t1[1:]], 0)
+
+    def window_operands(self, t1: torch.Tensor, t2: torch.Tensor, j: int):
+        """GLV window j's table entries for every ladder segment: two
+        [3, 12, S, n] gathers, one off each half's table."""
+        i1, i2 = self._idx[j]
+        return t1.index_select(2, i1), t2.index_select(2, i2)
 
     def __call__(self, U: torch.Tensor):
         """U [3, 12, n_ct] int32 -> (U_next [3, 12, n_ct], ok 0-d bool)."""
@@ -343,16 +380,15 @@ class DecryptEpoch:
             raise ValueError(f"expected [3, {N_LIMBS}, {n}] int32 on {self.device}")
 
         # 1. shared W1 GLV dual table of U, and its beta-twisted copy
-        t1 = _build_table(U, 1 << W1, ops)  # [3, 12, 64, n]
-        tx = t1[0].reshape(N_LIMBS, -1)
-        bx = ops.mul(tx, self._beta)
-        t2 = torch.cat([bx.reshape(1, *t1.shape[1:]), t1[1:]], 0)
+        t1, t2 = self.dual_table(U)
 
         # 2. the q share ladders and the check ladder, one batch of S*n lanes
         acc = jac_infinity(S * n, self.device).reshape(3, N_LIMBS, S, n)
-        for (i1, i2), (codes1, need_da, codes2, need_a) in zip(self._idx, self._plan1):
-            s1 = t1.index_select(2, i1)  # [3, 12, S, n]
-            s2 = t2.index_select(2, i2)
+        for j, (codes1, need_da, codes2, need_a) in enumerate(self._plan1):
+            s1, s2 = self.window_operands(t1, t2, j)
+            if not self.win_circuit:  # one B2 window step, infinity masked in it
+                acc = ops.win(acc, s1, s2, W1)
+                continue
             added = doubled = None
             if need_da:
                 out = ops.circuit(self.circ_da1, torch.cat([acc, s1], 0))
@@ -366,13 +402,31 @@ class DecryptEpoch:
 
         # 3. Straus combine: U + sum_i lam_i share_i
         tabs = _build_table(shares.reshape(3, N_LIMBS, q * n), 1 << W2, ops)
-        comb = ops.chain(self.straus, jac_infinity(n, self.device),
-                         tabs.reshape(3, N_LIMBS, (1 << W2) * q, n))
+        if self.win_circuit:
+            comb = ops.chain(self.straus, jac_infinity(n, self.device),
+                             tabs.reshape(3, N_LIMBS, (1 << W2) * q, n))
+        else:
+            comb = self._straus_points(tabs)
 
         # 4. the final add is the COMPLETE body (U == comb is legitimate
         # when master == 1), then the check against the direct lane
         U_next = ops.add(U, comb.contiguous())
-        return U_next, self._jac_eq(U_next, direct.contiguous())
+        return U_next, jac_eq(U_next, direct.contiguous(), ops.mul)
+
+    def _straus_points(self, tabs: torch.Tensor) -> torch.Tensor:
+        """The Straus combine on B2's point entries (decrypt_T's
+        WIN_CIRCUIT=0 loop): per window 4 doublings of the accumulator, then
+        one ladder add per quorum member of its table's digit entry, the
+        accumulator starting at infinity.  tabs: [3, 12, 16, q*n]."""
+        ops, n, q = self.ops, self.n_ct, self.q
+        # [16, q, 3, 12, n]: entry (digit, member) one contiguous point batch
+        by_entry = tabs.reshape(3, N_LIMBS, 1 << W2, q, n).permute(2, 3, 0, 1, 4).contiguous()
+        acc = jac_infinity(n, self.device)
+        for col in self.lam_d.T.tolist():
+            acc = ops.dblk(acc, W2)
+            for i, dig in enumerate(col):
+                acc = ops.ladd(acc, by_entry[dig, i])
+        return acc
 
 
 def build_epoch(n_ct: int, sks: Sequence[int], lams: Sequence[int], mp1: int,

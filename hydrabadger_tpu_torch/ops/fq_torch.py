@@ -569,9 +569,8 @@ def windowed_ladder(points: torch.Tensor, windows: torch.Tensor) -> torch.Tensor
     return windowed_ladder_plain(points, windows)
 
 
-# The entries as (name -> (kernel wrapper, plain version)); the decrypt
-# engine picks one column (use_kernel) and chip_smoke holds one against
-# the other.
+# The entries as (name -> (kernel wrapper, plain version)); an engine
+# picks one column (PointOps) and chip_smoke holds one against the other.
 ENTRIES = {
     "mul": (fq_mul, fq_mul_plain),
     "dbl": (jac_double, jac_double_plain),
@@ -582,3 +581,17 @@ ENTRIES = {
     "glv_ladder": (glv_ladder, glv_ladder_plain),
     "windowed_ladder": (windowed_ladder, windowed_ladder_plain),
 }
+
+
+class PointOps:
+    """The B2 entries an engine calls: the kernels' wrappers, or their
+    plain versions on any device (use_kernel=False)."""
+
+    def __init__(self, use_kernel: bool):
+        col = 0 if use_kernel else 1
+        e = ENTRIES
+        self.mul, self.dbl = e["mul"][col], e["dbl"][col]
+        self.add, self.ladd = e["add"][col], e["ladd"][col]
+        self.dblk, self.win = e["dblk"][col], e["win"][col]
+        self.glv_ladder = e["glv_ladder"][col]
+        self.use_kernel = use_kernel

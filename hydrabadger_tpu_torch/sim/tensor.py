@@ -27,13 +27,15 @@ package's, so the two simulators agree byte for byte.
 `FullCryptoTensorSim` (below) is the other half of an epoch with
 threshold encryption on: every node's decryption share of every
 proposer's ciphertext and their Lagrange combine (bench config 8), on
-ops/decrypt_torch.
+ops/decrypt_torch, or with `HYDRABADGER_DECRYPT_T=0` on the generic
+full-crypto epoch (`build_full_crypto_epoch`).
 """
 from __future__ import annotations
 
+import os
 import random
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,7 +44,8 @@ from ..crypto import bls12_381 as bls
 from ..crypto import threshold as th
 from ..crypto.rs import ReedSolomon
 from ..device import resolve_device
-from ..ops import decrypt_torch, limbs, rs_torch
+from ..ops import bls_torch, decrypt_torch, fq_torch, limbs, rs_torch
+from ..ops.decrypt_torch import JAC_EQ_MULS, Launch
 
 
 @dataclass(frozen=True)
@@ -211,17 +214,107 @@ class FullCryptoConfig:
     Every node emits a decryption share U*sk_i for every proposer's
     ciphertext U, and t+1 shares Lagrange-combine to the plaintext point:
     B*N ciphertexts per epoch, chained through U_next = U + combine so no
-    epoch can be elided.  (The JAX config's `share_chunks` sizes its
-    generic engine's ladder memory; the port runs only the decrypt_T
-    engine, which needs no chunking.)"""
+    epoch can be elided.  `share_chunks` is the number of sequential
+    ladder launches per stage of the generic epoch (it bounds the ladders'
+    table memory); the decrypt engine does not chunk."""
 
     n_nodes: int = 64
     instances: int = 256
     seed: int = 0
+    share_chunks: int = 32
 
     @property
     def threshold(self) -> int:
         return (self.n_nodes - 1) // 3
+
+
+class _FullCryptoEpoch:
+    """The generic full-crypto epoch over B*n ciphertexts (JAX
+    `build_full_crypto_epoch`), on kernel B2.
+
+    Both pipeline stages run over S = t+2 lanes per ciphertext (lane
+    ct*S + s):
+        stage 1 scalars: [sk_1 .. sk_q, master+1]
+        stage 2 scalars: [lam_1 .. lam_q, 1]
+    so lane i < q ends as lam_i (U sk_i) and lane q as U (master+1).  Each
+    stage is `chunks` sequential `glv_ladder` launches of B*n*S / chunks
+    lanes (JAX's 33 MSB-first 4-bit GLV windows per half, the complete
+    adds of fq_T's ladder).  The epoch then folds U with the q weighted
+    lanes (U_next = U + combine, q complete `add` launches) and checks
+    U_next against the check lane projectively (three `mul` launches):
+    exactly as strong as combine == U*master, since adding U is
+    injective.  `use_kernel=False` runs the plain versions on any device;
+    a CPU device always runs them."""
+
+    def __init__(self, B: int, n: int, t: int, chunks: int, device, use_kernel: bool = True):
+        self.q, self.chunks = t + 1, chunks
+        self.S = self.q + 1
+        self.n_ct = B * n
+        if (self.n_ct * self.S) % chunks:
+            raise ValueError("share_chunks must divide instances * n_nodes * (threshold+2)")
+        self.device = resolve_device(device)
+        self.ops = fq_torch.PointOps(use_kernel)
+        self._one = torch.from_numpy(bls_torch.glv_windows([1])).to(self.device)  # [2, 33, 1]
+
+    def lane_digits(self, scalar_w: torch.Tensor) -> torch.Tensor:
+        """[2, 33, S] digits of a stage's S scalars -> [2, 33, B*n*S]: lane
+        ct*S + s takes scalar s."""
+        w = scalar_w.shape[1]
+        return scalar_w[:, :, None, :].expand(2, w, self.n_ct, self.S).reshape(2, w, -1)
+
+    def _stage(self, lanes: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+        m = lanes.shape[-1] // self.chunks
+        out = torch.empty_like(lanes)
+        for c in range(self.chunks):
+            sl = slice(c * m, (c + 1) * m)
+            out[..., sl] = self.ops.glv_ladder(lanes[..., sl].contiguous(),
+                                               digits[..., sl].contiguous())
+        return out
+
+    def __call__(self, U: torch.Tensor, sk_w: torch.Tensor, lam_w: torch.Tensor,
+                 m_w: torch.Tensor):
+        """U [3, 12, B*n] int32; sk_w [2, 33, >= q] the key shares' GLV
+        digits (the first q are the quorum's), lam_w [2, 33, q] the
+        Lagrange coefficients', m_w [2, 33, 1] master+1's -> (U_next
+        [3, 12, B*n], ok 0-d bool)."""
+        q, S, n_ct = self.q, self.S, self.n_ct
+        if tuple(U.shape) != (3, limbs.N_LIMBS, n_ct):
+            raise ValueError(f"expected [3, {limbs.N_LIMBS}, {n_ct}] int32")
+        s1 = torch.cat([sk_w[:, :, :q], m_w], 2)
+        s2 = torch.cat([lam_w, self._one], 2)
+        lanes = U[:, :, :, None].expand(3, limbs.N_LIMBS, n_ct, S).reshape(3, limbs.N_LIMBS, -1)
+        for scalar_w in (s1, s2):
+            lanes = self._stage(lanes, self.lane_digits(scalar_w))
+        # [S, 3, 12, n_ct]: lane s of every ciphertext one contiguous batch
+        by_s = lanes.reshape(3, limbs.N_LIMBS, n_ct, S).permute(3, 0, 1, 2).contiguous()
+        U_next = U
+        for i in range(q):
+            U_next = self.ops.add(U_next, by_s[i])
+        return U_next, decrypt_torch.jac_eq(U_next, by_s[q], self.ops.mul)
+
+    def launch_shapes(self) -> List[Launch]:
+        """The B2 launches of one epoch, from the config."""
+        n_ct = self.n_ct
+        return [
+            Launch("fq_point", "glv_ladder", n_ct * self.S // self.chunks, 2 * self.chunks, 6),
+            Launch("fq_point", "add", n_ct, self.q, 9),
+            *(Launch("fq_point", "mul", k * n_ct, 1, el, form) for k, el, form in JAC_EQ_MULS),
+        ]
+
+    def launch_counts(self) -> Dict[str, Dict[str, int]]:
+        """Kernel launches one epoch makes, as DecryptEpoch.launch_counts:
+        2 * chunks `glv_ladder`, q `add` and the check's 3 `mul`."""
+        out: Dict[str, Dict[str, int]] = {"fq_point": {}, "circuit": {}}
+        for r in self.launch_shapes():
+            out[r.kernel][r.name] = out[r.kernel].get(r.name, 0) + r.count
+        return out
+
+
+def build_full_crypto_epoch(B: int, n: int, t: int, chunks: int, device="cuda",
+                            use_kernel: bool = True) -> _FullCryptoEpoch:
+    """The generic full-crypto epoch over [B, n] ciphertexts as a callable:
+    (U, sk_w, lam_w, m_w) -> (U_next, ok) (see _FullCryptoEpoch)."""
+    return _FullCryptoEpoch(B, n, t, chunks, device, use_kernel)
 
 
 class FullCryptoTensorSim:
@@ -230,11 +323,16 @@ class FullCryptoTensorSim:
     The key set and the initial ciphertext points come from
     `random.Random(cfg.seed)` in the JAX sim's order (the key set, then
     one 128-bit scalar per ciphertext), so both sims start equal; the
-    initial U costs one pure-Python G1 multiply per ciphertext (~7 ms
-    each).  The state U is [3, 12, B*N] int32 on the device (lane
-    b*N + i: instance b, proposer i); `state()` gives it in the JAX
-    layout.  `use_kernel=False` runs the plain PyTorch versions of the
-    kernels on the device instead.
+    initial U costs one host G1 multiply per ciphertext.  The state U is
+    [3, 12, B*N] int32 on the device (lane b*N + i: instance b, proposer
+    i); `state()` gives it in the JAX layout.  `use_kernel=False` runs the
+    plain PyTorch versions of the kernels on the device instead.
+
+    The engine is read from `HYDRABADGER_DECRYPT_T` at construction, as
+    JAX reads it: "0" selects the generic epoch (`build_full_crypto_epoch`, whose
+    divisibility rule on `share_chunks` it then asserts), "1" or unset
+    the decrypt engine (ops/decrypt_torch) on every device.  `self.epoch`
+    is the engine; its `launch_counts()` gives one epoch's launches.
     """
 
     def __init__(self, cfg: Optional[FullCryptoConfig] = None, device="cuda",
@@ -252,14 +350,16 @@ class FullCryptoTensorSim:
 
     @classmethod
     def from_jax(cls, U, sks: Sequence[int], master: int, quorum: Sequence[int],
-                 device="cuda", use_kernel: bool = True):
+                 device="cuda", use_kernel: bool = True, share_chunks: int = 1):
         """Resume from a JAX `FullCryptoTensorSim`: its `_U` read as numpy
         ([instances, n_nodes, 3, 32] int32 12-bit limbs), `_sks`,
-        `_master` and `_quorum`."""
+        `_master` and `_quorum`, into the engine `HYDRABADGER_DECRYPT_T`
+        selects (`share_chunks` sizes the generic epoch's launches)."""
         U = np.asarray(U)
         if U.ndim != 4 or U.shape[2:] != (3, limbs.JAX_N_LIMBS) or U.shape[1] != len(sks):
             raise ValueError(f"expected [instances, {len(sks)}, 3, 32] limbs, got {U.shape}")
-        cfg = FullCryptoConfig(n_nodes=U.shape[1], instances=U.shape[0])
+        cfg = FullCryptoConfig(n_nodes=U.shape[1], instances=U.shape[0],
+                               share_chunks=share_chunks)
         if list(quorum) != list(range(cfg.threshold + 1)):
             raise ValueError("the port runs the fixed lowest-(t+1) quorum")
         sim = cls.__new__(cls)
@@ -281,10 +381,19 @@ class FullCryptoTensorSim:
         self._mp1 = mp1
         self._U = torch.from_numpy(u0).to(dev)
         self._U_prev = None  # the state before the last epoch (oracle_check)
-        self.epoch = decrypt_torch.build_epoch(
-            cfg.instances * cfg.n_nodes, [sks[i] for i in quorum], self._lam, mp1,
-            device=dev, use_kernel=use_kernel,
-        )
+        self.generic = os.environ.get("HYDRABADGER_DECRYPT_T", "") == "0"
+        if self.generic:  # its stage 1 takes the first q key shares: the quorum
+            self.epoch = build_full_crypto_epoch(cfg.instances, cfg.n_nodes, cfg.threshold,
+                                                 cfg.share_chunks, dev, use_kernel)
+            # the fixed scalars' GLV digits, resident on the device
+            self._windows = tuple(torch.from_numpy(bls_torch.glv_windows(k)).to(dev)
+                                  for k in (sks, self._lam, [mp1]))
+        else:
+            self.epoch = decrypt_torch.build_epoch(
+                cfg.instances * cfg.n_nodes, [sks[i] for i in quorum], self._lam, mp1,
+                device=dev, use_kernel=use_kernel,
+            )
+            self._windows = ()
 
     def run(self, epochs: int) -> bool:
         """Run epochs on the device; returns the check verdict (all lanes,
@@ -292,7 +401,7 @@ class FullCryptoTensorSim:
         ok = torch.ones((), dtype=torch.bool, device=self.device)
         for _ in range(epochs):
             self._U_prev = self._U
-            self._U, ok_epoch = self.epoch(self._U)
+            self._U, ok_epoch = self.epoch(self._U, *self._windows)
             ok &= ok_epoch
         return bool(ok)
 

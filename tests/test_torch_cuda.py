@@ -204,6 +204,38 @@ def test_full_crypto_sim_on_the_card_equals_the_cpu(card):
     assert sim.oracle_check([0, 7])
 
 
+@pytest.mark.parametrize("env", [{"HYDRABADGER_DECRYPT_T": "0"},
+                                 {"HYDRABADGER_WIN_CIRCUIT": "0"}])
+def test_generic_and_win_circuit_0_epochs_on_the_card_equal_the_cpu(card, env, monkeypatch):
+    """The generic epoch (B2's glv_ladder, add, mul) and the decrypt
+    engine's WIN_CIRCUIT=0 path (win6, dblk4, ladd): launches as the
+    engine counts them, no B3 launch, state equal to the CPU's."""
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    cfg = ts.FullCryptoConfig(n_nodes=4, instances=2, seed=1, share_chunks=2)
+    sim = ts.FullCryptoTensorSim(cfg, device="cuda")
+    before = (fq_torch.launches, circuit_torch.launches)
+    assert sim.run(1)
+    counts = sim.epoch.launch_counts()
+    assert counts["circuit"] == {}
+    assert fq_torch.launches - before[0] == sum(counts["fq_point"].values())
+    assert circuit_torch.launches == before[1]
+    cpu = ts.FullCryptoTensorSim(cfg, device="cpu")
+    assert cpu.run(1)
+    assert np.array_equal(sim.state(), cpu.state())
+    assert sim.oracle_check([0, 7])
+
+
+def test_afft_on_the_card_equals_the_numpy_twins(card):
+    from hydrabadger_tpu_torch.ops import afft_torch, ntt_torch
+
+    for m in range(1, 9):
+        c = rand((1 << m, 3, 17), m)
+        fwd = afft_torch.afft_fwd(torch.from_numpy(c).to(card), m)
+        assert np.array_equal(fwd.cpu().numpy(), ntt_torch.gf_afft(c, m))
+        assert np.array_equal(afft_torch.afft_inv(fwd, m).cpu().numpy(), c)
+
+
 def _g2_points(card, n=301):
     """Two [3, 2, 12, n] G2 batches on the card with infinity + Q,
     P + infinity, P + P and P + (-P) lanes, and digits with 0s."""

@@ -2,7 +2,11 @@
 FullCryptoTensorSim) on the CPU at 4 nodes x 1 instance: the verdict,
 every lane against the host oracle, a wrong check scalar caught, the
 launch counts the digits imply, resuming from the JAX sim, and (slow)
-limb-for-limb equality with the JAX decrypt_T epoch."""
+limb-for-limb equality with the JAX decrypt_T epoch.  Then the engine's
+HYDRABADGER_WIN_CIRCUIT=0 path against the circuit path, and the generic
+epoch (HYDRABADGER_DECRYPT_T=0) at 4 nodes x 2 instances, 2 chunks, resumed
+from a JAX sim: against the decrypt engine and the host oracle, its launch
+counts, the share_chunks rule, and (slow) against JAX's generic epoch."""
 import numpy as np
 import pytest
 import torch
@@ -10,6 +14,7 @@ import torch
 from hydrabadger_tpu.sim import tensor as jts
 from hydrabadger_tpu_torch.crypto import bls12_381 as bls
 from hydrabadger_tpu_torch.ops import decrypt_torch as dt
+from hydrabadger_tpu_torch.ops import limbs
 from hydrabadger_tpu_torch.sim import tensor as ts
 
 CFG = ts.FullCryptoConfig(n_nodes=4, instances=1, seed=3)
@@ -24,16 +29,20 @@ def one_thread():
 
 
 class _Counting:
-    """Wraps an engine's ops and counts what one epoch calls."""
+    """Wraps an engine's ops and counts what one epoch calls, by B2 launch
+    label (`dblk4`, `win6`) and circuit name."""
 
     def __init__(self, ops):
         self.inner, self.fq, self.circ = ops, {}, {}
-        for name in ("mul", "dbl", "add", "ladd"):
-            setattr(self, name, self._count(name, getattr(ops, name)))
+        for name in ("mul", "dbl", "add", "ladd", "glv_ladder"):
+            setattr(self, name, self._count(lambda *a, name=name: name, getattr(ops, name)))
+        self.dblk = self._count(lambda pt, k: f"dblk{k}", ops.dblk)
+        self.win = self._count(lambda *a: f"win{a[-1]}", ops.win)
 
-    def _count(self, name, fn):
+    def _count(self, label, fn):
         def call(*args):
-            self.fq[name] = self.fq.get(name, 0) + 1
+            key = label(*args)
+            self.fq[key] = self.fq.get(key, 0) + 1
             return fn(*args)
 
         return call
@@ -133,3 +142,113 @@ def test_epoch_equals_the_jax_decrypt_T_epoch_limb_for_limb(one_epoch):
     U_next, ok = fn(jnp.asarray(before.reshape(4, 3, 32)))
     assert bool(ok)
     assert np.array_equal(np.asarray(U_next).reshape(1, 4, 3, 32), sim.state())
+
+
+def _projectively_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    pa, pb = limbs.limbs_to_points(a.cpu().numpy()), limbs.limbs_to_points(b.cpu().numpy())
+    return len(pa) == len(pb) and all(bls.eq(x, y) for x, y in zip(pa, pb))
+
+
+def test_win_circuit_0_path_equals_the_circuit_path(one_epoch, monkeypatch):
+    """decrypt_T's HYDRABADGER_WIN_CIRCUIT=0 path: B2's `win6` per GLV
+    window and `dblk4` + q `ladd` per Straus window, no circuit; U_next
+    projectively equal to the circuit path's (JAX's contract), from the
+    same state."""
+    sim, _, _, _ = one_epoch
+    monkeypatch.setenv("HYDRABADGER_WIN_CIRCUIT", "0")
+    quorum_sks = [sim._sks[i] for i in sim._quorum]
+    eng = dt.build_epoch(4, quorum_sks, sim._lam, sim._mp1, device="cpu")
+    assert not eng.win_circuit and eng.straus is None
+    counting = _Counting(eng.ops)
+    eng.ops = counting
+    U_next, ok = eng(sim._U_prev)
+    assert bool(ok)
+    assert _projectively_equal(U_next, sim._U)
+    q = CFG.threshold + 1
+    want = eng.launch_counts()
+    assert counting.fq == want["fq_point"] and counting.circ == {} == want["circuit"]
+    assert want["fq_point"] == {"dbl": 2, "ladd": 61 + 13 + 64 * q, "mul": 4, "add": 1,
+                                "win6": 22, "dblk4": 64}
+
+
+GCFG = ts.FullCryptoConfig(n_nodes=4, instances=2, seed=3, share_chunks=2)
+
+
+@pytest.fixture(scope="module")
+def generic_epoch():
+    """A JAX sim at 4 x 2, resumed into the port's generic epoch and into
+    its decrypt engine; one counted generic epoch and one decrypt epoch."""
+    jsim = jts.FullCryptoTensorSim(
+        jts.FullCryptoConfig(n_nodes=4, instances=2, seed=3, share_chunks=2))
+    args = (np.asarray(jsim._U), jsim._sks, jsim._master, jsim._quorum)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HYDRABADGER_DECRYPT_T", "0")
+        gen = ts.FullCryptoTensorSim.from_jax(*args, device="cpu", share_chunks=2)
+    dec = ts.FullCryptoTensorSim.from_jax(*args, device="cpu")
+    before = gen.state()
+    counting = _Counting(gen.epoch.ops)
+    gen.epoch.ops = counting
+    ok = gen.run(1)
+    gen.epoch.ops = counting.inner
+    return jsim, gen, dec, before, ok, counting, dec.run(1)
+
+
+def test_generic_epoch_equals_the_decrypt_engine_and_the_oracle(generic_epoch):
+    _, gen, dec, before, ok, _, ok_dec = generic_epoch
+    assert gen.generic and "glv_ladder" in gen.epoch.launch_counts()["fq_point"]
+    assert not dec.generic and isinstance(dec.epoch, dt.DecryptEpoch)
+    assert ok is True and ok_dec is True
+    assert not np.array_equal(gen.state(), before)
+    assert _projectively_equal(gen._U, dec._U)
+    assert gen.oracle_check(range(GCFG.instances * GCFG.n_nodes))
+
+
+def test_generic_epoch_launch_counts(generic_epoch):
+    _, gen, _, _, _, counting, _ = generic_epoch
+    want = gen.epoch.launch_counts()
+    q = GCFG.threshold + 1
+    assert want == {"fq_point": {"glv_ladder": 2 * GCFG.share_chunks, "add": q, "mul": 3},
+                    "circuit": {}}
+    assert counting.fq == want["fq_point"]
+    lanes = {r.name: r.lanes for r in gen.epoch.launch_shapes()}
+    assert lanes["glv_ladder"] == GCFG.instances * GCFG.n_nodes * (q + 1) // GCFG.share_chunks
+
+
+def test_from_jax_into_the_generic_engine_starts_as_the_port_sim(generic_epoch, monkeypatch):
+    """The resumed sim holds the JAX sim's state and the same key digits a
+    port sim built from the same config holds."""
+    jsim, gen, _, before, _, _, _ = generic_epoch
+    monkeypatch.setenv("HYDRABADGER_DECRYPT_T", "0")
+    native = ts.FullCryptoTensorSim(GCFG, device="cpu")
+    assert native.generic and np.array_equal(native.state(), before)
+    assert np.array_equal(before, np.asarray(jsim._U))
+    assert all(torch.equal(a, b) for a, b in zip(native._windows, gen._windows))
+    assert native.epoch.launch_counts() == gen.epoch.launch_counts()
+
+
+def test_share_chunks_must_divide_the_lanes(monkeypatch):
+    assert ts.FullCryptoConfig().share_chunks == 32
+    monkeypatch.setenv("HYDRABADGER_DECRYPT_T", "0")
+    with pytest.raises(ValueError, match="share_chunks"):
+        ts.FullCryptoTensorSim(ts.FullCryptoConfig(n_nodes=4, instances=2, share_chunks=5),
+                               device="cpu")
+    with pytest.raises(ValueError, match="share_chunks"):
+        ts.build_full_crypto_epoch(64, 64, 21, 15, device="cpu")
+    assert ts.build_full_crypto_epoch(64, 64, 21, 16, device="cpu").launch_counts()[
+        "fq_point"] == {"glv_ladder": 32, "add": 22, "mul": 3}
+    # "1" and unset select the decrypt engine
+    monkeypatch.setenv("HYDRABADGER_DECRYPT_T", "1")
+    assert not ts.FullCryptoTensorSim(CFG, device="cpu").generic
+
+
+@pytest.mark.slow
+def test_generic_epoch_equals_the_jax_generic_epoch(generic_epoch, monkeypatch):
+    """The whole generic slice against JAX's build_full_crypto_epoch (its
+    XLA:CPU compile takes minutes), from the same state and keys."""
+    jsim, gen, _, _, _, _, _ = generic_epoch
+    monkeypatch.setenv("HYDRABADGER_DECRYPT_T", "0")
+    jgen = jts.FullCryptoTensorSim(
+        jts.FullCryptoConfig(n_nodes=4, instances=2, seed=3, share_chunks=2))
+    assert jgen.run(1)
+    got = limbs.limbs_from_jax(np.asarray(jgen._U))
+    assert _projectively_equal(torch.from_numpy(got), gen._U)
