@@ -284,12 +284,38 @@ failure:
      ops/afft_torch on the card byte-equal to the numpy twins for m = 1..8,
      its device ms at the route's shapes beside the twin's and the bytes
      bound.
+ 33. the mesh (parallel/mesh.py) at world size 1 on NCCL, in this process
+     (a FileStore rendezvous; the group destroyed in a `finally`): (a)
+     `broadcast_round_sharded` at 64 nodes (22, 42) x 256 B: received and
+     decoded equal to the plain versions of its encode and decode at the
+     round's shapes, decoded equal to the proposals, 2 B1 launches, the
+     plain time and the bound; (b) `instances_sharded_encode` at config 3's
+     geometry (1024 x (22, 42) x 256 B): equal to the plain encode, 1 B1
+     launch, the plain time and the bound; (c)
+     `full_crypto_epoch_node_sharded` at 64 nodes: the verdict, B2's
+     launches by entry equal to `build_full_crypto_epoch(1, 64, 21, 1)`'s
+     `launch_counts`, U_next equal limb for limb to the unsharded generic
+     epoch's and to phase 32a's instance 0 through the plain versions; (d)
+     `full_crypto_epoch_sharded` at 64 nodes x 8 instances: the verdict,
+     B2's and B3's launches equal to the decrypt engine's `launch_counts`,
+     U_next equal to an unsharded `FullCryptoTensorSim`'s, sampled lanes
+     held against the host oracle;
+     (e) `pairing_checks_sharded` at config 7's 1024 checks (256 if the
+     host takes 10 s or more to build the inputs): the verdict, B3's
+     launches by circuit equal to `pairing_torch.schedule`; (f) the fast-path
+     TensorSim at config 6's geometry instance-sharded, phase 4's epochs,
+     totality reduced over the mesh, the final state equal to phase 4's
+     unsharded run; (g) `make_mesh(n_devices=2)` on one card raises.  Every
+     leg counted with the counters set to 0 just before and read just
+     after, no other kernel; its wall ms, and the collectives' device ms by
+     CUDA events (all_to_all_single and all_gather at the round's 1 MiB,
+     all_reduce of the verdict's 4 B).
 
 The line before the last is one JSON object {"kernels": [...]} (B3's
-entry carries `pairing`, B2's `resume`, `tcp_restart`, `attack_era_switch`,
-`chaos_cluster`, `process_cluster`, `soak_era`, `soak_tcp`,
-`config5_64node`, `generic_epoch` and `win_circuit0_epoch`, B1's
-`attack`, `soak_rbc` and `rs_fft_route`); the last is {"ok": true,
+entry carries `pairing` and `mesh`, B2's `resume`, `tcp_restart`,
+`attack_era_switch`, `chaos_cluster`, `process_cluster`, `soak_era`,
+`soak_tcp`, `config5_64node`, `generic_epoch`, `win_circuit0_epoch` and
+`mesh`, B1's `attack`, `soak_rbc`, `rs_fft_route` and `mesh`); the last is {"ok": true,
 "device": {...}}.
 Without a card it exits 2 and prints no result.
 """
@@ -349,6 +375,12 @@ SOAK_SIM_NODES, SOAK_SIM_EPOCHS = 4, 300
 # geometry and config 10's RS sweep (bench.py:843, L = 1024)
 GEN_CHUNKS, GEN_EPOCHS = 16, 3
 RS_K, RS_P, RS_BATCH, RS_SWEEP_N, RS_SWEEP_L = 22, 42, 1024, (16, 32, 64, 128, 192, 255), 1024
+# phase 33: the mesh at world size 1 on NCCL: the round at 64 nodes (22, 42)
+# x 256 B, config 3's encode (bench.py:826: 1024 instances), the full-crypto
+# epochs at 64 nodes (x 8 instances: tests/test_mesh.py:97), config 7's
+# 1024 pairing checks
+MESH_K, MESH_P, MESH_L, MESH_INSTANCES = 22, 42, 256, 1024
+MESH_FC_NODES, MESH_FC_INSTANCES, MESH_PAIRS = 64, 8, 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -3377,9 +3409,10 @@ def point_shape_rows(shapes, u: torch.Tensor, tag: str) -> list:
     return rows
 
 
-def generic_epoch_plane(dev: torch.device, tag: str) -> tuple[dict, dict]:
+def generic_epoch_plane(dev: torch.device, tag: str) -> tuple[dict, dict, torch.Tensor]:
     """Phase 32a-b: config 8's generic full-crypto epoch and decrypt_T's
-    WIN_CIRCUIT=0 path on kernel B2.  Returns the records for B2's entry."""
+    WIN_CIRCUIT=0 path on kernel B2.  Returns the records for B2's entry and
+    instance 0's U_next through the plain versions (phase 33c's reference)."""
     from hydrabadger_tpu_torch.crypto import bls12_381 as bls
     from hydrabadger_tpu_torch.ops import bls_torch, limbs
     from hydrabadger_tpu_torch.ops import decrypt_torch as dt, fq_torch as fq
@@ -3561,7 +3594,7 @@ def generic_epoch_plane(dev: torch.device, tag: str) -> tuple[dict, dict]:
                "epochs_per_s": win_eps, "device_ms_per_epoch": w_ms,
                "bound_ms_per_epoch": w_bound, "limb_equal_to_circuit_path": limb_equal,
                "win6_max_abs_err": win6_err, "shapes": w_rows}
-    return generic, win_rec
+    return generic, win_rec, p_next
 
 
 def rs_fft_plane(dev: torch.device, tag: str) -> dict:
@@ -3654,6 +3687,225 @@ def rs_fft_plane(dev: torch.device, tag: str) -> dict:
     return {"per": f"GpuEngine RS FFT route at ({k}, {p}) x {RS_BATCH} x {SHARD_LEN}",
             "encode_ms": 1e3 * enc_s, "reconstruct_ms": 1e3 * rec_s, "b1_launches_on_route": 0,
             "config10_sweep": sweep, "afft": afft}
+
+
+def b1_bound(launches) -> tuple[float, str]:
+    """The bound of B1 launches given as (m, k, columns)."""
+    ops = by = 0.0
+    for m, k, cols in launches:
+        o, b = roofline.gf_matmul_ms(m, k, cols)
+        ops, by = ops + o, by + b
+    return roofline.bound_ms(ops, by)
+
+
+def mesh_plane(dev: torch.device, tag: str, phase4_state: torch.Tensor, phase4_epochs: int,
+               plain_instance0: torch.Tensor) -> tuple[dict, dict, dict]:
+    """Phase 33: parallel/mesh.py at world size 1 on NCCL, in this process.
+    `plain_instance0` is phase 32a's instance 0 through the plain versions.
+    Returns the records for B1's, B2's and B3's entries."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from hydrabadger_tpu_torch.ops import circuit_torch, fq_torch, gf256_torch, pairing_torch
+    from hydrabadger_tpu_torch.ops import rs_torch
+    from hydrabadger_tpu_torch.parallel import mesh as pmesh
+    from hydrabadger_tpu_torch.sim import tensor as ts
+
+    def counted(fn):
+        """fn() with every launch counter set to 0 just before and read just
+        after: (result, wall ms, B2 by entry, B3 by circuit, every kernel's count)."""
+        zero_launches(dev)
+        circuit_torch.launches_by_circuit.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        by_kind, others = b2_launches(dev)
+        others["fq_point"] = fq_torch.launches
+        return out, wall, by_kind, dict(circuit_torch.launches_by_circuit), others
+
+    def only(others: dict, **want) -> None:
+        got = {k: v for k, v in others.items() if v}
+        check(got == {k: v for k, v in want.items() if v}, f"launches {got}, want {want}")
+
+    t_phase = time.perf_counter()
+    k, p, n = MESH_K, MESH_P, MESH_K + MESH_P
+    with tempfile.TemporaryDirectory(prefix="hb_mesh_") as tmp, \
+            pmesh.process_group(os.path.join(tmp, "store"), 0, 1, "cuda") as mesh:
+        check(mesh.size() == 1 and "nccl" in str(dist.get_backend()),
+              f"phase 33 wants a world-1 NCCL mesh, got {mesh.size()} on {dist.get_backend()}")
+        ar = torch.zeros(1, dtype=torch.int32, device=dev)
+        reduce_ms = timed_ms(lambda: dist.all_reduce(ar, group=mesh.get_group()), 20)
+        # -- 33a. the broadcast round --------------------------------------
+        rng = np.random.default_rng(0)
+        props = torch.from_numpy(rng.integers(0, 256, (n, k, MESH_L), dtype=np.uint8)).to(dev)
+        pmesh.broadcast_round_sharded(props, k, p, mesh)  # warm: operands, NCCL's first call
+        (received, decoded), a_wall, _, _, a_counts = counted(
+            lambda: pmesh.broadcast_round_sharded(props, k, p, mesh))
+        only(a_counts, gf256_matmul=2)
+        # held against the plain versions of the round's two B1 launches,
+        # at the round's own shapes: the encode over N * L columns, the
+        # decode of the first k shard columns
+        dec_op = rs_torch._decode_operand(k, p, tuple(range(k)), dev)
+        plain_rx = rs_torch.rs_encode_batch(props, k, p, use_kernel=False)
+        plain_dec = gf256_torch.gf_matmul_bits_plain(dec_op, received[:, :k])
+        a_err = max(max_abs_err(received, plain_rx), max_abs_err(decoded, plain_dec))
+        check(a_err == 0, f"33a: the round != its plain versions (max err {a_err})")
+        check(torch.equal(decoded, props), "33a: decoded != the proposals")
+        a_plain_ms = (timed_ms(lambda: rs_torch.rs_encode_batch(props, k, p, use_kernel=False), 5)
+                      + timed_ms(lambda: gf256_torch.gf_matmul_bits_plain(dec_op, received[:, :k]),
+                                 5))
+        a_bound, a_by = b1_bound([(p, k, n * MESH_L), (k, k, n * MESH_L)])
+        send = received.transpose(0, 1).contiguous()
+        recv = torch.empty_like(send)
+        parts = [torch.empty_like(received)]
+        a2a_ms = timed_ms(lambda: dist.all_to_all_single(recv, send), 20)
+        gather_ms = timed_ms(lambda: dist.all_gather(parts, received), 20)
+        round_ms = timed_ms(lambda: pmesh.broadcast_round_sharded(props, k, p, mesh), 10)
+        nbytes = received.numel()
+        print(f"33a: broadcast_round_sharded at {n} nodes ({k}, {p}) x {MESH_L} B on a world-1 "
+              f"NCCL mesh: received and decoded == the plain encode and decode byte for byte, "
+              f"decoded == the proposals; 2 B1 launches, no other kernel; {a_wall:.2f} ms wall, "
+              f"{round_ms:.4f} ms by events; plain (both launches) {a_plain_ms:.4f} ms, bound "
+              f"{a_bound:.6f} ms ({a_by}); all_to_all_single {nbytes} B {a2a_ms:.4f} ms, "
+              f"all_gather {nbytes} B {gather_ms:.4f} ms, all_reduce 4 B {reduce_ms:.4f} ms "
+              f"(CUDA events) {tag}")
+        round_rec = {"per": f"broadcast_round_sharded, {n} nodes ({k}, {p}) x {MESH_L} B, world 1",
+                     "launches": a_counts["gf256_matmul"], "max_abs_err": a_err, "wall_ms": a_wall,
+                     "events_ms": round_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound,
+                     "bound_by": a_by,
+                     "all_to_all_single": {"bytes": nbytes, "ms": a2a_ms},
+                     "all_gather": {"bytes": nbytes, "ms": gather_ms}}
+        del received, decoded, send, recv, parts, plain_rx, plain_dec
+        # -- 33b. the instance-sharded encode (config 3's geometry) --------
+        data = torch.from_numpy(
+            rng.integers(0, 256, (MESH_INSTANCES, k, MESH_L), dtype=np.uint8)).to(dev)
+        want = rs_torch.rs_encode_batch(data, k, p, use_kernel=False)
+        enc, b_wall, _, _, b_counts = counted(
+            lambda: pmesh.instances_sharded_encode(data, k, p, mesh))
+        only(b_counts, gf256_matmul=1)
+        b_err = max_abs_err(enc, want)
+        check(b_err == 0, f"33b: instances_sharded_encode != the plain encode (max err {b_err})")
+        enc_ms = timed_ms(lambda: pmesh.instances_sharded_encode(data, k, p, mesh), 10)
+        b_plain_ms = timed_ms(lambda: rs_torch.rs_encode_batch(data, k, p, use_kernel=False), 5)
+        b_bound, b_by = b1_bound([(p, k, MESH_INSTANCES * MESH_L)])
+        print(f"33b: instances_sharded_encode at {MESH_INSTANCES} x ({k}, {p}) x {MESH_L} B == "
+              f"the plain encode byte for byte; 1 B1 launch; {b_wall:.2f} ms wall, {enc_ms:.4f} ms "
+              f"by events; plain {b_plain_ms:.4f} ms, bound {b_bound:.6f} ms ({b_by}) {tag}")
+        encode_rec = {"per": f"instances_sharded_encode, {MESH_INSTANCES} x ({k}, {p}) x "
+                             f"{MESH_L} B (config 3, bench.py:826), world 1",
+                      "launches": b_counts["gf256_matmul"], "max_abs_err": b_err,
+                      "wall_ms": b_wall, "events_ms": enc_ms, "plain_ms": b_plain_ms,
+                      "bound_ms": b_bound, "bound_by": b_by}
+        del data, want, enc
+        # -- 33c. the node-sharded full-crypto epoch -----------------------
+        cfg = ts.FullCryptoConfig(n_nodes=MESH_FC_NODES, instances=1, share_chunks=1)
+        plan = ts.build_full_crypto_epoch(1, MESH_FC_NODES, cfg.threshold, 1, dev)
+        (ok, U_next), c_wall, c_kind, _, c_counts = counted(
+            lambda: pmesh._node_epoch(mesh, MESH_FC_NODES))
+        check(ok, "33c: node-sharded epoch: the check failed")
+        check(c_kind == plan.launch_counts()["fq_point"],
+              f"33c: B2 by entry {c_kind}, launch_counts {plan.launch_counts()['fq_point']}")
+        only(c_counts, fq_point=sum(c_kind.values()))
+        os.environ["HYDRABADGER_DECRYPT_T"] = "0"
+        try:
+            gen = ts.FullCryptoTensorSim(cfg, device=dev)
+        finally:
+            os.environ.pop("HYDRABADGER_DECRYPT_T", None)
+        check(gen.run(1) and torch.equal(U_next, gen._U),
+              "33c: U_next != the unsharded generic epoch's")
+        # phase 32a's instance 0 through the plain versions: the same seed,
+        # keys and windows, so the same ciphertexts' U_next
+        check(tuple(plain_instance0.shape) == tuple(U_next.shape),
+              f"33c: 32a's plain instance {tuple(plain_instance0.shape)} is not this leg's "
+              f"{tuple(U_next.shape)}")
+        c_err = max_abs_err(U_next, plain_instance0)
+        check(c_err == 0, f"33c: U_next != 32a's plain instance 0 (max err {c_err})")
+        print(f"33c: full_crypto_epoch_node_sharded at {MESH_FC_NODES} nodes (t = "
+              f"{cfg.threshold}): ok; B2 by entry {c_kind} == launch_counts, no other kernel; "
+              f"U_next == the unsharded generic epoch's and 32a's plain instance 0, limb for limb; "
+              f"{c_wall:.1f} ms wall {tag}")
+        node_rec = {"per": f"full_crypto_epoch_node_sharded, {MESH_FC_NODES} nodes, world 1",
+                    "launches": sum(c_kind.values()), "launches_by_entry": c_kind,
+                    "max_abs_err": c_err,
+                    "wall_ms": c_wall, "all_reduce_ms": reduce_ms}
+        del gen
+        # -- 33d. the instance-sharded full-crypto epoch -------------------
+        cfg = ts.FullCryptoConfig(n_nodes=MESH_FC_NODES, instances=MESH_FC_INSTANCES,
+                                  share_chunks=1)
+        ref = ts.FullCryptoTensorSim(cfg, device=dev)
+        want = ref.epoch.launch_counts()
+        (ok, U_next), d_wall, d_kind, d_circ, d_counts = counted(
+            lambda: pmesh._instance_epoch(mesh, MESH_FC_NODES, MESH_FC_INSTANCES))
+        check(ok, "33d: instance-sharded epoch: the check failed")
+        check(d_kind == want["fq_point"] and d_circ == want["circuit"],
+              f"33d: launches B2 {d_kind} B3 {d_circ}, the decrypt engine's {want}")
+        only(d_counts, fq_point=sum(d_kind.values()), circuit=sum(d_circ.values()))
+        check(ref.run(1) and torch.equal(U_next, ref._U),
+              "33d: U_next != the unsharded FullCryptoTensorSim's")
+        lanes = MESH_FC_NODES * MESH_FC_INSTANCES
+        sample = [0, 1, lanes // 2 + 3, lanes - 1]
+        check(ref.oracle_check(sample), f"33d: lanes {sample} != the host oracle")
+        print(f"33d: full_crypto_epoch_sharded at {MESH_FC_NODES} nodes x {MESH_FC_INSTANCES} "
+              f"instances: ok; B2 {sum(d_kind.values())}, B3 {sum(d_circ.values())} launches == "
+              f"the decrypt engine's launch_counts; U_next == the unsharded sim's limb for limb, "
+              f"lanes {sample} == U + sum lam_i (U sk_i) (host oracle); {d_wall:.1f} ms wall {tag}")
+        inst_b2 = {"per": f"full_crypto_epoch_sharded, {MESH_FC_NODES} x {MESH_FC_INSTANCES}, "
+                          "world 1", "launches": sum(d_kind.values()),
+                   "launches_by_entry": d_kind, "wall_ms": d_wall}
+        inst_b3 = {"per": inst_b2["per"], "launches": sum(d_circ.values()),
+                   "launches_by_circuit": d_circ, "wall_ms": d_wall}
+        del ref
+        # -- 33e. the sharded pairing checks -------------------------------
+        t0 = time.perf_counter()
+        pmesh.pairing_inputs(MESH_PAIRS)
+        inputs_s = time.perf_counter() - t0
+        checks = MESH_PAIRS if inputs_s < 10 else MESH_PAIRS // 4
+        ok, e_wall, _, e_circ, e_counts = counted(lambda: pmesh.pairing_checks_sharded(mesh, checks))
+        check(ok, "33e: pairing_checks_sharded: a check failed")
+        check(e_circ == pairing_torch.schedule(checks),
+              f"33e: B3 by circuit {e_circ}, schedule {pairing_torch.schedule(checks)}")
+        only(e_counts, circuit=sum(e_circ.values()))
+        print(f"33e: pairing_checks_sharded at {checks} checks (the inputs {inputs_s:.2f} s on the "
+              f"host for {MESH_PAIRS}): ok; B3 {sum(e_circ.values())} launches == "
+              f"pairing_torch.schedule; {e_wall:.1f} ms wall {tag}")
+        pair_rec = {"per": f"pairing_checks_sharded, {checks} checks, world 1",
+                    "launches": sum(e_circ.values()), "inputs_s": inputs_s, "wall_ms": e_wall}
+        # -- 33f. the fast-path TensorSim, instance-sharded ----------------
+        tcfg = ts.TensorSimConfig(n_nodes=N_NODES, instances=INSTANCES, shard_len=SHARD_LEN)
+        per = tcfg.instances // mesh.size()  # the rank's instances, as in __graft_entry__.py
+        lo, hi = mesh.get_local_rank() * per, (mesh.get_local_rank() + 1) * per
+        start = torch.from_numpy(ts._initial_proposals(tcfg)[lo:hi]).to(dev)
+
+        def fast_path():
+            state, ok = ts.run_epochs(start, tcfg.data_shards, tcfg.parity_shards, phase4_epochs)
+            return state, pmesh.all_ok(mesh, ok)
+
+        (state, ok), f_wall, _, _, f_counts = counted(fast_path)
+        check(ok, "33f: instance-sharded TensorSim: totality violated")
+        only(f_counts, gf256_matmul=2 * phase4_epochs)
+        check(torch.equal(state, phase4_state[lo:hi]), "33f: final state != phase 4's")
+        print(f"33f: TensorSim at {N_NODES} x {INSTANCES} x {SHARD_LEN} B instance-sharded, "
+              f"{phase4_epochs} epochs, totality reduced over the mesh: ok; final state == phase "
+              f"4's unsharded run; {2 * phase4_epochs} B1 launches; {f_wall:.1f} ms wall "
+              f"({1e3 * phase4_epochs / f_wall:.1f} epochs/s) {tag}")
+        fast_rec = {"per": f"TensorSim {N_NODES} x {INSTANCES} x {SHARD_LEN} B, instance-sharded, "
+                           f"{phase4_epochs} epochs, world 1",
+                    "launches": f_counts["gf256_matmul"], "wall_ms": f_wall}
+        # -- 33g. a mesh wider than the world ------------------------------
+        try:
+            pmesh.make_mesh(n_devices=2)
+        except ValueError as exc:
+            print(f"33g: make_mesh(n_devices=2) on one card raises: {exc}")
+        else:
+            raise SmokeFailure("33g: make_mesh(n_devices=2) did not raise on one card")
+    check(not dist.is_initialized(), "phase 33 left its process group initialised")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 33: {phase_s:.1f} s {tag}")
+    return ({"round": round_rec, "encode": encode_rec, "tensor_sim": fast_rec, "phase_s": phase_s},
+            {"node_sharded": node_rec, "instance_sharded": inst_b2},
+            {"instance_sharded": inst_b3, "pairing": pair_rec})
 
 
 def main() -> int:
@@ -3895,11 +4147,15 @@ def main() -> int:
     print(f"phase 31: {time.perf_counter() - t31:.1f} s {tag}")
     # -- 32. the generic full-crypto epoch, WIN_CIRCUIT=0, the RS FFT route --
     t32 = time.perf_counter()
-    fq_entry["generic_epoch"], fq_entry["win_circuit0_epoch"] = generic_epoch_plane(dev, tag)
+    fq_entry["generic_epoch"], fq_entry["win_circuit0_epoch"], plain_instance0 = \
+        generic_epoch_plane(dev, tag)
     fq_entry["max_abs_err"] = max(fq_entry["max_abs_err"],
                                   fq_entry["win_circuit0_epoch"]["win6_max_abs_err"])
     kernels[0]["rs_fft_route"] = rs_fft_plane(dev, tag)
     print(f"phase 32: {time.perf_counter() - t32:.1f} s {tag}")
+    # -- 33. the mesh at world size 1 on NCCL --------------------------------
+    kernels[0]["mesh"], fq_entry["mesh"], b3_entry["mesh"] = mesh_plane(
+        dev, tag, plain._state, 2 + EPOCHS, plain_instance0)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -51,6 +51,9 @@ consensus/, obs/, utils/, the sim's router and network).
     sim/tensor.py        the fast-path epoch (TensorSim) and the
                          threshold-decrypt plane (FullCryptoTensorSim: the
                          decrypt engine or the generic epoch)
+    parallel/mesh.py     the tensor planes over a device mesh: one SPMD rank per
+                         device under torch.distributed (NCCL on cards, gloo on
+                         the CPU), the rank launcher
     sim/coin.py          one common-coin round for every ABA instance
                          (CoinRound) through GpuEngine
     sim/decrypt.py       one epoch's threshold decryption (DecryptRound)

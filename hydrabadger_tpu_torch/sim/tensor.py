@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import os
 import random
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -317,6 +317,24 @@ def build_full_crypto_epoch(B: int, n: int, t: int, chunks: int, device="cuda",
     return _FullCryptoEpoch(B, n, t, chunks, device, use_kernel)
 
 
+def seeded_start(cfg: FullCryptoConfig, lo: int = 0, hi: Optional[int] = None):
+    """(key shares, master key, initial U) of the sim `cfg` seeds, from
+    `random.Random(cfg.seed)` in the JAX sim's order (the key set, then one
+    128-bit scalar per ciphertext).  U is [3, 12, (hi - lo) * N] int32, the
+    ciphertexts of instances [lo, hi) only (lane (b - lo) * N + i): every
+    scalar is drawn, one host G1 multiply is made per ciphertext kept."""
+    hi = cfg.instances if hi is None else hi
+    if not 0 <= lo < hi <= cfg.instances:
+        raise ValueError(f"instances [{lo}, {hi}) outside [0, {cfg.instances})")
+    rng = random.Random(cfg.seed)
+    n = cfg.n_nodes
+    sk_set = th.SecretKeySet.random(cfg.threshold, rng)
+    sks = [sk_set.secret_key_share(i).scalar for i in range(n)]
+    r0 = [rng.getrandbits(128) for _ in range(cfg.instances * n)]
+    u0 = limbs.points_to_limbs([bls.mul_sub(bls.G1, r) for r in r0[lo * n:hi * n]])
+    return sks, sk_set.secret_key().scalar, u0
+
+
 class FullCryptoTensorSim:
     """Device-resident threshold-decrypt epochs over B*N ciphertexts.
 
@@ -338,15 +356,22 @@ class FullCryptoTensorSim:
     def __init__(self, cfg: Optional[FullCryptoConfig] = None, device="cuda",
                  use_kernel: bool = True):
         cfg = cfg or FullCryptoConfig()
-        dev = resolve_device(device)
-        rng = random.Random(cfg.seed)
-        n, t = cfg.n_nodes, cfg.threshold
-        sk_set = th.SecretKeySet.random(t, rng)
-        sks = [sk_set.secret_key_share(i).scalar for i in range(n)]
-        r0 = [rng.getrandbits(128) for _ in range(cfg.instances * n)]
-        u0 = limbs.points_to_limbs([bls.mul_sub(bls.G1, r) for r in r0])
-        self._setup(cfg, u0, sks, sk_set.secret_key().scalar, list(range(t + 1)),
-                    dev, use_kernel)
+        self._seeded(cfg, 0, cfg.instances, device, use_kernel)
+
+    @classmethod
+    def instance_slice(cls, cfg: FullCryptoConfig, lo: int, hi: int, device="cuda",
+                       use_kernel: bool = True) -> "FullCryptoTensorSim":
+        """Instances [lo, hi) of the sim that `cfg` seeds, as a sim of hi - lo
+        instances: the same keys and those instances' initial U (a mesh
+        rank's share, parallel/mesh.py), its engine built for its own lanes."""
+        sim = cls.__new__(cls)
+        sim._seeded(cfg, lo, hi, device, use_kernel)
+        return sim
+
+    def _seeded(self, cfg: FullCryptoConfig, lo: int, hi: int, device, use_kernel: bool):
+        sks, master, u0 = seeded_start(cfg, lo, hi)
+        self._setup(replace(cfg, instances=hi - lo), u0, sks, master,
+                    list(range(cfg.threshold + 1)), resolve_device(device), use_kernel)
 
     @classmethod
     def from_jax(cls, U, sks: Sequence[int], master: int, quorum: Sequence[int],

@@ -68,6 +68,25 @@ def test_tensor_sim_on_the_card_equals_plain_and_cpu(card):
     assert cpu.run(3) and np.array_equal(sim.state(), cpu.state())
 
 
+def test_mesh_round_and_encode_on_a_world_one_nccl_group(card, tmp_path):
+    from hydrabadger_tpu_torch.parallel import mesh as pmesh
+
+    k, p, L = 22, 42, 32
+    props = torch.from_numpy(rand((k + p, k, L), 5)).to(card)
+    data = torch.from_numpy(rand((16, k, L), 6)).to(card)
+    with pmesh.process_group(str(tmp_path / "store"), 0, 1, "cuda") as mesh:
+        before = gf256_torch.launches
+        received, decoded = pmesh.broadcast_round_sharded(props, k, p, mesh)
+        encoded = pmesh.instances_sharded_encode(data, k, p, mesh)
+        assert gf256_torch.launches == before + 3
+        assert pmesh.all_ok(mesh, [True]) and not pmesh.all_ok(mesh, [True, False])
+        with pytest.raises(ValueError):
+            pmesh.make_mesh(n_devices=2)
+    assert torch.equal(decoded, props)
+    assert torch.equal(received, rs_torch.rs_encode_batch(props, k, p, use_kernel=False))
+    assert torch.equal(encoded, rs_torch.rs_encode_batch(data, k, p, use_kernel=False))
+
+
 def _points(card, n=301):
     """Two [3, 12, n] point batches on the card with P + P, P + infinity,
     infinity + Q and P + (-P) lanes."""
