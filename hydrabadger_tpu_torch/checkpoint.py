@@ -162,6 +162,7 @@ class NodeCheckpoint:
         # secret as the keys themselves and must never leave the
         # operator's trust domain (optionally HMAC'd via
         # HYDRABADGER_CKPT_KEY).
+        # hblint: disable=secret-taint -- checkpoint is the intended durable key store; file-level protection is the operator's contract (module docstring)
         payload = codec.encode(
             (
                 _NODE_VERSION,

@@ -182,7 +182,7 @@ def _accel_mode() -> str:
     the card: a key-gen message must not start a CUDA context as a side
     effect.  Callers layer their own size criterion on "auto"
     (_gpu_dkg_mode: matrix degree; _gpu_msm_enabled: batch multiplies)."""
-    env = os.environ.get(GPU_DKG_ENV, "")
+    env = os.environ.get("HYDRABADGER_GPU_DKG", "")
     if env == "1":
         return "forced"
     if env == "0":

@@ -1674,6 +1674,7 @@ class Hydrabadger:
                 if entry not in self._keygen_inbox_seen:
                     if len(self.keygen_inbox) < KEYGEN_INBOX_CAP:
                         self.keygen_inbox.append(entry)
+                        # hblint: disable=attacker-taint -- 1:1 mirror of keygen_inbox; growth is bounded by the same KEYGEN_INBOX_CAP guard above
                         self._keygen_inbox_seen.add(entry)
                     else:
                         log.warning("keygen inbox overflow; dropping frame")
@@ -1696,6 +1697,7 @@ class Hydrabadger:
                 # parts of this poll verify as one batched MSM; an ack
                 # racing its part within the same poll already parks in
                 # KeyGenMachine.pending_acks and drains at flush
+                # hblint: disable=attacker-taint -- poll-scoped buffer: reset to [] by the handler loop every poll, so growth is bounded by the 50-message poll budget
                 self._kg_poll.append((machine, tuple(instance_id), src, part))
                 return
             outcome = machine.handle_part(src, part)
@@ -2126,9 +2128,11 @@ class Hydrabadger:
         # epoch e already recorded our first epoch-e+1 frames — tagged e
         # at dispatch time, so the `< batch.epoch` sweep keeps them for
         # stall replay.)
+        # hblint: disable=attacker-taint -- epoch-paced (one entry per COMMITTED epoch, not per frame); retention of the batch history is the application's call
         self.batches.append(batch)
         self._flush_user_contributions()  # the next epoch just opened
         self.current_epoch = batch.epoch + 1
+        # hblint: disable=attacker-taint -- epoch-paced public-API queue; the application consumer owns drain pacing (register via batch_queue)
         self.batch_queue.put_nowait(batch)
         # durable-checkpoint cadence: epoch-stamped, so a SIGKILL at any
         # instant restarts at most checkpoint_every epochs stale

@@ -182,8 +182,7 @@ class WireStream:
 
     @staticmethod
     def _assemble(body: bytes, sig: bytes) -> bytes:
-        # `sig` is a BLS signature (public wire data, as in the reference's
-        # SignedWireMessage, lib.rs:350-355), not key material
+        # hblint: disable=secret-taint -- `sig` is a BLS SIGNATURE (public wire data derived via sign(); the reference ships it in every SignedWireMessage, lib.rs:350-355), not key material; the secret key itself never reaches this function
         frame = codec.encode((body, sig))
         if len(frame) > MAX_FRAME:
             raise WireError("frame too large")

@@ -78,12 +78,6 @@ class LatencySketch:
             self._lo = min(self.buckets)
         return self._lo
 
-    def _trim(self) -> None:
-        while len(self.buckets) > self.max_buckets:
-            spill = self.buckets.pop(self._lowest())
-            self._lo = nxt = min(self.buckets)
-            self.buckets[nxt] += spill
-
     def add(self, v: float, n: int = 1) -> None:
         v = float(v)
         self.count += n
@@ -103,8 +97,11 @@ class LatencySketch:
             return
         if self._lo is not None and idx < self._lo:
             self._lo = idx
-        b[idx] = n
-        self._trim()
+        self.buckets[idx] = n
+        while len(self.buckets) > self.max_buckets:
+            spill = self.buckets.pop(self._lowest())
+            self._lo = nxt = min(self.buckets)
+            self.buckets[nxt] += spill
 
     def merge(self, other: "LatencySketch") -> None:
         if abs(other.gamma - self.gamma) > 1e-12:
@@ -117,7 +114,10 @@ class LatencySketch:
         for idx, c in other.buckets.items():
             self.buckets[idx] = self.buckets.get(idx, 0) + c
         self._lo = None
-        self._trim()
+        while len(self.buckets) > self.max_buckets:
+            spill = self.buckets.pop(self._lowest())
+            self._lo = nxt = min(self.buckets)
+            self.buckets[nxt] += spill
 
     def scale(self, factor: float) -> "LatencySketch":
         """Multiply the whole distribution by `factor`: a duration read on a

@@ -1,8 +1,15 @@
 """Process-local counters, gauges with high-water marks and fixed-edge
-histograms: the port's copy of the parts of hydrabadger_tpu/obs/metrics.py
-that the sim, the TCP node, the futures, the sketch plane, the DKG's
-planes, the checkpoint store and the scenario plane use.  `snapshot()`
-returns one JSON-able dict."""
+histograms: the port's copy of hydrabadger_tpu/obs/metrics.py.
+`snapshot()` returns one JSON-able dict.
+
+Every metric name the port mints is declared here, each constant with
+the JAX package's identifier and string where the JAX package has the
+name; the names only the port mints (the verify-batch counters of the
+card's signature batches) sit beside them.  The JAX package's
+retrace_sigs_ and mul_batch_* families have no counterpart: the port
+has no jit entry points and no padded scalar-mul lanes.  The contract
+is machine-checked by `python -m hydrabadger_tpu_torch.lint`
+(contract-drift)."""
 from __future__ import annotations
 
 import threading
@@ -109,6 +116,108 @@ CHECKPOINT_CORRUPT_REJECTED = "checkpoint_corrupt_rejected"
 CHECKPOINT_GENERATION_FALLBACKS = "checkpoint_generation_fallbacks"
 CHECKPOINT_PERSIST_FAILURES = "checkpoint_persist_failures"
 CHECKPOINT_PERSISTS_SKIPPED = "checkpoint_persists_skipped"
+
+# Wire-tier detection counters (net/node.py fault paths).  Every name is
+# fixed here so the wire-tier observability contract
+# (net/chaos.py:WIRE_FAULT_OBSERVABLES) and the detection sites bind to
+# one spelling — a renamed counter would silently void the contract:
+#
+#   WIRE_SIG_REJECTED — a verified-kind frame failed its BLS signature
+#       check (the observable for in-flight signature corruption).
+#   WIRE_FRONTIER_REJECTED — a net_state frontier claim failed its
+#       validator signature check.
+#   WIRE_SRC_SPOOF — a message/key_gen frame claimed a source other
+#       than the authenticated connection peer.
+#   PEER_DISCONNECTS — established connections torn down (the
+#       observable for injected connection resets).
+#   WIRE_RETRY_ABANDONED — a targeted frame dropped LOUDLY after its
+#       per-frame retry budget was exhausted.
+#   NODE_FAST_FORWARDS — a stranded validator/observer re-adopted the
+#       network's certified (era, epoch) frontier (the crash/restart
+#       recovery observable).
+WIRE_SIG_REJECTED = "wire_sig_rejected"
+WIRE_FRONTIER_REJECTED = "wire_frontier_rejected"
+WIRE_SRC_SPOOF = "wire_src_spoof"
+PEER_DISCONNECTS = "peer_disconnects"
+WIRE_RETRY_ABANDONED = "wire_retry_abandoned"
+NODE_FAST_FORWARDS = "node_fast_forwards"
+
+# Per-kind received-frame counters: the prefix is suffixed by a
+# net/wire.py:KINDS member, so the family is bounded by the fixed wire
+# vocabulary (same stance as BYTES_RX_BY_KIND_PREFIX).
+WIRE_RX_PREFIX = "wire_rx_"
+
+# Epoch/commit plane (net/node.py commit path):
+#
+#   EPOCHS_COMMITTED — committed epochs, the denominator every per-epoch
+#       rate (bytes, duration, faults) divides by.
+#   EPOCH_DURATION_S — histogram of wall seconds per committed epoch.
+#   CONSENSUS_FAULTS — fault_log entries the cores reported (the raw
+#       feed the byz_faults_* attribution folds from).
+EPOCHS_COMMITTED = "epochs_committed"
+EPOCH_DURATION_S = "epoch_duration_s"
+CONSENSUS_FAULTS = "consensus_faults"
+
+# Crash/partition healing plane (net/node.py recovery paths).  The
+# wire-tier observability contract (net/chaos.py) reads several of
+# these, so the spellings are load-bearing:
+#
+#   WELCOME_BACK_REPLAYS — a reconnecting peer was served the in-flight
+#       epoch's traffic again (barely-behind recovery).
+#   OBSERVER_ADOPTIONS — a voted-out-and-readded node recovered through
+#       observer adoption.
+#   EPOCH_REPLAYS — epoch outbox replays served to lagging peers (the
+#       partition/link-loss healing observable).
+#   EPOCH_REPLAYS_SUPPRESSED — replay requests absorbed by the
+#       per-peer replay budget.
+#   WIRE_RETRY_DROPPED — frames dropped when the retry ring was full
+#       (bounded loss under sustained peer absence).
+#   HANDSHAKE_TIMEOUTS — inbound connections that never completed the
+#       hello exchange.
+WELCOME_BACK_REPLAYS = "welcome_back_replays"
+OBSERVER_ADOPTIONS = "observer_adoptions"
+EPOCH_REPLAYS = "epoch_replays"
+EPOCH_REPLAYS_SUPPRESSED = "epoch_replays_suppressed"
+WIRE_RETRY_DROPPED = "wire_retry_dropped"
+HANDSHAKE_TIMEOUTS = "handshake_timeouts"
+
+# Bounded-queue inventory: every bounded queue of the node exports its
+# depth as a gauge (current, high-water) and its shed events as a
+# counter, sampled by net/node.py's per-epoch census (ROUTER_QUEUE_DEPTH
+# above is the sim router's).
+INTERNAL_QUEUE_DEPTH = "internal_queue_depth"
+INTERNAL_QUEUE_OVERFLOWS = "internal_queue_overflows"
+WIRE_RETRY_DEPTH = "wire_retry_depth"
+EPOCH_OUTBOX_DEPTH = "epoch_outbox_depth"
+KEYGEN_OUTBOX_DEPTH = "keygen_outbox_depth"
+KEYGEN_INBOX_DEPTH = "keygen_inbox_depth"
+IOM_QUEUE_DEPTH = "iom_queue_depth"
+PENDING_USER_DEPTH = "pending_user_depth"
+PENDING_ACKS_DEPTH = "pending_acks_depth"
+PEER_SEND_QUEUE_DEPTH = "peer_send_queue_depth"
+PEER_SEND_QUEUE_OVERFLOWS = "peer_send_queue_overflows"
+
+# Transport/bridge bookkeeping:
+#
+#   WIRE_TX_FRAMES — frames handed to peer send queues.
+#   BRIDGE_* — the crypto micro-batching bridge's dispatch plane
+#       (net/bridge.py).
+#   CHAOS_PARTITION_LOST / CHAOS_DELAY_LOST — a chaos-held frame whose
+#       connection died before release: at the wire tier a hold CAN
+#       become a loss, and the counter keeps it observable.
+WIRE_TX_FRAMES = "wire_tx_frames"
+BRIDGE_BATCHES_DISPATCHED = "bridge_batches_dispatched"
+BRIDGE_REQUESTS_SERVED = "bridge_requests_served"
+CHAOS_PARTITION_LOST = "chaos_partition_lost"
+CHAOS_DELAY_LOST = "chaos_delay_lost"
+
+# Process-tier supervisor (net/cluster.py): child lifecycle counts the
+# crash-restart soak rows assert on.
+PROC_SPAWNS = "proc_spawns"
+PROC_SIGKILLS = "proc_sigkills"
+PROC_SIGTERMS = "proc_sigterms"
+PROC_RESTARTS = "proc_restarts"
+PROC_UNEXPECTED_EXITS = "proc_unexpected_exits"
 
 
 class Counter:

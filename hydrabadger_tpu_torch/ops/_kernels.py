@@ -214,6 +214,7 @@ def check(name: str, lib: ctypes.CDLL, rc: int, error_fn: str) -> None:
     """Raise if a launch entry returned a CUDA error code."""
     if rc != 0:
         msg = getattr(lib, error_fn)(rc)
+        # hblint: disable=secret-taint -- rc is the launch's CUDA status code and msg the runtime's fixed error string for it; the analyzer joins an opaque ctypes call's return with its pointer arguments, but no lane value comes back through the status int
         raise RuntimeError(
             f"{name} launch failed: CUDA error {rc} "
             f"({msg.decode() if msg else 'unknown'})"

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from . import _kernels
 from .fp12_circuit import Circuit
-from .fq_torch import N_HALF, _carry, consts as fq_consts, mont_mul_h, to_half, to_words
+from .fq_torch import HALF, N_HALF, _carry, consts as fq_consts, mont_mul_h, to_half, to_words
 from .limbs import N_LIMBS, P
 
 # Kernel launches made by `CircuitExec.__call__` and `CircuitChain.__call__`
@@ -209,10 +209,12 @@ class CircuitExec:
         for sl, sr in self.circ.mats:
             m = np.concatenate([sl, sr], axis=0)
             layers.append((
+                # hblint: disable=limb-layout -- exact integer product: float64 carries 16-bit digit sums below 2^53 without rounding (the plain version's dense product; torch's CUDA matmul takes floating types only)
                 torch.as_tensor(m, dtype=torch.float64, device=device),
                 torch.as_tensor(_negsum(m), device=device),
             ))
         out = (
+            # hblint: disable=limb-layout -- exact integer product: float64 carries 16-bit digit sums below 2^53 without rounding (the plain version's dense product; torch's CUDA matmul takes floating types only)
             torch.as_tensor(self.circ.T, dtype=torch.float64, device=device),
             torch.as_tensor(_negsum(self.circ.T), device=device),
         )
@@ -232,6 +234,7 @@ class CircuitExec:
         layers, (t_mat, t_neg), const_w, _ = self._operands(x.device)
         n_fixed = self.n_inputs + self.n_const
         # every wire in half form, canonical: [24, wire, lane]
+        # hblint: disable=limb-layout -- exact integer product: float64 carries 16-bit digit sums below 2^53 without rounding (the plain version's dense product; torch's CUDA matmul takes floating types only)
         wires = torch.empty((N_HALF, n_fixed + self.n_products, n), dtype=torch.float64,
                             device=x.device)
         wires[:, : self.n_inputs] = to_half(xs.transpose(0, 1))
@@ -281,11 +284,11 @@ class CircuitExec:
             out.data_ptr(), n, torch.cuda.current_stream(x.device).cuda_stream,
         )
         _kernels.check("circuit", lib, rc, "circuit_error_string")
-        _count(self.name)
+        _note_launch(self.name)
         return out
 
 
-def _count(name: str) -> None:
+def _note_launch(name: str) -> None:
     global launches
     launches += 1
     launches_by_circuit[name] = launches_by_circuit.get(name, 0) + 1
@@ -357,9 +360,10 @@ class CircuitChain:
         return 2 * self.n_acc + self.n_sel * self.entries
 
     def _check(self, acc: torch.Tensor, table: torch.Tensor) -> int:
-        for t, what in ((acc, "acc"), (table, "table")):
-            if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
-                raise TypeError(f"{self.name}: expected an int32 {what}")
+        if not isinstance(acc, torch.Tensor) or acc.dtype != torch.int32:
+            raise TypeError(f"{self.name}: expected an int32 acc")
+        if not isinstance(table, torch.Tensor) or table.dtype != torch.int32:
+            raise TypeError(f"{self.name}: expected an int32 table")
         if acc.dim() != 3 or tuple(acc.shape[:2]) != (self.n_acc, N_LIMBS):
             raise ValueError(f"{self.name}: acc must be [{self.n_acc}, {N_LIMBS}, n], "
                              f"got {tuple(acc.shape)}")
@@ -418,7 +422,7 @@ class CircuitChain:
             out.data_ptr(), n, self.n_acc, torch.cuda.current_stream(dev).cuda_stream,
         )
         _kernels.check("circuit", lib, rc, "circuit_error_string")
-        _count(self.name)
+        _note_launch(self.name)
         return out
 
 
@@ -430,7 +434,7 @@ def _mix(m: torch.Tensor, negsum: torch.Tensor, wires: torch.Tensor) -> torch.Te
     v = F.pad(torch.matmul(m, wires).to(torch.int64), (0, 0, 0, 0, 0, _WIDE - N_HALF))
     v += negsum[None, :, None] * c.p26[:, :, None]  # V = mix + negsum p, 0 <= V < 64p
     d = _carry(v.reshape(_WIDE, -1))
-    top = d[22] | (d[23] << 16) | (d[24] << 32) | (d[25] << 48)  # V >> 352
+    top = d[22] | (d[23] << HALF) | (d[24] << 2 * HALF) | (d[25] << 3 * HALF)  # V >> 352
     qp = torch.div(top, P_TOP + 1, rounding_mode="floor") * c.p26  # q p, V - q p < 2p
     r = _carry(torch.cat([d - qp, d - qp - c.p26], dim=1))
     k = rows * n

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _kernels
-from .limbs import BETA_MONT, N_LIMBS, ONE_MONT, P, R_MONT
+from .limbs import BETA_MONT, LIMB_BITS, N_LIMBS, ONE_MONT, P, R_MONT
 
 # Kernel launches made by the wrappers (one per launch, none for CPU
 # tensors), in all and per entry.  chip_smoke.py sets them to 0 before
@@ -87,12 +87,14 @@ class _Consts:
         # (float64 is exact: every sum is < 2^42)
         self.pinv_toeplitz = t(
             [[pinv[k - i] if k >= i else 0 for i in range(N_HALF)] for k in range(N_HALF)],
+            # hblint: disable=limb-layout -- exact integer product: float64 carries 16-bit digit sums below 2^53 without rounding (the plain version's dense product; torch's CUDA matmul takes floating types only)
             torch.float64,
         )
         # [k, i] = p[k - i]: m * P, every sum < 2^37
         self.p_toeplitz = t(
             [[p[k - i] if 0 <= k - i < N_HALF else 0 for i in range(N_HALF)]
              for k in range(2 * N_HALF)],
+            # hblint: disable=limb-layout -- exact integer product: float64 carries 16-bit digit sums below 2^53 without rounding (the plain version's dense product; torch's CUDA matmul takes floating types only)
             torch.float64,
         )
         self.p25 = t(np.append(p, 0))[:, None]
@@ -123,7 +125,7 @@ def _c(x: torch.Tensor) -> _Consts:
 
 def to_half(w: torch.Tensor) -> torch.Tensor:
     """[12, ...] int32 words -> [24, ...] int64 16-bit digits."""
-    w64 = w.to(torch.int64) & 0xFFFFFFFF
+    w64 = w.to(torch.int64) & ((1 << LIMB_BITS) - 1)
     h = torch.stack([w64 & MASK, w64 >> HALF], dim=1)
     return h.reshape(N_HALF, *w.shape[1:])
 
@@ -132,7 +134,7 @@ def to_words(h: torch.Tensor) -> torch.Tensor:
     """[24, ...] canonical digits -> [12, ...] int32 words."""
     h2 = h.reshape(N_LIMBS, 2, *h.shape[1:])
     v = h2[:, 0] | (h2[:, 1] << HALF)
-    return (v - ((v >> 31) << 32)).to(torch.int32)
+    return (v - ((v >> (LIMB_BITS - 1)) << LIMB_BITS)).to(torch.int32)
 
 
 def _carry(x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +150,7 @@ def _carry(x: torch.Tensor) -> torch.Tensor:
     # round 1: the three 16-bit pieces of each position moved into place
     y = x & MASK
     y[1:] += (x[:-1] >> HALF) & MASK
-    y[2:] += x[:-2] >> 32
+    y[2:] += x[:-2] >> (2 * HALF)
     # round 2: every position <= 2^16 + 1, and <= 1 in its low digit if > 2^16 - 1
     hi = y >> HALF
     y &= MASK
@@ -177,6 +179,7 @@ def _conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _f64_mm(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    # hblint: disable=limb-layout -- exact integer product: float64 carries 16-bit digit sums below 2^53 without rounding (the plain version's dense product; torch's CUDA matmul takes floating types only)
     return torch.matmul(m, x.to(torch.float64)).to(torch.int64)
 
 

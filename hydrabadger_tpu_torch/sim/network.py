@@ -60,7 +60,7 @@ import time
 from collections import OrderedDict
 from contextlib import ExitStack, contextmanager
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -282,7 +282,9 @@ class SimNetwork:
                 )
                 for idx, nid in enumerate(self.ids)
             }
-        adversary = self._compile_scenario()
+        adversary, byzantine = self._compile_scenario()
+        # wrapping replaces entries: the roster keeps the fixed topology
+        self.nodes = {nid: byzantine.get(nid, node) for nid, node in self.nodes.items()}
         self.honest_ids = [nid for nid in self.ids if not hasattr(self.nodes[nid], "unwrap")]
         self.router = Router(
             self.ids,
@@ -316,26 +318,28 @@ class SimNetwork:
         # the per-epoch state census: every declared container's size
         self.census = StateCensus(metrics=self.metrics)
 
-    def _compile_scenario(self) -> Optional[Callable]:
-        """The router's adversary: `cfg.adversary`, or the scenario compiled
-        into a ScenarioAdversary with the nodes it names wrapped in their
-        attack strategies (each seeded as the JAX sim seeds it)."""
+    def _compile_scenario(self) -> Tuple[Optional[Callable], Dict]:
+        """The router's adversary (`cfg.adversary`, or the scenario compiled
+        into a ScenarioAdversary) and, by id, the nodes the scenario names
+        wrapped in their attack strategies (each seeded as the JAX sim seeds
+        it)."""
         self.scenario_log = None
         scen = self.cfg.scenario
         if scen is None:
-            return self.cfg.adversary
+            return self.cfg.adversary, {}
         if self.cfg.adversary is not None:
             raise ValueError("SimConfig.scenario and SimConfig.adversary are mutually exclusive")
         adv = ScenarioAdversary(scen, self.ids, metrics=self.metrics)
         self.scenario_log = adv.log
+        wrapped = {}
         for idx, names in sorted(scen.byzantine_map().items()):
             nid = self.ids[idx]
-            self.nodes[nid] = byz.ByzantineNode(
+            wrapped[nid] = byz.ByzantineNode(
                 self.nodes[nid],
                 byz.build_strategies(names, random.Random(scen.seed * 7919 + 11 + idx), adv.log),
                 log=adv.log,
             )
-        return adv
+        return adv, wrapped
 
     def _handle(self, me, sender, message):
         if sender in self._dup_ids:
@@ -467,9 +471,10 @@ class SimNetwork:
         self.metrics.counter(M.TXN_COMMITTED).value = committed
         if merged.count:
             pcts = merged.percentiles()
-            for name, key in ((M.TXN_LATENCY_P50_S, "p50"), (M.TXN_LATENCY_P90_S, "p90"),
-                              (M.TXN_LATENCY_P99_S, "p99"), (M.TXN_LATENCY_P999_S, "p999")):
-                self.metrics.gauge(name).track(round(pcts[key], 6))
+            self.metrics.gauge(M.TXN_LATENCY_P50_S).track(round(pcts["p50"], 6))
+            self.metrics.gauge(M.TXN_LATENCY_P90_S).track(round(pcts["p90"], 6))
+            self.metrics.gauge(M.TXN_LATENCY_P99_S).track(round(pcts["p99"], 6))
+            self.metrics.gauge(M.TXN_LATENCY_P999_S).track(round(pcts["p999"], 6))
         if self.slo_tracker is None:
             return
         # the SLO sees each newly committed sample once; a violation is a

@@ -213,9 +213,9 @@ def era_soak(n_nodes: int = 16, steady_epochs: int = 6, era_gap_floor_s: float =
         `max(2x steady p50, era_gap_floor_s)`;
       * era-age flatness: later-era steady epoch time within 1.2x the
         era-0 steady p50 (plus the same floor);
-      * state-census flatness: every `per_epoch`/`per_era` container
-        (obs/census.STATE_LIFECYCLE) no larger at the end of the last era
-        than at the end of era 0;
+      * state-census flatness: every `per_epoch`/`per_era` container (the
+        lint registry's STATE_LIFECYCLE, read by obs/census) no larger at
+        the end of the last era than at the end of era 0;
       * every switch happened, agreement held, and the shadow-DKG stall
         observable stayed silent.
 

@@ -1,6 +1,7 @@
 """The port's state census (hydrabadger_tpu_torch/obs/census.py) against the
-JAX package's: tests/test_obs.py's census cases on the port, the port's own
-lifecycle table pinned equal to the JAX lint registry's STATE_LIFECYCLE,
+JAX package's: tests/test_obs.py's census cases on the port, the port's
+lifecycle table (read from the port's lint registry) pinned equal to the
+JAX lint registry's STATE_LIFECYCLE,
 every declared attribute found on a live port object, and the port sim's
 census rows equal to the JAX sim's, row for row, for 4-node qhb over 2
 epochs and 4-node dhb through a removal era switch.
@@ -8,6 +9,7 @@ epochs and 4-node dhb through a removal era switch.
 import pytest
 
 from hydrabadger_tpu.lint import registry
+from hydrabadger_tpu_torch.lint import registry as port_registry
 from hydrabadger_tpu.sim.network import SimConfig as JSimConfig
 from hydrabadger_tpu.sim.network import SimNetwork as JSimNetwork
 from hydrabadger_tpu_torch import checkpoint as ckpt
@@ -50,16 +52,22 @@ def test_census_flatness_scoped_lifecycles_only(monkeypatch):
     assert census.flatness_violations(baseline, later) == ["Core.votes: 4 -> 400"]
 
 
+def _declared(table) -> dict:
+    """{"Class.attr": decl} of a lifecycle_table()."""
+    return {f"{cls}.{attr}": decl for cls, attrs in table.items() for attr, decl in attrs.items()}
+
+
 def test_census_table_equals_the_jax_registry():
-    """The port's own table is the JAX lint registry's STATE_LIFECYCLE reduced
-    to "Class.attr", declaration for declaration, and lifecycle_of round-trips."""
+    """The census reads the port's lint registry, whose STATE_LIFECYCLE is the
+    JAX lint registry's, key for key (the port keeps the JAX file layout) and
+    declaration for declaration; the census table is it reduced to
+    "Class.attr", and lifecycle_of round-trips."""
+    assert port_registry.STATE_LIFECYCLE == registry.STATE_LIFECYCLE
     theirs = {full.split("::", 1)[1]: decl for full, decl in registry.STATE_LIFECYCLE.items()}
-    assert census.STATE_LIFECYCLE == theirs
     table = census.lifecycle_table()
     assert len(table) == 10
-    for cls_attr, decl in census.STATE_LIFECYCLE.items():
-        cls_name, attr = cls_attr.split(".", 1)
-        assert table[cls_name][attr] == decl
+    assert _declared(table) == theirs
+    for cls_attr, decl in theirs.items():
         assert census.lifecycle_of(cls_attr) == decl[0]
 
 
@@ -94,7 +102,7 @@ def test_every_declared_attribute_lives_on_a_port_object():
             keep(*census.node_objects(dhb.nodes[nid]))
     keep(Hydrabadger(InAddr("127.0.0.1", 15749), Config(engine="cpu"), seed=1))
     assert set(census.lifecycle_table()) <= set(objs), sorted(objs)
-    for cls_attr in census.STATE_LIFECYCLE:
+    for cls_attr in _declared(census.lifecycle_table()):
         cls_name, attr = cls_attr.split(".", 1)
         assert hasattr(objs[cls_name], attr), cls_attr
         assert census._size(getattr(objs[cls_name], attr)) is not None, cls_attr
