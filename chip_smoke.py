@@ -20,12 +20,19 @@ failure:
      reconstruct from the parity-quorum view), an unaligned view, a ragged
      one, the 4-node engine shape (2, 2), several launches over row chunks
      (233, 22) and many K tiles (32, 223), and against the numpy GF(2^8)
-     reference on sampled instances;
+     reference on sampled instances; then rs64-batch64k's two launches (64
+     rows of 11,637 bytes: the encode into the codeword's parity rows, the
+     reconstruct from the quorum view 42 * L bytes into each row), each
+     one launch on B1's row path, with nothing outside the parity rows
+     written;
   4. the main path: TensorSim at the config-6 geometry (64 nodes x 1024
      instances, 12-byte shards), 50 epochs with every launch counter set
      to 0 just before and read just after; the verdict, 2 launches per
-     epoch, the final state against the same epochs through the plain
-     version, and one epoch of sampled instances against the host oracle;
+     epoch, all on B1's word path, the final state against the same epochs
+     through the plain version, and one epoch of sampled instances against
+     the host oracle; then 20 epochs at rs64-batch64k's geometry (one
+     network, 11,637-byte shards): 2 launches an epoch, all on the row
+     path, and the final state against the plain version's;
   5. timings: epochs/s, B1's time per launch at the epoch's two shapes
      (cold L2, median of 20) against its bound (ops/roofline.gf_matmul_ms),
      the ratio, the earlier SWAR kernel's time, its plain version and a bf16
@@ -339,6 +346,9 @@ from hydrabadger_tpu_torch.experiments._common import timed_ms, wall_ms  # noqa:
 from hydrabadger_tpu_torch.ops import roofline  # noqa: E402
 
 N_NODES, INSTANCES, SHARD_LEN, EPOCHS = 64, 1024, 12, 50
+# rs64-batch64k: one network, 65,536 txns of 250 B an epoch, so 11,637-byte
+# shards (odd: B1's row path)
+BATCH64K_SHARD_LEN, BATCH64K_EPOCHS = 11_637, 20
 FC_NODES, FC_INSTANCES, FC_EPOCHS = 64, 64, 3
 COIN_NODES, COIN_INSTANCES, COIN_ROUNDS = 64, 64, 3
 DEC_NODES, DEC_ROUNDS = 64, 3
@@ -4024,6 +4034,26 @@ def main() -> int:
         check(np.array_equal(host_rec[i], host_data[i]), "sampled reconstruct != data")
     print(f"kernel == numpy gf256.matmul on sampled instances {sample}")
 
+    def hold_on_path(op, x, label, path, out=None):
+        before = dict(gf256_torch.launches_by_path)
+        got = hold(op, x, label, out=out)
+        moved = {key: gf256_torch.launches_by_path[key] - before[key] for key in before}
+        check(moved == {**dict.fromkeys(before, 0), path: 1},
+              f"{label}: launches by path {moved}, want one on the {path} path")
+        return got
+
+    bL = BATCH64K_SHARD_LEN
+    b_data = torch.from_numpy(rng.integers(0, 256, (N_NODES, k, bL), dtype=np.uint8)).to(dev)
+    b_code = torch.zeros((N_NODES, n, bL), dtype=torch.uint8, device=dev)
+    b_code[:, :k] = b_data
+    hold_on_path(enc_op, b_data, f"rs64-batch64k's encode ({p},{k}) x [{N_NODES},{k},{bL}] "
+                 "into the codeword's parity rows", "rows", out=b_code[:, k:])
+    check(torch.equal(b_code[:, :k], b_data), "the encode wrote outside the parity rows")
+    b_rec = hold_on_path(dec_op, b_code[:, p:n], f"rs64-batch64k's reconstruct ({k},{k}) from "
+                         f"the quorum view, {p * bL} bytes into each row", "rows")
+    check(torch.equal(b_rec, b_data), "rs64-batch64k's reconstruct did not recover the data")
+    print("rs64-batch64k's two launches: one each, on the row path")
+
     # -- 4. the main path --------------------------------------------------
     sim = ts.TensorSim(cfg, device="cuda")
     plain = ts.TensorSim(cfg, device="cuda", use_kernel=False)
@@ -4032,15 +4062,18 @@ def main() -> int:
     torch.cuda.synchronize()
 
     gf256_torch.launches, fq_torch.launches, circuit_torch.launches = 0, 0, 0
+    paths = dict(gf256_torch.launches_by_path)
     t0 = time.perf_counter()
     ok = sim.run(EPOCHS)  # one host sync, at the end
     main_s = time.perf_counter() - t0
     counts = {"gf256_matmul": gf256_torch.launches, "fq_point": fq_torch.launches,
               "circuit": circuit_torch.launches}
+    words = gf256_torch.launches_by_path["words"] - paths["words"]
     check(ok, "main path: totality violated")
-    check(counts["gf256_matmul"] == 2 * EPOCHS,
-          f"main path made {counts['gf256_matmul']} gf256_matmul launches, want {2 * EPOCHS}")
-    print(f"main path: {EPOCHS} epochs ok, launches {counts}")
+    check(counts["gf256_matmul"] == 2 * EPOCHS == words,
+          f"main path made {counts['gf256_matmul']} gf256_matmul launches ({words} on the word "
+          f"path), want {2 * EPOCHS} on it")
+    print(f"main path: {EPOCHS} epochs ok, launches {counts}, all on the word path")
 
     check(plain.run(EPOCHS), "plain main path: totality violated")
     check(torch.equal(sim._state, plain._state), "final state != the plain version's")
@@ -4053,6 +4086,23 @@ def main() -> int:
     check(bool(ok_s.all()), "sampled epoch: totality violated")
     check(np.array_equal(decoded.cpu().numpy(), oracle), "sampled epoch != cpu_fast_path_epoch")
     print(f"one epoch of instances {idx} == cpu_fast_path_epoch")
+
+    b_cfg = ts.TensorSimConfig(n_nodes=N_NODES, instances=1, shard_len=BATCH64K_SHARD_LEN)
+    b_sim = ts.TensorSim(b_cfg, device="cuda")
+    b_plain = ts.TensorSim(b_cfg, device="cuda", use_kernel=False)
+    gf256_torch.launches = 0
+    gf256_torch.launches_by_path.update(dict.fromkeys(gf256_torch.launches_by_path, 0))
+    check(b_sim.run(BATCH64K_EPOCHS), "rs64-batch64k's geometry: totality violated")
+    b_paths = dict(gf256_torch.launches_by_path)
+    want = {"words": 0, "rows": 2 * BATCH64K_EPOCHS, "bytes": 0}
+    check(gf256_torch.launches == 2 * BATCH64K_EPOCHS and b_paths == want,
+          f"rs64-batch64k's geometry: {gf256_torch.launches} gf256_matmul launches, by path "
+          f"{b_paths}, want {want}")
+    check(b_plain.run(BATCH64K_EPOCHS), "plain rs64-batch64k geometry: totality violated")
+    check(torch.equal(b_sim._state, b_plain._state),
+          "rs64-batch64k's geometry: final state != the plain version's")
+    print(f"rs64-batch64k's geometry: {BATCH64K_EPOCHS} epochs ok, launches by path {b_paths}, "
+          "final state == the plain version's")
 
     # -- 5. timings --------------------------------------------------------
     eps = []

@@ -52,11 +52,32 @@
 //    wrapper into launches over row chunks of A (and, past 256 data rows,
 //    over K chunks that XOR into `out`).
 //  - The data streams through a ring of STAGES shared-memory tiles of
-//    [kp rows][C columns] bytes, filled by 4-byte cp.async where the view
-//    allows (L % 4 == 0, unit column strides, 4-byte aligned), else byte by
-//    byte.  Each lane expands the bytes it needs straight into its A
-//    fragment: 4 bits of one byte become 4 int8 lanes with one byte
-//    permute, one multiply and one mask.  No bit tensor is written.
+//    [kp rows][C columns] bytes.  Each lane expands the bytes it needs
+//    straight into its A fragment: 4 bits of one byte become 4 int8 lanes
+//    with one byte permute, one multiply and one mask.  No bit tensor is
+//    written.
+//  - Three layouts of a tile (LAYOUT; ops/gf256_torch.launch_path picks
+//    one from the view's length, strides and pointers):
+//      WORDS: C consecutive byte columns c = b*L + l, moved as 4-byte
+//        cp.async words and 32-bit stores; the view must allow it (L % 4 ==
+//        0, unit column strides, 4-byte aligned pointers and strides).
+//      ROWS: C columns of one shard row b, so B * ceil(L / C) tiles, one
+//        division per tile.  Each data row's run (any alignment) is fetched
+//        as the 16-byte cp.async words that cover it, with its byte shift
+//        (address & 15) kept: a lane realigns its bytes with one permute
+//        per 4 as it expands them.  The epilogue stores the WORDS way into
+//        the tile's m output rows staged in shared memory; after the last
+//        pass, one barrier, and each output row's run leaves as aligned
+//        16-byte words, shifted into place from the stage, with masked
+//        32-bit atomics only in the words it shares with the next run.
+//        (Stitching the stores in registers instead, by shuffles and byte
+//        stores at each warp's ends, measured 14% slower on rs64-batch64k's
+//        encode and 10% on its reconstruct.)  The
+//        last tile of a row computes columns past L from whatever the
+//        covering words hold, and stores none of them.
+//      BYTES: any view, one byte at a time, each column's offset by one
+//        division; kept for rows shorter than a tile (the low-comm
+//        sketches' 1-16 columns), where ROWS would compute mostly padding.
 //  - The mod-2-and-pack epilogue.  N tile nt = 4G + q, column n maps to
 //    output byte 4G + n/2, bit 2q + n%2, and that column of B is scaled by
 //    2^bit (bit 7 by -128, which is 128 mod 256).  So the int32 sum already
@@ -84,6 +105,9 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr int kKC = 6;  // MMA K tiles whose A fragments a warp holds at once
+constexpr int kBytes = 0, kWords = 1, kRows = 2;  // LAYOUT, as ops/gf256_torch.PATHS
+constexpr int kRowPad = 32;  // ROWS: a staged output row is C + kRowPad bytes
+
 
 // byte offset of byte column c (= b*L + l) within row 0 of a [B, rows, L] view
 __device__ __forceinline__ long long col_off(long long c, int L, long long sb,
@@ -148,6 +172,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
+// 16 bytes from `src` (16-byte aligned), or 16 zeros where `bytes` is 0
+__device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
 // D (+)= A * B for the warpgroup's 64 x N x 32 tile: A s8 from registers (the
 // warp's 16 rows, m16n8k32's A fragment), B s8 K-major in shared memory,
 // D s32 with N/2 registers per thread in m16n8k32's C order per 8 columns.
@@ -185,21 +216,34 @@ __device__ __forceinline__ uint32_t spread(uint32_t nibbles) {
 
 // A fragments of K tiles kc .. kc + kKC - 1 from a ring stage: (mt, kt) reg
 // h + 2*k2 holds row g + 8h (column wcol + 2mt + h), K = 16*k2 + 4t .. +3:
-// data byte 4kt + 2k2 + t/2, bits 4(t%2) .. +3.
-template <int MT>
+// data byte 4kt + 2k2 + t/2, bits 4(t%2) .. +3.  ROWS: data row j's run
+// starts (rlo + j * rsk) & 15 bytes into its stage row (rlo the low bits of
+// the tile's row-b address, rsk of the row stride), so the lane reads the
+// 4-byte words around its bytes and shifts them into place.
+template <int MT, bool ROWS>
 __device__ __forceinline__ void expand_a(uint32_t (&a)[MT][kKC][4], const uint8_t* st,
-                                         int row, int wcol, int t, int kc, int KT) {
+                                         int row, int wcol, int t, int kc, int KT,
+                                         uint32_t rlo, uint32_t rsk) {
 #pragma unroll
   for (int kk = 0; kk < kKC; ++kk) {
     if (kc + kk < KT) {
 #pragma unroll
       for (int k2 = 0; k2 < 2; ++k2) {
-        const uint8_t* src = st + (4 * (kc + kk) + 2 * k2 + (t >> 1)) * row + wcol;
+        const int j = 4 * (kc + kk) + 2 * k2 + (t >> 1);
         uint32_t w[MT / 2];
-        if constexpr (MT == 2) {
-          w[0] = *reinterpret_cast<const uint32_t*>(src);
+        if constexpr (ROWS) {
+          const int o = wcol + (int)((rlo + (uint32_t)j * rsk) & 15u);
+          const uint32_t* src = reinterpret_cast<const uint32_t*>(st + j * row + (o & ~3));
+          const uint32_t sel = 0x3210u + 0x1111u * (uint32_t)(o & 3);
+          uint32_t x[MT / 2 + 1];
+#pragma unroll
+          for (int u = 0; u <= MT / 2; ++u) x[u] = src[u];
+#pragma unroll
+          for (int u = 0; u < MT / 2; ++u) w[u] = __byte_perm(x[u], x[u + 1], sel);
+        } else if constexpr (MT == 2) {
+          w[0] = *reinterpret_cast<const uint32_t*>(st + j * row + wcol);
         } else {
-          const uint2 v = *reinterpret_cast<const uint2*>(src);
+          const uint2 v = *reinterpret_cast<const uint2*>(st + j * row + wcol);
           w[0] = v.x;
           w[1] = v.y;
         }
@@ -293,13 +337,67 @@ __device__ __forceinline__ void epilogue(const int (&acc)[MT][NQ][4], int G0, in
   }
 }
 
+// ROWS: output rows 0..m-1 of a tile, staged at `ost` (row stride `orow`,
+// C + kRowPad bytes), to their runs of n bytes at `p0` + i * o_sm.  Thread
+// (i0, w) moves aligned 16-byte word w of rows i0, i0 + istep, ...: word w
+// holds run bytes 16w - s .. 16w - s + 15 (s = the run's address & 15),
+// read from the stage and shifted into place with byte permutes.  A word
+// inside the run is stored whole; one at its ends shares bytes with the
+// next run (the row's next tile, or the next row), so its 4-byte parts are
+// stored whole where they lie inside, else only their own bytes, by 32-bit
+// atomics on disjoint masks.
+__device__ __forceinline__ void store_rows(const uint8_t* ost, int orow, uint8_t* p0,
+                                           long long o_sm, int m, int n, int w, int i0,
+                                           int istep, int accumulate) {
+  for (int i = i0; i < m; i += istep) {
+    uint8_t* p = p0 + i * o_sm;
+    const int lo = 16 * w - (int)(reinterpret_cast<uintptr_t>(p) & 15);
+    if (lo >= n) continue;
+    const uint32_t* x = reinterpret_cast<const uint32_t*>(ost + i * orow + (lo & ~3));
+    const uint32_t sel = 0x3210u + 0x1111u * (uint32_t)(lo & 3);
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = __byte_perm(x[j], x[j + 1], sel);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(p + lo);
+    if (lo >= 0 && lo + 16 <= n) {
+      uint4 val = make_uint4(v[0], v[1], v[2], v[3]);
+      if (accumulate) {
+        const uint4 old = *reinterpret_cast<const uint4*>(dst);
+        val = make_uint4(val.x ^ old.x, val.y ^ old.y, val.z ^ old.z, val.w ^ old.w);
+      }
+      *reinterpret_cast<uint4*>(dst) = val;
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = lo + 4 * j;  // the run offset of part j's first byte
+      if (a + 4 <= 0 || a >= n) continue;
+      if (a >= 0 && a + 4 <= n) {
+        dst[j] = accumulate ? dst[j] ^ v[j] : v[j];
+        continue;
+      }
+      uint32_t mask = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (a + e >= 0 && a + e < n) mask |= 0xFFu << (8 * e);
+      if (accumulate) {
+        atomicXor(dst + j, v[j] & mask);
+      } else {
+        atomicAnd(dst + j, ~mask);
+        atomicOr(dst + j, v[j] & mask);
+      }
+    }
+  }
+}
+
 // One block: `bop` is the B operand, [KT K tiles][NT = 4 NG N tiles][2 K
 // halves][8 N rows][16 K bytes] (wgmma's canonical K-major layout; the
 // mma.sync form loads its fragments from it too); the ring holds STAGES
-// tiles of [kp][row] bytes (row >= C).  FORM 0: mma.sync.m16n8k32 per warp;
-// FORM 1 / 2: wgmma m64nNk32 per warpgroup, passes of N = 32 / 64 (one /
-// two groups of 4 output bytes).
-template <int FORM, int MT, int STAGES, bool WORDS>
+// tiles of [kp][row] bytes (row >= C, and >= C + 16 for ROWS); ROWS stages
+// a tile's m output rows after it, C + kRowPad bytes each.  FORM 0:
+// mma.sync.m16n8k32 per warp; FORM 1 / 2: wgmma m64nNk32 per warpgroup,
+// passes of N = 32 / 64 (one / two groups of 4 output bytes).
+template <int FORM, int MT, int STAGES, int LAYOUT>
 __global__ void __launch_bounds__(kMaxThreads)
     gf256_mma_kernel(const uint4* __restrict__ bop, int bop_bytes,
                      const uint8_t* __restrict__ data, long long d_sb, long long d_sk,
@@ -308,15 +406,19 @@ __global__ void __launch_bounds__(kMaxThreads)
                      long long ncols, int row, int accumulate) {
   constexpr int GS = FORM == 2 ? 2 : 1;  // groups of 4 output bytes per pass
   constexpr int NQ = 4 * GS;             // N tiles per pass
+  constexpr bool ROWS = LAYOUT == kRows;
   extern __shared__ __align__(128) uint8_t smem[];
   const int nthreads = blockDim.x, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int kp = (k + 3) & ~3, KT = kp >> 2, NG = (m + 3) >> 2, NT = 4 * NG;
   const int C = (nthreads >> 5) * 16 * MT;  // byte columns per tile
   const int stage_bytes = kp * row;
-  const long long ntiles = (ncols + C - 1) / C;
+  const long long tpr = (L + C - 1) / C;  // ROWS: tiles per shard row
+  const long long ntiles = ROWS ? ncols / L * tpr : (ncols + C - 1) / C;
   uint8_t* bsh = smem;
   uint8_t* ring = smem + bop_bytes;
+  uint8_t* ost = ring + STAGES * stage_bytes;  // ROWS: the staged output rows
+  const int orow = C + kRowPad;
   const uint32_t bsh_s = (uint32_t)__cvta_generic_to_shared(bsh);
   const uint64_t desc0 = b_desc(bsh_s);
 
@@ -328,10 +430,15 @@ __global__ void __launch_bounds__(kMaxThreads)
       ring[(q / pad) * stage_bytes + k * row + q % pad] = 0;
   }
 
+  // ROWS: a thread moves 16-byte word rw of data rows rj0, rj0 + rjs, ...,
+  // and of output rows the same: the C / 16 + 1 aligned words that cover a
+  // run of C bytes at any shift
+  const int nrw = C / 16 + 1, rw = tid % nrw, rj0 = tid / nrw, rjs = nthreads / nrw;
+
   auto load_tile = [&](long long tile, int s) {
     uint8_t* st = ring + s * stage_bytes;
     const long long c0 = tile * C;
-    if constexpr (WORDS) {
+    if constexpr (LAYOUT == kWords) {
       const int wc = C / 4;  // 4-column words per row; nthreads is a multiple
       const int w = tid % wc;
       const long long c = c0 + 4 * w;
@@ -340,6 +447,18 @@ __global__ void __launch_bounds__(kMaxThreads)
       const uint32_t dst = (uint32_t)__cvta_generic_to_shared(st + 4 * w);
       for (int j = tid / wc; j < k; j += nthreads / wc)
         cp_async4(dst + j * row, ok ? src + j * d_sk : data, ok ? 4 : 0);
+    } else if constexpr (ROWS) {
+      if (rj0 >= rjs) return;  // the threads past whole rows of words
+      const long long b = tile / tpr;
+      const int l0 = (int)(tile - b * tpr) * C, n = min(C, L - l0);
+      const uint8_t* run = data + b * d_sb + l0 + (long long)rj0 * d_sk;
+      const uint32_t dst = (uint32_t)__cvta_generic_to_shared(st + rj0 * row + 16 * rw);
+      for (int j = rj0; j < k; j += rjs, run += rjs * d_sk) {
+        const uint8_t* a0 = reinterpret_cast<const uint8_t*>(
+            reinterpret_cast<uintptr_t>(run) & ~(uintptr_t)15);
+        const bool ok = a0 + 16 * rw < run + n;  // the word holds a byte of the run
+        cp_async16z(dst + (j - rj0) * row, ok ? a0 + 16 * rw : a0, ok ? 16 : 0);
+      }
     } else {
       for (int q = tid; q < k * C; q += nthreads) {
         const int j = q / C, cc = q % C;
@@ -370,17 +489,35 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
     const uint8_t* st = ring + (it % STAGES) * stage_bytes;
 
-    // The lane's 2*MT consecutive output columns: one word each 4 (WORDS),
-    // else one offset each.
-    const long long cbase = (first + it * step) * C + wcol;
+    // The lane's 2*MT consecutive output columns: one word each 4 (WORDS
+    // and ROWS, whose words go to the staged rows), else one offset each.
+    const long long tile = first + it * step;
+    constexpr bool WORDS = LAYOUT != kBytes;
     constexpr int kOffs = WORDS ? MT / 2 : 2 * MT;
     long long off[kOffs];
     bool live[kOffs];
+    uint8_t* o_run = out;  // ROWS: the tile's first column of output row 0
+    int n = 0;             // ROWS: the tile's columns before the row's end
+    uint32_t rlo = 0;      // ROWS: low bits of the tile's data row address
+    if constexpr (ROWS) {
+      const long long b = tile / tpr;
+      const int l0 = (int)(tile - b * tpr) * C;
 #pragma unroll
-    for (int u = 0; u < kOffs; ++u) {
-      const long long c = cbase + (WORDS ? 4 * u : u);
-      live[u] = c < ncols;
-      off[u] = live[u] ? col_off(c, L, o_sb, o_sl) : 0;
+      for (int u = 0; u < kOffs; ++u) {
+        off[u] = wcol + 4 * u;
+        live[u] = true;
+      }
+      o_run = out + b * o_sb + l0;
+      n = min(C, L - l0);
+      rlo = (uint32_t)reinterpret_cast<uintptr_t>(data) + (uint32_t)(b * d_sb);
+    } else {
+      const long long cbase = tile * C + wcol;
+#pragma unroll
+      for (int u = 0; u < kOffs; ++u) {
+        const long long c = cbase + (WORDS ? 4 * u : u);
+        live[u] = c < ncols;
+        off[u] = live[u] ? col_off(c, L, o_sb, o_sl) : 0;
+      }
     }
 
     if constexpr (FORM == 0) {
@@ -393,12 +530,12 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
             for (int r = 0; r < 4; ++r) acc[mt][q][r] = 0;
         for (int kc = 0; kc < KT; kc += kKC) {
-          if (G0 == 0 || KT > kKC) expand_a<MT>(a, st, row, wcol, t, kc, KT);
-          // B fragment of N tile nt: K 4t..4t+3 and 16+4t.. of row g, 4
-          // bytes each at 16g + 4t of the tile's two K halves (conflict-free)
+          if (G0 == 0 || KT > kKC)
+            expand_a<MT, ROWS>(a, st, row, wcol, t, kc, KT, rlo, (uint32_t)d_sk);
 #pragma unroll
           for (int kk = 0; kk < kKC; ++kk) {
             if (kc + kk < KT) {
+              // B fragment of N tile nt: K 4t..4t+3 and 16+4t.. of row g,
               // 4 bytes each at 16g + 4t of the tile's two K halves
               // (conflict-free)
               const uint8_t* bt =
@@ -416,7 +553,10 @@ __global__ void __launch_bounds__(kMaxThreads)
             }
           }
         }
-        epilogue<MT, 4, WORDS>(acc, G0, 1, t, m, off, live, out, o_sm, accumulate);
+        if constexpr (ROWS)
+          epilogue<MT, 4, true>(acc, G0, 1, t, m, off, live, ost, orow, 0);
+        else
+          epilogue<MT, 4, WORDS>(acc, G0, 1, t, m, off, live, out, o_sm, accumulate);
       }
     } else {
       // One pass per N = 32 * GS output bits: issue, wait, pack.  (A second
@@ -426,25 +566,33 @@ __global__ void __launch_bounds__(kMaxThreads)
         const int ng = NG - G0 < GS ? NG - G0 : GS;
         int acc[MT][NQ][4];
         for (int kc = 0; kc < KT; kc += kKC) {
-          if (G0 == 0 || KT > kKC) expand_a<MT>(a, st, row, wcol, t, kc, KT);
+          if (G0 == 0 || KT > kKC)
+            expand_a<MT, ROWS>(a, st, row, wcol, t, kc, KT, rlo, (uint32_t)d_sk);
           wgmma_pass<FORM, MT, NQ>(acc, a, desc0, kc, KT, NT, G0, ng);
           wgmma_wait<0>();  // before the A fragments or the sums are touched
         }
-        epilogue<MT, NQ, WORDS>(acc, G0, ng, t, m, off, live, out, o_sm, accumulate);
+        if constexpr (ROWS)
+          epilogue<MT, NQ, true>(acc, G0, ng, t, m, off, live, ost, orow, 0);
+        else
+          epilogue<MT, NQ, WORDS>(acc, G0, ng, t, m, off, live, out, o_sm, accumulate);
       }
+    }
+    if constexpr (ROWS) {
+      __syncthreads();  // every output row of the tile is staged
+      if (rj0 < rjs) store_rows(ost, orow, o_run, o_sm, m, n, rw, rj0, rjs, accumulate);
     }
     __syncthreads();  // the stage is refilled STAGES - 1 tiles later
   }
   cp_async_wait<0>();
 }
 
-template <int FORM, int MT, int STAGES, bool WORDS>
+template <int FORM, int MT, int STAGES, int LAYOUT>
 cudaError_t launch(int device, const void* bop, int bop_bytes, const uint8_t* data,
                    long long d_sb, long long d_sk, long long d_sl, uint8_t* out,
                    long long o_sb, long long o_sm, long long o_sl, int m, int k, int L,
-                   long long ncols, int threads, int row, int smem, int accumulate,
+                   long long B, int threads, int row, int smem, int accumulate,
                    cudaStream_t stream) {
-  auto kernel = gf256_mma_kernel<FORM, MT, STAGES, WORDS>;
+  auto kernel = gf256_mma_kernel<FORM, MT, STAGES, LAYOUT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -454,12 +602,13 @@ cudaError_t launch(int device, const void* bop, int bop_bytes, const uint8_t* da
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long cols_per_tile = (long long)(threads / 32) * 16 * MT;
-  const long long ntiles = (ncols + cols_per_tile - 1) / cols_per_tile;
+  const long long C = (long long)(threads / 32) * 16 * MT;  // columns per tile
+  // ROWS keeps each tile in one shard row
+  const long long ntiles = LAYOUT == kRows ? B * ((L + C - 1) / C) : (B * L + C - 1) / C;
   const long long grid = ntiles < (long long)per_sm * sms ? ntiles : (long long)per_sm * sms;
   kernel<<<(unsigned)grid, threads, smem, stream>>>(
       static_cast<const uint4*>(bop), bop_bytes, data, d_sb, d_sk, d_sl, out, o_sb, o_sm,
-      o_sl, m, k, L, ncols, row, accumulate);
+      o_sl, m, k, L, B * L, row, accumulate);
   return cudaGetLastError();
 }
 
@@ -471,44 +620,52 @@ cudaError_t launch(int device, const void* bop, int bop_bytes, const uint8_t* da
 // 32, 64); `warps` warps of 32 threads per block (a multiple of 4 for
 // wgmma), `m_tiles` M tiles per warp (2, or 4 with forms 0 and 1), `stages`
 // ring stages (2 or 3); `row` is the ring's row stride in bytes (>= warps *
-// 16 * m_tiles, a multiple of 16) and `smem` the block's dynamic shared
-// memory (>= bop_bytes + stages * ceil4(k) * row), both from
-// ops/gf256_torch.launch_shape.  With `accumulate` the result is XORed into
-// `out` instead of stored.
+// 16 * m_tiles, + 16 for ROWS, a multiple of 16) and `smem` the block's
+// dynamic shared memory (>= bop_bytes + stages * ceil4(k) * row), both from
+// ops/gf256_torch.launch_shape.  `layout` 0 (BYTES), 1 (WORDS) or 2 (ROWS),
+// from ops/gf256_torch.launch_path; one the view does not allow is refused.
+// With `accumulate` the result is XORed into `out` instead of stored.
 extern "C" int gf256_matmul_launch(int device, const void* bop, int bop_bytes,
                                    const void* data, long long d_sb, long long d_sk,
                                    long long d_sl, void* out, long long o_sb,
                                    long long o_sm, long long o_sl, int m, int k, int L,
                                    long long B, int form, int warps, int m_tiles,
                                    int stages, int row, int smem, int accumulate,
-                                   void* stream) {
+                                   int layout, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int kp = (k + 3) & ~3, mp = (m + 3) & ~3;
   const int threads = warps * 32;
-  if (m <= 0 || k <= 0 || L <= 0 || B <= 0 || warps < 1 || threads > kMaxThreads ||
-      (form != 0 && warps % 4 != 0) || bop_bytes != 64 * mp * kp ||
-      row < warps * 16 * m_tiles || row % 16 != 0 ||
-      (long long)smem < (long long)bop_bytes + (long long)stages * kp * row)
-    return (int)cudaErrorInvalidValue;
-  const uint8_t* d = static_cast<const uint8_t*>(data);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  const bool words =
-      L % 4 == 0 && d_sl == 1 && o_sl == 1 &&
+  const bool unit = d_sl == 1 && o_sl == 1;
+  const bool aligned =
       ((reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(out) |
         (uintptr_t)d_sb | (uintptr_t)d_sk | (uintptr_t)o_sb | (uintptr_t)o_sm) &
        3) == 0;
-  const long long ncols = B * (long long)L;
+  if (m <= 0 || k <= 0 || L <= 0 || B <= 0 || warps < 1 || threads > kMaxThreads ||
+      (form != 0 && warps % 4 != 0) || bop_bytes != 64 * mp * kp ||
+      row < warps * 16 * m_tiles || row % 16 != 0 ||
+      (long long)smem < (long long)bop_bytes + (long long)stages * kp * row ||
+      (layout == kWords && !(unit && aligned && L % 4 == 0)) ||
+      (layout == kRows &&
+       !(unit && row >= warps * 16 * m_tiles + 16 &&
+         (long long)smem >= (long long)bop_bytes + (long long)stages * kp * row +
+                                (long long)m * (warps * 16 * m_tiles + kRowPad))) ||
+      layout < kBytes || layout > kRows)
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* d = static_cast<const uint8_t*>(data);
+  uint8_t* o = static_cast<uint8_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GF_LAUNCH(F, MT, ST)                                                              \
-  if (form == F && m_tiles == MT && stages == ST)                                          \
-    return (int)(words ? launch<F, MT, ST, true>(device, bop, bop_bytes, d, d_sb, d_sk,    \
-                                                 d_sl, o, o_sb, o_sm, o_sl, m, k, L, ncols, \
-                                                 threads, row, smem, accumulate, s)         \
-                       : launch<F, MT, ST, false>(device, bop, bop_bytes, d, d_sb, d_sk,   \
-                                                  d_sl, o, o_sb, o_sm, o_sl, m, k, L,       \
-                                                  ncols, threads, row, smem, accumulate,    \
-                                                  s));
+#define GF_LAUNCH_AS(F, MT, ST, LAY)                                                      \
+  if (layout == LAY)                                                                     \
+    return (int)launch<F, MT, ST, LAY>(device, bop, bop_bytes, d, d_sb, d_sk, d_sl, o,   \
+                                       o_sb, o_sm, o_sl, m, k, L, B, threads, row, smem, \
+                                       accumulate, s);
+#define GF_LAUNCH(F, MT, ST)                      \
+  if (form == F && m_tiles == MT && stages == ST) { \
+    GF_LAUNCH_AS(F, MT, ST, kBytes)               \
+    GF_LAUNCH_AS(F, MT, ST, kWords)               \
+    GF_LAUNCH_AS(F, MT, ST, kRows)                \
+  }
   GF_LAUNCH(0, 2, 2)
   GF_LAUNCH(0, 2, 3)
   GF_LAUNCH(0, 4, 2)
@@ -520,6 +677,7 @@ extern "C" int gf256_matmul_launch(int device, const void* bop, int bop_bytes,
   GF_LAUNCH(2, 2, 2)
   GF_LAUNCH(2, 2, 3)
 #undef GF_LAUNCH
+#undef GF_LAUNCH_AS
   return (int)cudaErrorInvalidValue;
 }
 

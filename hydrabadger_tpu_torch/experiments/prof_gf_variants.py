@@ -2,24 +2,29 @@
 
     python -m hydrabadger_tpu_torch.experiments.prof_gf_variants
 
-Builds csrc/gf256_matmul.cu as it is and three edited copies (nvcc, the
-same flags, into build/torch_kernels/variants/), and runs each at the
-config-6 epoch's two launches (the encode (42, 22) into the codeword's
-parity rows and the reconstruct (22, 22) from the parity-quorum view,
-786,432 byte columns each; data from a seed) with the wrapper's launch
-shape (gf256_torch.launch_shape):
+Builds csrc/gf256_matmul.cu as it is and four edited copies (nvcc, the
+same flags, into build/torch_kernels/variants/), and runs each at two
+epochs' two launches (the encode (42, 22) into the codeword's parity rows
+and the reconstruct (22, 22) from the parity-quorum view; data from a
+seed): config 6's on the word path and rs64-batch64k's on the row path
+(experiments/prof_gf_tiles.EPOCHS), each with the wrapper's path and
+launch shape (gf256_torch.launch_path, launch_shape):
 
   kernel       the source as it is;
   no_pack      the mod-2-and-pack epilogue replaced by an XOR of every sum,
                stored only when it equals a value no input gives, so every
-               product stays live and nothing is packed or stored;
+               product stays live and nothing is packed or stored (the row
+               path's staged rows are not written out either);
   no_wait      no_pack, and the passes issued back to back with one wait
                per column tile: the tensor cores' rate in this structure;
   swizzle128   A's bits in wgmma's 128-byte-swizzled K-major layout instead
-               of the unswizzled one (the operand re-laid here).
+               of the unswizzled one (the operand re-laid here);
+  no_realign   the row path's A fragments read as the word path reads them,
+               without each data row's byte shift: what the realignment
+               costs (no_pack bounds what any other store could save).
 
 `kernel` and `swizzle128` are held equal to the plain version (`exact`);
-the other two compute no product.  Each is timed as chip_smoke times B1
+the other three compute no product (no_realign a wrong one on rows).  Each is timed as chip_smoke times B1
 (CUDA events, L2 flushed before each call, median of 20: `ms`) and back to
 back (`warm_ms`).  One JSON line each, with the padded work's int8 rate
 (`tops`: 2 * 64 * ceil4(m) * ceil4(k) operations per column) and the card.
@@ -42,13 +47,18 @@ _SINK = ("uint32_t x = 0; _Pragma(\"unroll\") for (int mt = 0; mt < MT; ++mt) "
          "for (int r = 0; r < 4; ++r) x ^= (uint32_t)acc[mt][q][r]; "
          "if (x == 0x7fffffffu && m == 77777) *out = (uint8_t)x;")
 
+_PACK = """        if constexpr (ROWS)
+          epilogue<MT, NQ, true>(acc, G0, ng, t, m, off, live, ost, orow, 0);
+        else
+          epilogue<MT, NQ, WORDS>(acc, G0, ng, t, m, off, live, out, o_sm, accumulate);"""
 _PASS_LOOP = """        int acc[MT][NQ][4];
         for (int kc = 0; kc < KT; kc += kKC) {
-          if (G0 == 0 || KT > kKC) expand_a<MT>(a, st, row, wcol, t, kc, KT);
+          if (G0 == 0 || KT > kKC)
+            expand_a<MT, ROWS>(a, st, row, wcol, t, kc, KT, rlo, (uint32_t)d_sk);
           wgmma_pass<FORM, MT, NQ>(acc, a, desc0, kc, KT, NT, G0, ng);
           wgmma_wait<0>();  // before the A fragments or the sums are touched
         }
-        epilogue<MT, NQ, WORDS>(acc, G0, ng, t, m, off, live, out, o_sm, accumulate);"""
+""" + _PACK
 
 
 def _edit(src: str, old: str, new: str) -> str:
@@ -72,15 +82,14 @@ def _body(src: str, signature: str, body: str) -> str:
 
 
 def variants(src: str) -> dict[str, str]:
-    no_pack = _body(src, "__device__ __forceinline__ void epilogue(", _SINK)
+    no_pack = _body(_body(src, "__device__ __forceinline__ void epilogue(", _SINK),
+                    "__device__ __forceinline__ void store_rows(", "")
     # the sums are read once per tile, after its last pass: reading them while
     # a pass is in flight would make ptxas serialize every wgmma
-    pack = "epilogue<MT, NQ, WORDS>(acc, G0, ng, t, m, off, live, out, o_sm, accumulate);"
     no_wait = _edit(no_pack, _PASS_LOOP, _PASS_LOOP.replace(
         "          wgmma_wait<0>();  // before the A fragments or the sums are touched\n", "")
-        .replace(f"        {pack}",
-                 f"        if (G0 + GS >= NG) {{\n          wgmma_wait<0>();\n          {pack}\n"
-                 "        }"))
+        .replace(_PACK, "        if (G0 + GS >= NG) {\n          wgmma_wait<0>();\n" + _PACK
+                 + "\n        }"))
     sw = _edit(src, "return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |\n"
                "         ((uint64_t)(256 >> 4) << 32);",
                "return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) |\n"
@@ -93,7 +102,10 @@ def variants(src: str) -> dict[str, str]:
                " & 1023);\n  uint8_t* ring = bsh + bop_bytes;")
     sw = _edit(sw, "bop_bytes != 64 * mp * kp ||", "")
     sw = _edit(sw, "(long long)smem < (long long)bop_bytes", "(long long)smem < 1024LL + bop_bytes")
-    return {"kernel": src, "no_pack": no_pack, "no_wait": no_wait, "swizzle128": sw}
+    no_realign = _edit(src, "        if constexpr (ROWS) {\n          const int o = wcol",
+                       "        if constexpr (false) {\n          const int o = wcol")
+    return {"kernel": src, "no_pack": no_pack, "no_wait": no_wait, "swizzle128": sw,
+            "no_realign": no_realign}
 
 
 def swizzle128_operand(matrix: np.ndarray) -> np.ndarray:
@@ -141,11 +153,17 @@ def measure(device="cuda") -> list:
     libs = _build(variants((_kernels.CSRC_DIR / "gf256_matmul.cu").read_text()))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     rows = []
-    for label, op, x, y in prof_gf_tiles._shapes(dev):
+    shapes = [(epoch, *s) for epoch, size in prof_gf_tiles.EPOCHS.items()
+              for s in prof_gf_tiles._shapes(dev, *size)]
+    for epoch, label, op, x, y in shapes:
         m, k = op.shape
         B, _, L = x.shape
         want = gt.gf_matmul_bits_plain(op, x)
         shape = gt.launch_shape(m, k)
+        path = gt.launch_path(L, x.data_ptr(), x.stride(), y.data_ptr(), y.stride(),
+                              16 * shape.warps * shape.m_tiles)
+        shape = gt.launch_shape(m, k, rows=path == "rows")
+        layout = gt.PATHS.index(path)
         tops_ops = 2 * 64 * (-(-m // 4) * 4) * (-(-k // 4) * 4) * B * L
         for name, lib in libs.items():
             swz = name == "swizzle128"
@@ -157,7 +175,7 @@ def measure(device="cuda") -> list:
                 rc = lib.gf256_matmul_launch(
                     x.device.index, bop.data_ptr(), bop.numel(), x.data_ptr(), *x.stride(),
                     y.data_ptr(), *y.stride(), m, k, L, B, shape.form, shape.warps,
-                    shape.m_tiles, shape.stages, shape.row, smem, 0,
+                    shape.m_tiles, shape.stages, shape.row, smem, 0, layout,
                     torch.cuda.current_stream(dev).cuda_stream)
                 _kernels.check(f"gf256_matmul variant {name}", lib, rc, "gf256_error_string")
 
@@ -173,7 +191,8 @@ def measure(device="cuda") -> list:
                     launch()
 
             warm = diff_ms(run, 2, 10)
-            rows.append({"variant": name, "shape": f"{label} ({m},{k})", "exact": exact,
+            rows.append({"variant": name, "shape": f"{epoch} {label} ({m},{k})", "path": path,
+                         "exact": exact,
                          "ms": ms, "warm_ms": warm, "tops": tops_ops / ms / 1e9,
                          "launch": shape._asdict()})
         y.copy_(want)  # the reconstruct reads the encode's output

@@ -51,10 +51,10 @@ LIBRARIES = {
         {
             # device, bop, bop_bytes, data, d_sb, d_sk, d_sl, out, o_sb, o_sm,
             # o_sl, m, k, L, B, form, warps, m_tiles, stages, row, smem,
-            # accumulate, stream
+            # accumulate, layout, stream
             "gf256_matmul_launch": (
                 [_I, _P, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL,
-                 _I, _I, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+                 _I, _I, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                 _I,
             ),
             "gf256_error_string": ([_I], ctypes.c_char_p),

@@ -38,6 +38,8 @@ from . import _kernels
 # tensors).  chip_smoke.py sets it to 0 before the main path and reads it
 # after, to show that the path went through the kernel.
 launches = 0
+# The same launches by the kernel's layout of a tile (`launch_path`).
+launches_by_path = {"words": 0, "rows": 0, "bytes": 0}
 # Host seconds spent building operands (`operand` and `kernel_operand` on
 # a cache miss); chip_smoke.py reads it around the simulator's run.
 operand_s = 0.0
@@ -60,6 +62,9 @@ SMEM_MAX = 232_448  # dynamic shared memory one block may use on an H100
 # chunk; longer K runs as K chunks whose launches XOR into the output.
 B_CHUNK_MAX = 98_304
 K_CHUNK_MAX = 256
+# The kernel's layouts of a tile, by its LAYOUT number (csrc/gf256_matmul.cu).
+PATHS = ("bytes", "words", "rows")
+ROW_PAD = 32  # the row path stages each output row as a tile's columns + ROW_PAD bytes
 
 
 # ---------------------------------------------------------------------------
@@ -170,13 +175,18 @@ class LaunchShape(NamedTuple):
 
 
 def launch_shape(m: int, k: int, form: Optional[int] = None, warps: Optional[int] = None,
-                 m_tiles: Optional[int] = None, stages: Optional[int] = None) -> LaunchShape:
-    """The block geometry of one launch over an [m, k] chunk.
+                 m_tiles: Optional[int] = None, stages: Optional[int] = None,
+                 rows: bool = False) -> LaunchShape:
+    """The block geometry of one launch over an [m, k] chunk; with `rows`,
+    room for the row path's staged output rows as well.
 
-    Shared memory holds the operand (64 * ceil4(m) * ceil4(k) bytes) and
-    `stages` ring tiles of ceil4(k) rows x `row` bytes; a row is the
-    tile's 16 * m_tiles * warps columns plus one warp's 16 * m_tiles, so
-    the two data rows a warp reads at once fall on different banks.
+    Shared memory holds the operand (64 * ceil4(m) * ceil4(k) bytes),
+    `stages` ring tiles of ceil4(k) rows x `row` bytes, and on the row path
+    the tile's m output rows of C + ROW_PAD bytes (C = 16 * m_tiles * warps
+    columns; the pad puts the 4 rows a warp stores at once on different
+    banks).  A ring row is the tile's columns plus one warp's 16 * m_tiles,
+    so the two data rows a warp reads at once fall on different banks (and
+    the row path's 16-byte words of a shifted run fit).
     Where the default stages do not fit, fewer are taken (at least 2).
     """
     form = FORM if form is None else form
@@ -189,13 +199,46 @@ def launch_shape(m: int, k: int, form: Optional[int] = None, warps: Optional[int
                          f"{m_tiles} M tiles, {want} stages")
     row = 16 * m_tiles * (warps + 1)
     kp = _ceil4(k)
-    b_bytes = 64 * _ceil4(m) * kp
-    fit = (SMEM_MAX - b_bytes) // (kp * row)
+    fixed = 64 * _ceil4(m) * kp  # the operand
+    if rows:
+        fixed += m * (16 * m_tiles * warps + ROW_PAD)  # the staged output rows
+    fit = (SMEM_MAX - fixed) // (kp * row)
     stages = min(want, fit) if stages is None else want
     if stages < 2 or stages > fit:
         raise ValueError(f"gf_matmul: an [{m}, {k}] chunk with {warps} warps x {m_tiles} "
                          f"M tiles does not fit {SMEM_MAX} B of shared memory at 2 stages")
-    return LaunchShape(form, warps, m_tiles, stages, row, b_bytes + stages * kp * row)
+    return LaunchShape(form, warps, m_tiles, stages, row, fixed + stages * kp * row)
+
+
+def launch_path(L: int, data_ptr: int, data_strides, out_ptr: int, out_strides,
+                tile_cols: int) -> str:
+    """The kernel's layout of a tile for one launch over [B, k, L] data and
+    [B, m, L] out with these pointers and (batch, row, column) strides:
+
+      "words": C consecutive byte columns b*L + l moved as 4-byte words,
+               where the view allows it (L % 4 == 0, unit column strides,
+               4-byte aligned pointers and strides);
+      "rows":  C columns of one shard row, its runs read as the 16-byte
+               words that cover them at any alignment, where the column
+               strides are 1 and a row is at least a third of a tile of
+               `tile_cols` columns;
+      "bytes": byte by byte, any view: short ragged rows (the low-comm
+               sketches' 1-16 columns), transposed views.
+
+    The threshold sits where the two cross (experiments/prof_gf_tiles.py,
+    the encode (42, 22) over ~745,000 columns of ragged rows, 256-column
+    tiles; H100 SXM, 700 W): the row path, which computes a whole tile for
+    each row's last part, takes 1.30x the byte path's time at 65-byte rows,
+    1.06x at 81, 0.97x at 89 and 0.85x at 97, so rows of 86 bytes (a third
+    of 256) and up take it.
+    """
+    d_sb, d_sk, d_sl = data_strides
+    o_sb, o_sm, o_sl = out_strides
+    if d_sl != 1 or o_sl != 1:
+        return "bytes"
+    if L % 4 == 0 and (data_ptr | out_ptr | d_sb | d_sk | o_sb | o_sm) % 4 == 0:
+        return "words"
+    return "rows" if 3 * L >= tile_cols else "bytes"
 
 
 _override: dict = {}
@@ -343,7 +386,12 @@ def gf_matmul(
     return out3 if data.ndim == 3 else out3[0]
 
 
-def _launch(op: GfOperand, data: torch.Tensor, out: torch.Tensor) -> None:
+def _launch(op: GfOperand, data: torch.Tensor, out: torch.Tensor,
+            path: Optional[str] = None) -> None:
+    """Launch B1 over [B, k, L] data into [B, m, L] out, each chunk on the
+    layout `launch_path` picks, or on `path` where given (the timing of one
+    layout against another in experiments/prof_gf_tiles.py; one the view
+    does not allow is refused)."""
     global launches
     B, k, L = data.shape
     m = op.shape[0]
@@ -360,6 +408,10 @@ def _launch(op: GfOperand, data: torch.Tensor, out: torch.Tensor) -> None:
         shape = launch_shape(mc, kc, **_override)
         bop = op.kernel_operand(chunk)
         x, y = data[:, chunk.k0:chunk.k1], out[:, chunk.m0:chunk.m1]
+        layout = path or launch_path(L, x.data_ptr(), x.stride(), y.data_ptr(), y.stride(),
+                                     16 * shape.warps * shape.m_tiles)
+        if layout == "rows":
+            shape = launch_shape(mc, kc, rows=True, **_override)
         rc = lib.gf256_matmul_launch(
             data.device.index,
             bop.data_ptr(), bop.numel(),
@@ -367,8 +419,9 @@ def _launch(op: GfOperand, data: torch.Tensor, out: torch.Tensor) -> None:
             y.data_ptr(), *y.stride(),
             mc, kc, L, B,
             shape.form, shape.warps, shape.m_tiles, shape.stages, shape.row, shape.smem,
-            int(chunk.k0 > 0),
+            int(chunk.k0 > 0), PATHS.index(layout),
             stream,
         )
         _kernels.check("gf256_matmul", lib, rc, "gf256_error_string")
         launches += 1
+        launches_by_path[layout] += 1

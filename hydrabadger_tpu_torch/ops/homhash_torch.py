@@ -11,7 +11,8 @@ its plain version for the CPU.  The product takes any shape, so nothing is
 padded (the JAX twin pads both axes only to bound XLA recompiles; the
 counter-mode matrix makes zero padding exact either way).  The shards go
 up as one contiguous [L, B] copy transposed on the host: the kernel reads
-it by 4-byte words when B % 4 == 0 and byte by byte otherwise.  B = 0 or
+it by 4-byte words when B % 4 == 0, by row tiles when B is at least a third
+of a tile's columns, and byte by byte otherwise.  B = 0 or
 L = 0 returns zeros without a launch, as the host twin does.
 
 `calls` counts the products by (B, L); chip_smoke reads it to replay the

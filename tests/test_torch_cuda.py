@@ -46,6 +46,65 @@ def test_gf_kernel_matches_plain(card, m, k, B, L):
     assert np.array_equal(got[0].cpu().numpy(), gf256.matmul(a, d[0].cpu().numpy()))
 
 
+def _by_path():
+    return dict(gf256_torch.launches_by_path)
+
+
+_BATCH64K_L = 11_637  # rs64-batch64k's shard length: ceil((1,024 * 250 + 4) / 22)
+
+
+@pytest.mark.parametrize("view,m,k,B,L,path", [
+    ("encode", 42, 22, 64, _BATCH64K_L, "rows"),  # batch64k's encode into the parity rows
+    ("reconstruct", 22, 22, 64, _BATCH64K_L, "rows"),  # its quorum, 42 * L bytes in
+    ("encode", 42, 22, 8, 257, "rows"),
+    ("reconstruct", 22, 22, 8, 1013, "rows"),
+    ("encode", 42, 22, 8, 4097, "rows"),  # L % 4 == 1
+    ("reconstruct", 22, 22, 8, 11_638, "rows"),  # L % 4 == 2
+    ("encode", 42, 22, 8, 11_639, "rows"),  # L % 4 == 3
+    ("apart", 16, 600, 8, 1013, "rows"),  # three K chunks, XORed into out
+    ("encode", 42, 22, 64, 13, "bytes"),  # a ragged row shorter than a tile
+])
+def test_gf_kernel_on_ragged_rows(card, view, m, k, B, L, path):
+    """B1 over shard rows whose length is no multiple of 4, through the
+    views the fast-path epoch gives it (the [B, 64, L] codeword's parity
+    rows and parity quorum), exact against the plain version, each launch
+    on the path the wrapper picks for it."""
+    a = rand((m, k), L + m)
+    n = 64
+    if view == "reconstruct":
+        codeword = torch.from_numpy(rand((B, n, L), L)).to(card)
+        x, y = codeword[:, n - k:], torch.empty((B, m, L), dtype=torch.uint8, device=card)
+    else:
+        x = torch.from_numpy(rand((B, k, L), L)).to(card)
+        codeword = torch.zeros((B, n, L), dtype=torch.uint8, device=card)
+        y = codeword[:, n - m:] if view == "encode" else torch.empty((B, m, L), dtype=torch.uint8,
+                                                                   device=card)
+    before, paths = gf256_torch.launches, _by_path()
+    got = gf256_torch.gf_matmul(a, x, out=y)
+    launched = len(gf256_torch.chunks(m, k))
+    assert gf256_torch.launches == before + launched
+    assert _by_path() == {**paths, path: paths[path] + launched}
+    assert torch.equal(got, gf256_torch.gf_matmul_bits_plain(a, x))
+    if view == "encode":
+        assert not codeword[:, :n - m].any()  # nothing stored outside the view
+    for b in (0, B - 1):
+        assert np.array_equal(got[b].cpu().numpy(), gf256.matmul(a, x[b].cpu().numpy()))
+
+
+@pytest.mark.parametrize("shard_len,path", [(_BATCH64K_L, "rows"), (12, "words")])
+def test_tensor_sim_epoch_launches_by_path(card, shard_len, path):
+    """Two B1 launches an epoch, on the row path at rs64-batch64k's one
+    network of 11,637-byte shards and on the word path at 12-byte shards."""
+    cfg = ts.TensorSimConfig(n_nodes=64, instances=1 if path == "rows" else 64,
+                             shard_len=shard_len)
+    sim = ts.TensorSim(cfg, device="cuda")
+    paths = _by_path()
+    assert sim.run(3)
+    assert _by_path() == {**paths, path: paths[path] + 6}
+    plain = ts.TensorSim(cfg, device="cuda", use_kernel=False)
+    assert plain.run(3) and np.array_equal(sim.state(), plain.state())
+
+
 def test_rs_batch_on_the_card_matches_the_cpu(card):
     k, p, B, L = 22, 42, 64, 12
     data = torch.from_numpy(rand((B, k, L), 1))

@@ -167,6 +167,181 @@ def test_warp_replay_of_the_kernel_equals_the_gf_product(m, k, form, mt):
     assert np.array_equal(out, gf256.matmul(a, d))
 
 
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm over uint32 arrays: byte n of the result is byte
+    (sel >> 4n) & 7 of the 8 bytes y:x."""
+    z = np.asarray(x, np.uint64) | (np.asarray(y, np.uint64) << np.uint64(32))
+    sel = np.asarray(sel, np.uint64)
+    r = np.zeros(np.broadcast(z, sel).shape, np.uint64)
+    for n in range(4):
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(7)
+        r |= ((z >> (np.uint64(8) * nib)) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return r.astype(np.uint32)
+
+
+def _words(b):
+    """[..., 4n] uint8 -> [..., n] little-endian uint32."""
+    return np.ascontiguousarray(b).view("<u4")
+
+
+def _replay_rows(mat, mem, d_off, d_strides, omem, o_off, o_strides, B, L, warps=4, mt=4,
+                 accumulate=False, seed=0):
+    """numpy replay of one row-path launch of csrc/gf256_matmul.cu (LAYOUT
+    ROWS) over byte arrays that stand for device memory (index = address, 0
+    aligned): the tiles of C columns of one shard row, each data row's run
+    fetched as the aligned 16-byte words that cover it (zeros for words past
+    it) into a stage whose other bytes hold garbage, each lane's 2*mt bytes
+    realigned from the 4-byte words around them, the product staged as the
+    tile's output rows, and `store_rows`: each output row's aligned 16-byte
+    words shifted out of the stage, stored whole inside the run, else by
+    4-byte parts, whole or masked.  Writes `omem` in place; returns how often
+    each of its bytes was stored."""
+    m, k = mat.shape
+    sb, sk, _ = d_strides
+    ob, om, _ = o_strides
+    C, W, row, kp = 16 * warps * mt, 2 * mt, 16 * mt * (warps + 1), -(-k // 4) * 4
+    tpr = -(-L // C)
+    tile = np.arange(B * tpr)
+    b, l0 = tile // tpr, tile % tpr * C
+    n = np.minimum(C, L - l0)
+    j = np.arange(k)
+    # -- load: [T, k, C / 16 + 1] words of 16 bytes
+    run = d_off + b[:, None] * sb + j * sk + l0[:, None]
+    a0 = run & ~15
+    word = a0[..., None] + 16 * np.arange(C // 16 + 1)
+    ok = word < (run + n[:, None])[..., None]
+    assert ((word + 16 > run[..., None]) | ~ok).all()  # a word read holds a byte of the run
+    rng = np.random.default_rng(seed)
+    stage = rng.integers(0, 256, (len(tile), kp, row), dtype=np.uint8)  # stale bytes
+    stage[:, k:] = 0
+    got = np.where(ok[..., None], mem[np.where(ok, word, 0)[..., None] + np.arange(16)], 0)
+    stage[:, :k, :C + 16] = got.reshape(len(tile), k, C + 16)
+    # -- expand: lane (warp, g) reads row j's bytes at wcol + the row's shift
+    wcol = (16 * mt * np.arange(warps)[:, None] + W * np.arange(8)).reshape(-1)  # [lanes]
+    shift = (d_off + b[:, None] * sb + j * sk) & 15  # [T, k]: l0 is a multiple of 16
+    o = wcol + shift[..., None]  # [T, k, lanes]
+    x = _words(stage[np.arange(len(tile))[:, None, None, None], j[None, :, None, None],
+                     (o & ~3)[..., None] + np.arange(4 * (mt // 2 + 1))])
+    sel = 0x3210 + 0x1111 * (o & 3)
+    lane_bytes = np.stack([_byte_perm(x[..., u], x[..., u + 1], sel) for u in range(mt // 2)], -1)
+    data = np.zeros((len(tile), k, C), np.uint8)
+    data[..., wcol[:, None] + np.arange(W)] = lane_bytes.view(np.uint8).reshape(*o.shape, W)
+    col = np.arange(C)
+    live = col < n[:, None]
+    want = np.where(live[:, None], mem[np.where(live[:, None], run[..., None] + col, 0)], 0)
+    assert np.array_equal(np.where(live[:, None], data, 0), want)
+    # -- the product of every tile's columns, staged as m rows of C + ROW_PAD
+    # bytes behind 64 stale bytes (the ring's end, read before row 0)
+    prod = gf256.matmul(mat, data.transpose(1, 0, 2).reshape(k, -1))
+    prod = prod.reshape(m, len(tile), C).transpose(1, 0, 2)  # [T, m, C]
+    orow, lead = C + gf256_torch.ROW_PAD, 64
+    staged = rng.integers(0, 256, (len(tile), lead + m * orow), dtype=np.uint8)
+    staged[:, lead:].reshape(len(tile), m, orow)[..., :C] = prod
+    # -- store_rows: word w of output row i holds run bytes lo .. lo + 15
+    p = o_off + (b * ob + l0)[:, None] + om * np.arange(m)  # [T, m]
+    lo = 16 * np.arange(C // 16 + 1) - (p & 15)[..., None]  # [T, m, words]
+    at = lead + orow * np.arange(m)[:, None] + (lo & ~3)
+    x = _words(staged[np.arange(len(tile))[:, None, None, None], at[..., None] + np.arange(20)])
+    v = np.stack([_byte_perm(x[..., q], x[..., q + 1], 0x3210 + 0x1111 * (lo & 3))
+                  for q in range(4)], -1)  # [T, m, words, 4]
+    nn = n[:, None, None, None]
+    e = np.arange(16)
+    a = lo[..., None] + 4 * (e // 4)  # the run offset of each byte's 4-byte part
+    whole = ((lo >= 0) & (lo + 16 <= n[:, None, None]))[..., None]
+    part_whole = (a >= 0) & (a + 4 <= nn)
+    part_skip = (a + 4 <= 0) | (a >= nn)
+    inside = (lo[..., None] + e >= 0) & (lo[..., None] + e < nn)
+    stored = (lo < n[:, None, None])[..., None] & (
+        whole | (~part_skip & (part_whole | inside)))
+    addr = (p[..., None] + lo)[..., None] + e
+    byte = v.view(np.uint8).reshape(*lo.shape, 16)
+    writes = np.zeros(omem.shape, np.int64)
+    np.add.at(writes, addr[stored], 1)
+    omem[addr[stored]] = byte[stored] ^ omem[addr[stored]] if accumulate else byte[stored]
+    return writes
+
+
+_BATCH64K_L = 11_637  # ceil((1,024 * 250 + 4) / 22): rs64-batch64k's shard length
+
+
+_TILES = (gf256_torch.WARPS, gf256_torch.M_TILES)  # the wrapper's geometry, both paths
+_OTHER = (8, 2)  # 8 warps x 2 M tiles: the same 256 columns a tile, in other lanes
+
+
+@pytest.mark.parametrize("view,L,tiles", [
+    ("encode", _BATCH64K_L, _TILES), ("reconstruct", _BATCH64K_L, _TILES),  # batch64k
+    ("encode", 257, _TILES), ("reconstruct", 1013, _TILES),  # L % 4 == 1
+    ("encode", 4097, _OTHER),
+    ("reconstruct", 11_638, _TILES), ("encode", 11_639, _TILES),  # L % 4 == 2, 3
+    ("accumulate", 1013, _TILES),  # a K chunk XORed into out
+    ("encode", 1041, _OTHER), ("encode", 1033, _TILES),  # short last tiles
+    ("odd", 1042, _OTHER), ("odd", 1034, _TILES),  # the output one byte into its buffer
+])
+def test_row_path_replay_equals_the_gf_product(view, L, tiles):
+    """The row path's addressing over the codeword's views, as the fast-path
+    epoch launches it (sim/tensor.epoch): the encode from [B, k, L] into
+    rows k.. of the [B, n, L] codeword, the reconstruct from the parity
+    quorum that starts p*L bytes into each codeword row."""
+    k, p, B = 22, 42, 3
+    n = k + p
+    mat = rand((p, k) if view == "encode" else (k, k), L)
+    pad = 64  # the allocation's end, rounded up to whole 16-byte words
+    codeword = np.zeros(B * n * L + pad, np.uint8)
+    codeword[:B * n * L] = rand(B * n * L, L + 1)
+    plain = np.zeros(B * k * L + pad, np.uint8)
+    plain[:B * k * L] = rand(B * k * L, L + 2)
+    cw_strides, plain_strides = (n * L, L, 1), (k * L, L, 1)
+    if view == "reconstruct":
+        args = (codeword, p * L, cw_strides, plain, 0, plain_strides)
+    else:
+        args = (plain, 0, plain_strides, codeword, k * L + (view == "odd"), cw_strides)
+    mem, d_off, d_str, omem, o_off, o_str = args
+    before = omem.copy()
+    m = mat.shape[0]
+    warps, mt = tiles
+    assert gf256_torch.launch_path(L, d_off, d_str, o_off, o_str, 16 * warps * mt) == "rows"
+    writes = _replay_rows(mat, mem, d_off, d_str, omem, o_off, o_str, B, L, warps, mt,
+                          accumulate=view == "accumulate")
+    view_of = lambda buf, off, st, rows: np.lib.stride_tricks.as_strided(
+        buf[off:], (B, rows, L), st)
+    inside = np.zeros(omem.shape, bool)
+    view_of(inside, o_off, o_str, m)[...] = True
+    assert (writes[inside] == 1).all() and (writes[~inside] == 0).all()
+    assert np.array_equal(omem[~inside], before[~inside])
+    x, y = view_of(mem, d_off, d_str, k), view_of(omem, o_off, o_str, m)
+    for bb in range(B):
+        want = gf256.matmul(mat, x[bb])
+        if view == "accumulate":
+            want ^= view_of(before, o_off, o_str, m)[bb]
+        assert np.array_equal(y[bb], want)
+
+
+@pytest.mark.parametrize("shape,L,want", [
+    ("inst1024", 12, "words"),  # 1,024 networks x 264 B a node
+    ("batch64k", _BATCH64K_L, "rows"),  # one network, 65,536 txns of 250 B
+    ("short", 13, "bytes"),  # a ragged row shorter than a tile
+    ("under_a_third", 85, "bytes"),  # the threshold: a third of a 256-column tile
+    ("a_third", 86, "rows"),
+])
+def test_launch_path_of_the_epoch_views(shape, L, want):
+    """The wrapper's choice for the fast-path epoch's two launches, from the
+    pointers and strides `_launch` passes: the encode from the proposals
+    into the codeword's parity rows, the reconstruct from the quorum view."""
+    k, p, B = 22, 42, 2
+    n = k + p
+    proposals = torch.zeros((B, k, L), dtype=torch.uint8)
+    codeword = torch.zeros((B, n, L), dtype=torch.uint8)
+    tile = 16 * gf256_torch.WARPS * gf256_torch.M_TILES
+    quorum = codeword.view(B, 1, n, L).transpose(1, 2)[:, p:n].transpose(1, 2).reshape(B, k, L)
+    assert quorum.data_ptr() == codeword.data_ptr() + p * L
+    for x, y in ((proposals, codeword[:, k:]), (quorum, torch.empty_like(proposals))):
+        got = gf256_torch.launch_path(L, x.data_ptr(), x.stride(), y.data_ptr(), y.stride(), tile)
+        assert got == want
+    # transposed views (a sketch's shards) and unit strides always allow bytes
+    t = torch.zeros((L, k), dtype=torch.uint8).T
+    assert gf256_torch.launch_path(L, t.data_ptr(), (0, *t.stride()), 0, (0, L, 1), tile) == "bytes"
+
+
 def test_every_rs_shape_fits_one_block():
     """Every [m, k] with m + k <= 255, and a long sketch K, launches in
     chunks whose operand and data ring fit one block's shared memory."""
@@ -180,7 +355,10 @@ def test_every_rs_shape_fits_one_block():
             for c in cs:
                 shape = gf256_torch.launch_shape(c.m1 - c.m0, c.k1 - c.k0)
                 assert 2 <= shape.stages <= gf256_torch.STAGES
-                worst = max(worst, shape.smem)
+                rows = gf256_torch.launch_shape(c.m1 - c.m0, c.k1 - c.k0, rows=True)
+                assert 2 <= rows.stages <= gf256_torch.STAGES
+                assert rows.row >= 16 * rows.warps * rows.m_tiles + 16  # a shifted run's words
+                worst = max(worst, shape.smem, rows.smem)
     assert worst <= gf256_torch.SMEM_MAX
     enc = gf256_torch.launch_shape(42, 22)
     assert enc.stages == gf256_torch.STAGES and 64 * 44 * 24 < enc.smem < 2 * 64 * 44 * 24
