@@ -317,9 +317,24 @@ failure:
      after, no other kernel; its wall ms, and the collectives' device ms by
      CUDA events (all_to_all_single and all_gather at the round's 1 MiB,
      all_reduce of the verdict's 4 B).
+ 34. the verified threshold-decrypt epoch at pairing64-verify's geometry
+     (hb64-tpke-byz x inst8: 64 nodes, f = 21 forging, 8 instances = 512
+     ciphertexts, built by benchmark/drivers/tpke_byz from a seed): on one
+     epoch's operands, each launch against its plain version with
+     torch.equal: stage 1's ladders, the forged shares' B2 `add` (10,752
+     lanes), B3's `g2_norm` (512), `fq_inv` (23,040), `g1_affine`
+     (22,528) and `g2_affine` (512) and `ShareChecks.affine` equal to them,
+     the pairing batch's 22,528 verdicts (45,056 Miller lanes), each the
+     closed form's (forged false, quorum and ciphertexts true), and W's
+     B4 `ladder` (512); then a warm epoch and 3 counted epochs through
+     `FullCryptoTensorSim.run` (counters set to 0 just before, read just
+     after): B2's launches by entry and B3's by circuit those
+     `launch_counts()` gives, one B4 launch an epoch, no other kernel;
+     every U and W lane, the last epoch's verdicts and the rejections
+     against benchmark/drivers/tpke_byz's closed form; the wall per epoch.
 
 The line before the last is one JSON object {"kernels": [...]} (B3's
-entry carries `pairing` and `mesh`, B2's `resume`, `tcp_restart`,
+entry carries `pairing`, `mesh` and `verified_epoch`, B2's `resume`, `tcp_restart`,
 `attack_era_switch`, `chaos_cluster`, `process_cluster`, `soak_era`,
 `soak_tcp`, `config5_64node`, `generic_epoch`, `win_circuit0_epoch` and
 `mesh`, B1's `attack`, `soak_rbc`, `rs_fft_route` and `mesh`); the last is {"ok": true,
@@ -391,6 +406,10 @@ RS_K, RS_P, RS_BATCH, RS_SWEEP_N, RS_SWEEP_L = 22, 42, 1024, (16, 32, 64, 128, 1
 # 1024 pairing checks
 MESH_K, MESH_P, MESH_L, MESH_INSTANCES = 22, 42, 256, 1024
 MESH_FC_NODES, MESH_FC_INSTANCES, MESH_PAIRS = 64, 8, 1024
+# phase 34: pairing64-verify's deployment and traffic (benchmark/configs/
+# hb64-tpke-byz.json x workloads/inst8.json: 64 nodes, f = 21 forging, 8
+# instances), a seed above 2**31, counted epochs after one warm epoch
+VERIFY_SEED, VERIFY_EPOCHS = 2**31 + 23, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -3918,6 +3937,118 @@ def mesh_plane(dev: torch.device, tag: str, phase4_state: torch.Tensor, phase4_e
             {"instance_sharded": inst_b3, "pairing": pair_rec})
 
 
+def verified_plane(dev: torch.device, tag: str) -> tuple[dict, int]:
+    """Phase 34: the verified threshold-decrypt epoch at pairing64-verify's
+    geometry, built as the benchmark's driver builds it.  Returns B3's
+    `verified_epoch` record and the worst error of the holds."""
+    from benchmark.drivers import tpke_byz
+    from hydrabadger_tpu_torch.ops import bls_g2_torch, circuit_torch, fq2_torch, fq_torch
+    from hydrabadger_tpu_torch.ops import pairing_torch as pt
+    from hydrabadger_tpu_torch.ops import verify_torch as vt
+    from hydrabadger_tpu_torch.sim import tensor as ts
+
+    t0 = time.perf_counter()
+    bench = os.path.join(ROOT, "benchmark")
+    with open(os.path.join(bench, "configs", "hb64-tpke-byz.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(bench, "workloads", "inst8.json")) as f:
+        traffic = json.load(f)
+    d = tpke_byz.Driver(config, traffic, VERIFY_SEED, "cuda")
+    d.make_inputs()
+    d.build_system()
+    sim = d.sim
+    plain = ts.FullCryptoTensorSim.from_jax(d.u0, d.sks, d.master, d.quorum, device="cuda",
+                                            use_kernel=False, W=d.w0, H=d.h,
+                                            faulty=len(d.faulty))
+    ep, U, W = sim.epoch, sim._U, sim._W
+    n, q, r = ep.n_ct, ep.q, ep.r
+    m = (r + q) * n
+    print(f"verified set-up: {d.N} nodes x {d.B} instances = {n} ciphertexts, {r} forging, "
+          f"{m} share checks and {n} ciphertext checks an epoch: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    worst = 0
+
+    def hold(label: str, got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"{label}: kernel != plain (max err {err})")
+        print(f"kernel == plain, exact: {label}")
+        return got
+
+    # -- one epoch's operands, each launch against its plain version ---------
+    acc = hold(f"stage 1's ladders (B2, B3) at {n} ciphertexts",
+               ep.shares(U), plain.epoch.shares(U))
+    forged = hold(f"the forged shares' add (B2) x {r * n}",
+                  sim._forged(acc, U), plain._forged(acc, U))
+    shares = torch.cat([forged, acc[:, :, :q].reshape(3, 12, q * n)], -1)
+    circs = {**vt.circuits(), "fq_inv": pt.circuits()["fq_inv"]}
+
+    def circuit(name: str, x: torch.Tensor) -> torch.Tensor:
+        return hold(f"B3 {name} x {x.shape[-1]} lanes", circs[name](x), circs[name].plain(x))
+
+    w = W.reshape(6, 12, n)
+    norm = circuit("g2_norm", w[4:6])
+    zinv = circuit("fq_inv", torch.cat([shares[2:3], U[2:3], norm], -1))
+    g1a = circuit("g1_affine", torch.cat([torch.cat([shares[:2], U[:2]], -1),
+                                          zinv[:, :, : m + n]]))
+    g2a = circuit("g2_affine", torch.cat([w, zinv[:, :, m + n:]]))
+    got_g1, got_g2 = ep.checks.affine(shares, U, W)
+    check(torch.equal(got_g1, g1a) and torch.equal(got_g2, g2a),
+          "ShareChecks.affine != its circuits launched one by one")
+    verdicts = ep.checks(shares, U, W)
+    ep.checks.use_kernel = False
+    try:
+        want_v = ep.checks(shares, U, W)
+    finally:
+        ep.checks.use_kernel = True
+    torch.cuda.synchronize()
+    check(torch.equal(verdicts, want_v), "ShareChecks' verdicts: kernel != plain")
+    closed = torch.ones((m + n,), dtype=torch.bool, device=dev)
+    closed[: r * n] = False
+    check(torch.equal(verdicts, closed), f"verdicts != the closed form: "
+          f"{int((verdicts != closed).sum())} of {m + n} differ")
+    print(f"kernel == plain, exact: ShareChecks' {m + n} verdicts ({2 * (m + n)} Miller lanes), "
+          f"each the closed form's ({r * n} forged shares false, the rest true)")
+    hold(f"W's ladder (B4) x {n}", bls_g2_torch.g2_scalar_mul_windowed(W, ep._windows),
+         bls_g2_torch.g2_scalar_mul_windowed(W, ep._windows, use_kernel=False))
+
+    # -- the main path: counted epochs through FullCryptoTensorSim.run -------
+    check(d.step(), "verified warm-up epoch failed")
+    counts = sim.launch_counts()
+    zero_launches(dev)
+    by_circuit = dict(circuit_torch.launches_by_circuit)
+    t0 = time.perf_counter()
+    for _ in range(VERIFY_EPOCHS):
+        check(d.step(), "a verified epoch failed")
+    epoch_ms = (time.perf_counter() - t0) * 1e3 / VERIFY_EPOCHS
+    fq_by_kind, others = b2_launches(dev)
+    want_fq = {k: v * VERIFY_EPOCHS for k, v in counts["fq_point"].items()}
+    check(fq_by_kind == want_fq, f"B2 launches by entry {fq_by_kind}, want {want_fq}")
+    moved = {k: v - by_circuit.get(k, 0) for k, v in circuit_torch.launches_by_circuit.items()
+             if v != by_circuit.get(k, 0)}
+    want_c = {k: v * VERIFY_EPOCHS for k, v in counts["circuit"].items()}
+    check(moved == want_c, f"B3 launches by circuit {moved}, want {want_c}")
+    want_o = {"gf256_matmul": 0, "fq2_point": VERIFY_EPOCHS,
+              "circuit": sum(want_c.values()), "fp_probe": 0}
+    check(others == want_o, f"launches {others}, want {want_o}")
+    check(fq2_torch.launches == VERIFY_EPOCHS and fq_torch.launches == sum(want_fq.values()),
+          "the kernels' launch totals differ from their counts by entry")
+    d.collect()
+    wrong = {name: v for name, v, lim in d.check() if v > lim}
+    check(not wrong, f"verified epochs against the closed form: {wrong}")
+    per_epoch = {k: sum(v.values()) for k, v in counts.items()}
+    print(f"main path: {1 + VERIFY_EPOCHS} verified epochs ok, launches an epoch {per_epoch} "
+          f"as launch_counts(), every U, W and the last verdicts the closed form's, "
+          f"{d.rejected} shares rejected; {epoch_ms:.2f} ms an epoch wall {tag}")
+    return {"n_ct": n, "share_checks": m, "ciphertext_checks": n, "forged": r * n,
+            "epochs": VERIFY_EPOCHS, "launches_per_epoch": per_epoch,
+            "launch_counts": counts, "rejected": d.rejected, "epoch_ms_wall": epoch_ms,
+            "max_abs_err": worst}, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
@@ -4206,6 +4337,11 @@ def main() -> int:
     # -- 33. the mesh at world size 1 on NCCL --------------------------------
     kernels[0]["mesh"], fq_entry["mesh"], b3_entry["mesh"] = mesh_plane(
         dev, tag, plain._state, 2 + EPOCHS, plain_instance0)
+    # -- 34. the verified threshold-decrypt epoch (pairing64-verify) ---------
+    t34 = time.perf_counter()
+    b3_entry["verified_epoch"], verify_err = verified_plane(dev, tag)
+    b3_entry["max_abs_err"] = max(b3_entry["max_abs_err"], verify_err)
+    print(f"phase 34: {time.perf_counter() - t34:.1f} s {tag}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,8 @@ histograms: the port's copy of hydrabadger_tpu/obs/metrics.py.
 Every metric name the port mints is declared here, each constant with
 the JAX package's identifier and string where the JAX package has the
 name; the names only the port mints (the verify-batch counters of the
-card's signature batches) sit beside them.  The JAX package's
+card's signature batches, the verified threshold-decrypt epoch's) sit
+beside them.  The JAX package's
 retrace_sigs_ and mul_batch_* families have no counterpart: the port
 has no jit entry points and no padded scalar-mul lanes.  The contract
 is machine-checked by `python -m hydrabadger_tpu_torch.lint`
@@ -46,6 +47,13 @@ BYTES_RX_BY_KIND_PREFIX = "bytes_rx_by_kind_"
 VERIFY_DEVICE_BATCHES = "verify_batch_device_batches"
 VERIFY_DEVICE_LANES = "verify_batch_device_lanes"
 VERIFY_TO_POINTS_MS = "verify_batch_to_points_ms"
+
+# the verified threshold-decrypt epoch (sim/tensor.FullCryptoTensorSim with
+# verify on, ops/verify_torch): decryption shares whose pairing check failed
+# on the device, and the host seconds of issuing the verify stage, one
+# observation an epoch
+TDEC_SHARES_REJECTED = "tdec_shares_rejected"
+VERIFY_ISSUE_S = "verify_issue_s"
 
 # the sim's queue and adversary counters
 ROUTER_QUEUE_DEPTH = "router_queue_depth"

@@ -374,6 +374,11 @@ class DecryptEpoch:
 
     def __call__(self, U: torch.Tensor):
         """U [3, 12, n_ct] int32 -> (U_next [3, 12, n_ct], ok 0-d bool)."""
+        return self.finish(U, self.ladders(U))
+
+    def ladders(self, U: torch.Tensor) -> torch.Tensor:
+        """Steps 1-2: U [3, 12, n_ct] -> the S = q+1 ladders' results
+        [3, 12, S, n_ct]: the q shares U sk_i, then U (master+1)."""
         ops, n, q = self.ops, self.n_ct, self.q
         S = q + 1
         if tuple(U.shape) != (3, N_LIMBS, n) or U.device != self.device:
@@ -398,6 +403,11 @@ class DecryptEpoch:
             if need_a:
                 added2 = ops.circuit(self.circ_a, torch.cat([acc, s2], 0))
             acc = self._choose(codes2, (added2, acc, s2, acc))
+        return acc
+
+    def finish(self, U: torch.Tensor, acc: torch.Tensor):
+        """Steps 3-4: U and its ladders (`ladders`) -> (U_next, ok)."""
+        ops, n, q = self.ops, self.n_ct, self.q
         shares, direct = acc[:, :, :q], acc[:, :, q]
 
         # 3. Straus combine: U + sum_i lam_i share_i

@@ -28,7 +28,10 @@ package's, so the two simulators agree byte for byte.
 threshold encryption on: every node's decryption share of every
 proposer's ciphertext and their Lagrange combine (bench config 8), on
 ops/decrypt_torch, or with `HYDRABADGER_DECRYPT_T=0` on the generic
-full-crypto epoch (`build_full_crypto_epoch`).
+full-crypto epoch (`build_full_crypto_epoch`).  With
+`FullCryptoConfig(verify=True)` every decryption share and every
+ciphertext is checked by a pairing inside the epoch, while `faulty`
+nodes send forged shares (ops/verify_torch.VerifiedEpoch).
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from ..crypto import bls12_381 as bls
 from ..crypto import threshold as th
 from ..crypto.rs import ReedSolomon
 from ..device import resolve_device
-from ..ops import bls_torch, decrypt_torch, fq_torch, limbs, rs_torch
+from ..obs import metrics as M
+from ..ops import bls_torch, decrypt_torch, fq_torch, limbs, rs_torch, verify_torch
 from ..ops.decrypt_torch import JAC_EQ_MULS, Launch
 
 
@@ -216,12 +220,20 @@ class FullCryptoConfig:
     B*N ciphertexts per epoch, chained through U_next = U + combine so no
     epoch can be elided.  `share_chunks` is the number of sequential
     ladder launches per stage of the generic epoch (it bounds the ladders'
-    table memory); the decrypt engine does not chunk."""
+    table memory); the decrypt engine does not chunk.
+
+    `verify` checks, every epoch, every share received and every
+    ciphertext as hbbft's threshold_decrypt does (ops/verify_torch): each
+    ciphertext then carries W in G2 beside U, and its hash point H.  The
+    last `faulty` nodes are Byzantine: node n - faulty + k sends quorum
+    member k's share plus U, which every check must reject."""
 
     n_nodes: int = 64
     instances: int = 256
     seed: int = 0
     share_chunks: int = 32
+    verify: bool = False
+    faulty: int = 0
 
     @property
     def threshold(self) -> int:
@@ -323,6 +335,14 @@ def seeded_start(cfg: FullCryptoConfig, lo: int = 0, hi: Optional[int] = None):
     128-bit scalar per ciphertext).  U is [3, 12, (hi - lo) * N] int32, the
     ciphertexts of instances [lo, hi) only (lane (b - lo) * N + i): every
     scalar is drawn, one host G1 multiply is made per ciphertext kept."""
+    sks, master, u0, _ = _seeded_ciphertexts(cfg, lo, hi)
+    return sks, master, u0
+
+
+def _seeded_ciphertexts(cfg: FullCryptoConfig, lo: int = 0, hi: Optional[int] = None):
+    """`seeded_start`, and with `cfg.verify` each kept ciphertext's (W, H)
+    as crypto/threshold encrypts: a 32-byte V per ciphertext drawn after
+    every scalar r, H = H_G2(U, V) and W = H r (host points); else None."""
     hi = cfg.instances if hi is None else hi
     if not 0 <= lo < hi <= cfg.instances:
         raise ValueError(f"instances [{lo}, {hi}) outside [0, {cfg.instances})")
@@ -331,8 +351,13 @@ def seeded_start(cfg: FullCryptoConfig, lo: int = 0, hi: Optional[int] = None):
     sk_set = th.SecretKeySet.random(cfg.threshold, rng)
     sks = [sk_set.secret_key_share(i).scalar for i in range(n)]
     r0 = [rng.getrandbits(128) for _ in range(cfg.instances * n)]
-    u0 = limbs.points_to_limbs([bls.mul_sub(bls.G1, r) for r in r0[lo * n:hi * n]])
-    return sks, sk_set.secret_key().scalar, u0
+    us = [bls.mul_sub(bls.G1, r) for r in r0[lo * n:hi * n]]
+    wh = None
+    if cfg.verify:
+        vs = [rng.getrandbits(256).to_bytes(32, "big") for _ in range(cfg.instances * n)]
+        hs = [th._te_hash(th.Ciphertext(u, v, None)) for u, v in zip(us, vs[lo * n:hi * n])]
+        wh = ([bls.mul_sub(h, r) for h, r in zip(hs, r0[lo * n:hi * n])], hs)
+    return sks, sk_set.secret_key().scalar, limbs.points_to_limbs(us), wh
 
 
 class FullCryptoTensorSim:
@@ -350,7 +375,17 @@ class FullCryptoTensorSim:
     JAX reads it: "0" selects the generic epoch (`build_full_crypto_epoch`, whose
     divisibility rule on `share_chunks` it then asserts), "1" or unset
     the decrypt engine (ops/decrypt_torch) on every device.  `self.epoch`
-    is the engine; its `launch_counts()` gives one epoch's launches.
+    is the engine; `launch_counts()` gives one epoch's launches.
+
+    With `cfg.verify` the engine is ops/verify_torch.VerifiedEpoch over
+    the decrypt engine: the state adds W [3, 2, 12, B*N] (`w_state()`),
+    the sim's adversary hands it the faulty nodes' forged shares
+    (`_forged`) beside the quorum's, `run`'s verdict folds in every share
+    and ciphertext check and fails where a forged share passed, and the
+    epochs' failed share checks are counted on the device and read at
+    the verdict's one sync (`rejected_total`; `last_verdicts()` gives the
+    last epoch's).  The seeded sim encrypts as crypto/threshold does
+    (H = H_G2(U, V), W = H r).
     """
 
     def __init__(self, cfg: Optional[FullCryptoConfig] = None, device="cuda",
@@ -369,30 +404,45 @@ class FullCryptoTensorSim:
         return sim
 
     def _seeded(self, cfg: FullCryptoConfig, lo: int, hi: int, device, use_kernel: bool):
-        sks, master, u0 = seeded_start(cfg, lo, hi)
+        sks, master, u0, wh = _seeded_ciphertexts(cfg, lo, hi)
+        w0, hs = (None, None) if wh is None else (limbs.g2_points_to_limbs(wh[0]), wh[1])
         self._setup(replace(cfg, instances=hi - lo), u0, sks, master,
-                    list(range(cfg.threshold + 1)), resolve_device(device), use_kernel)
+                    list(range(cfg.threshold + 1)), resolve_device(device), use_kernel, w0, hs)
 
     @classmethod
     def from_jax(cls, U, sks: Sequence[int], master: int, quorum: Sequence[int],
-                 device="cuda", use_kernel: bool = True, share_chunks: int = 1):
+                 device="cuda", use_kernel: bool = True, share_chunks: int = 1,
+                 W=None, H=None, faulty: int = 0):
         """Resume from a JAX `FullCryptoTensorSim`: its `_U` read as numpy
         ([instances, n_nodes, 3, 32] int32 12-bit limbs), `_sks`,
         `_master` and `_quorum`, into the engine `HYDRABADGER_DECRYPT_T`
-        selects (`share_chunks` sizes the generic epoch's launches)."""
+        selects (`share_chunks` sizes the generic epoch's launches).
+        With W and H (each [instances, n_nodes, 3, 2, 32] G2 points in the
+        same limbs: every ciphertext's W and hash point) the sim verifies,
+        the last `faulty` nodes forging."""
         U = np.asarray(U)
         if U.ndim != 4 or U.shape[2:] != (3, limbs.JAX_N_LIMBS) or U.shape[1] != len(sks):
             raise ValueError(f"expected [instances, {len(sks)}, 3, 32] limbs, got {U.shape}")
         cfg = FullCryptoConfig(n_nodes=U.shape[1], instances=U.shape[0],
-                               share_chunks=share_chunks)
+                               share_chunks=share_chunks, verify=W is not None, faulty=faulty)
         if list(quorum) != list(range(cfg.threshold + 1)):
             raise ValueError("the port runs the fixed lowest-(t+1) quorum")
+        if faulty and not cfg.verify:
+            raise ValueError("faulty nodes forge shares only where the sim verifies (W, H)")
+        w0 = hs = None
+        if cfg.verify:
+            g2_shape = U.shape[:2] + (3, 2, limbs.JAX_N_LIMBS)
+            if np.shape(W) != g2_shape or np.shape(H) != g2_shape:
+                raise ValueError(f"expected W and H of shape {g2_shape}")
+            w0 = limbs.g2_limbs_from_jax(W)
+            hs = limbs.limbs_to_g2_points(limbs.g2_limbs_from_jax(H))
         sim = cls.__new__(cls)
         sim._setup(cfg, limbs.limbs_from_jax(U), list(sks), master, list(quorum),
-                   resolve_device(device), use_kernel)
+                   resolve_device(device), use_kernel, w0, hs)
         return sim
 
-    def _setup(self, cfg, u0: np.ndarray, sks, master: int, quorum, dev, use_kernel):
+    def _setup(self, cfg, u0: np.ndarray, sks, master: int, quorum, dev, use_kernel,
+               w0: Optional[np.ndarray] = None, hs: Optional[Sequence] = None):
         self.cfg = cfg
         self.device = dev
         self.use_kernel = use_kernel
@@ -407,7 +457,23 @@ class FullCryptoTensorSim:
         self._U = torch.from_numpy(u0).to(dev)
         self._U_prev = None  # the state before the last epoch (oracle_check)
         self.generic = os.environ.get("HYDRABADGER_DECRYPT_T", "") == "0"
-        if self.generic:  # its stage 1 takes the first q key shares: the quorum
+        self._W = None
+        self.rejected_total = 0  # failed share checks over every epoch run
+        self._verdicts = None  # the last verified epoch's
+        if cfg.verify:
+            n = cfg.n_nodes
+            if self.generic:
+                raise ValueError("the verified epoch runs on the decrypt engine only")
+            if len(quorum) + cfg.faulty > n:
+                raise ValueError(f"{cfg.faulty} faulty nodes overlap the quorum of {len(quorum)}")
+            if cfg.faulty > len(quorum):
+                raise ValueError(f"{cfg.faulty} faulty nodes forge from {len(quorum)} quorum shares")
+            self.epoch = verify_torch.VerifiedEpoch(
+                sks, quorum, range(n - cfg.faulty, n), self._lam, mp1, hs, dev, use_kernel)
+            self._adversary = fq_torch.PointOps(use_kernel)
+            self._W = torch.from_numpy(np.ascontiguousarray(w0)).to(dev)
+            self._windows = ()
+        elif self.generic:  # its stage 1 takes the first q key shares: the quorum
             self.epoch = build_full_crypto_epoch(cfg.instances, cfg.n_nodes, cfg.threshold,
                                                  cfg.share_chunks, dev, use_kernel)
             # the fixed scalars' GLV digits, resident on the device
@@ -423,6 +489,8 @@ class FullCryptoTensorSim:
     def run(self, epochs: int) -> bool:
         """Run epochs on the device; returns the check verdict (all lanes,
         all epochs).  The verdict is the only host sync."""
+        if self.cfg.verify:
+            return self._run_verified(epochs)
         ok = torch.ones((), dtype=torch.bool, device=self.device)
         for _ in range(epochs):
             self._U_prev = self._U
@@ -430,10 +498,69 @@ class FullCryptoTensorSim:
             ok &= ok_epoch
         return bool(ok)
 
+    def _run_verified(self, epochs: int) -> bool:
+        """`run` with every share and ciphertext checked: the verdict and
+        the failed share checks come to the host in one read."""
+        ok = torch.ones((), dtype=torch.bool, device=self.device)
+        rejected = torch.zeros((), dtype=torch.int64, device=self.device)
+        reg = M.default_registry()
+        issue = reg.histogram(M.VERIFY_ISSUE_S)
+        forged = self.cfg.faulty * self.cfg.instances * self.cfg.n_nodes
+        for _ in range(epochs):
+            self._U_prev = self._U
+            acc = self.epoch.shares(self._U)
+            self._U, self._W, ok_epoch, rej_epoch, self._verdicts = self.epoch(
+                self._U, self._W, acc, self._forged(acc, self._U))
+            ok &= ok_epoch & ~self._verdicts[:forged].any()  # no forgery passed
+            rejected += rej_epoch
+            issue.observe(self.epoch.issue_s)
+        ok_host, rejected_host = torch.stack([ok.to(torch.int64), rejected]).tolist()
+        self.rejected_total += rejected_host
+        reg.counter(M.TDEC_SHARES_REJECTED).inc(rejected_host)
+        return bool(ok_host)
+
+    def _forged(self, acc: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+        """The Byzantine nodes' shares: node n - faulty + k sends quorum
+        member k's share plus U, S_k + U, a point of G1 that is no node's
+        share, for every ciphertext: [3, 12, faulty * n_ct], one complete
+        `add` (kernel B2) over the engine's ladders `acc`."""
+        f, n_ct = self.cfg.faulty, U.shape[-1]
+        if not f:
+            return U[:, :, :0]
+        return self._adversary.add(acc[:, :, :f].reshape(3, limbs.N_LIMBS, f * n_ct),
+                                   U.repeat(1, 1, f))
+
+    def launch_counts(self) -> Dict[str, Dict[str, int]]:
+        """Kernel launches one epoch makes: the engine's, and where nodes
+        forge their shares' one B2 `add`."""
+        out = self.epoch.launch_counts()
+        if self.cfg.faulty:
+            out["fq_point"]["add"] = out["fq_point"].get("add", 0) + 1
+        return out
+
     def state(self) -> np.ndarray:
         """U in the JAX layout: [instances, n_nodes, 3, 32] int32 12-bit limbs."""
         cfg = self.cfg
         return limbs.limbs_to_jax(self._U.cpu().numpy(), (cfg.instances, cfg.n_nodes))
+
+    def w_state(self) -> np.ndarray:
+        """W in the JAX layout, [instances, n_nodes, 3, 2, 32] (verified sims)."""
+        cfg = self.cfg
+        return limbs.g2_limbs_to_jax(self._W.cpu().numpy(), (cfg.instances, cfg.n_nodes))
+
+    def last_verdicts(self) -> Dict[str, np.ndarray]:
+        """The last verified epoch's verdicts: "forged" [faulty, B, N] (node
+        n - faulty + k's forged share of each ciphertext), "quorum" [q, B, N]
+        (member i's share) and "ciphertext" [B, N]."""
+        if self._verdicts is None:
+            raise RuntimeError("last_verdicts needs a verified epoch run")
+        cfg = self.cfg
+        shape = (cfg.instances, cfg.n_nodes)
+        v = self._verdicts.cpu().numpy()
+        k, n_ct = cfg.faulty * shape[0] * shape[1], shape[0] * shape[1]
+        return {"forged": v[:k].reshape(cfg.faulty, *shape),
+                "quorum": v[k:-n_ct].reshape(-1, *shape),
+                "ciphertext": v[-n_ct:].reshape(shape)}
 
     def oracle_check(self, lanes: Sequence[int]) -> bool:
         """Hold sampled lanes of the last epoch against the host oracle:

@@ -797,6 +797,77 @@ def test_pairing_eq_batch_on_the_card_equals_the_host(card):
     assert delta == pt.schedule(3)
 
 
+@pytest.mark.parametrize("lanes", [1, 33, 1013])
+def test_affine_circuits_on_the_card_equal_plain(card, lanes):
+    """The verify stage's affine circuits, B3 against their plain versions."""
+    from hydrabadger_tpu_torch.ops import verify_torch as vt
+
+    rng = np.random.default_rng(lanes + 7)
+    for name, circ in vt.circuits().items():
+        ints = [int.from_bytes(rng.bytes(48), "little") % bls.P
+                for _ in range(circ.n_inputs * lanes)]
+        w = limbs.ints_to_limbs_batch(ints).reshape(circ.n_inputs, lanes, 12).transpose(0, 2, 1)
+        x = torch.from_numpy(np.ascontiguousarray(w)).to(card)
+        assert torch.equal(circ(x), circ.plain(x)), name
+
+
+def _launches():
+    return (fq_torch.launches, circuit_torch.launches, fq2_torch.launches)
+
+
+def test_verified_sim_on_the_card_equals_the_plain_versions(card):
+    """4 nodes x 2 instances, f = 1 forging, two epochs: the kernels' state,
+    W, verdicts and rejections equal the plain versions' on the card, with
+    the launches `launch_counts` gives."""
+    cfg = ts.FullCryptoConfig(n_nodes=4, instances=2, seed=5, verify=True, faulty=1)
+    sim = ts.FullCryptoTensorSim(cfg, device="cuda")
+    plain = ts.FullCryptoTensorSim(cfg, device="cuda", use_kernel=False)
+    counts = sim.launch_counts()
+    for epoch in range(2):
+        before = _launches()
+        assert sim.run(1) and plain.run(1)
+        after = _launches()
+        assert [a - b for a, b in zip(after, before)] == [
+            sum(counts[k].values()) for k in ("fq_point", "circuit", "fq2_point")]
+        assert np.array_equal(sim.state(), plain.state())
+        assert np.array_equal(sim.w_state(), plain.w_state())
+        got, want = sim.last_verdicts(), plain.last_verdicts()
+        assert all(np.array_equal(got[k], want[k]) for k in want)
+        assert not got["forged"].any() and got["quorum"].all() and got["ciphertext"].all()
+        assert sim.rejected_total == plain.rejected_total == (epoch + 1) * 8
+    assert sim.oracle_check(range(8))
+
+
+def test_verified_epoch_at_the_cell_geometry_equals_its_plain_versions(card):
+    """pairing64-verify's geometry (64 nodes, f = 21, 512 ciphertexts): one
+    epoch's verify stage on B3 (22,528 checks) and W's ladder on B4 against
+    their plain versions on the same operands, every verdict the closed
+    form's (quorum and ciphertexts valid, forged shares not)."""
+    import json
+    from pathlib import Path
+
+    from benchmark.drivers import tpke_byz
+
+    root = Path(__file__).resolve().parents[1] / "benchmark"
+    config = json.loads((root / "configs/hb64-tpke-byz.json").read_text())
+    d = tpke_byz.Driver(config, json.loads((root / "workloads/inst8.json").read_text()),
+                        2**31 + 5, "cuda")
+    d.make_inputs()
+    d.build_system()
+    ep, U, W = d.sim.epoch, d.sim._U, d.sim._W
+    n, q, f = ep.n_ct, ep.q, ep.r
+    acc = ep.shares(U)
+    shares = torch.cat([d.sim._forged(acc, U), acc[:, :, :q].reshape(3, 12, q * n)], -1)
+    got = ep.checks(shares, U, W)
+    ep.checks.use_kernel = False
+    assert torch.equal(got, ep.checks(shares, U, W))
+    want = torch.ones(((f + q + 1) * n,), dtype=torch.bool, device=card)
+    want[: f * n] = False
+    assert torch.equal(got, want)
+    w_next = g2.g2_scalar_mul_windowed(W, ep._windows)
+    assert torch.equal(w_next, g2.g2_scalar_mul_windowed(W, ep._windows, use_kernel=False))
+
+
 def test_attacked_lowcomm_sim_on_the_card_equals_the_cpu(card):
     """config 11's attack at 4 nodes with the low-comm broadcast on
     GpuEngine: the honest batches, injections and faults of the host

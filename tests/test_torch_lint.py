@@ -1326,7 +1326,8 @@ def test_registry_keeps_every_jax_entry():
 def test_metric_names_match_the_jax_constants():
     """Every metric constant the port declares has JAX's identifier and
     string where JAX has the name; JAX's retrace and mul-batch families have
-    no counterpart, and the verify-batch counters are the port's own."""
+    no counterpart, and the verify-batch counters and the verified
+    threshold-decrypt epoch's are the port's own."""
     from hydrabadger_tpu.obs import metrics as jm
     from hydrabadger_tpu_torch.obs import metrics as pm
 
@@ -1339,7 +1340,8 @@ def test_metric_names_match_the_jax_constants():
     assert set(theirs) - set(ours) == {"MUL_BATCH_LANES", "MUL_BATCH_PAD_LANES",
                                        "MUL_BATCH_REAL_LANES", "RETRACE_SIGS_PREFIX"}
     assert set(ours) - set(theirs) == {"VERIFY_DEVICE_BATCHES", "VERIFY_DEVICE_LANES",
-                                       "VERIFY_TO_POINTS_MS"}
+                                       "VERIFY_TO_POINTS_MS", "TDEC_SHARES_REJECTED",
+                                       "VERIFY_ISSUE_S"}
     assert pm.EPOCH_REPLAYS == "epoch_replays"
 
 
